@@ -6,21 +6,32 @@
 Phases, each fatal on failure (no result line is printed then):
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the three Hopper kernels from citus_tpu_torch/csrc (nvcc,
+2. build the five Hopper kernels from citus_tpu_torch/csrc (nvcc,
    one process per source, started together);
 3. generate TPC-H at --sf (6.0M lineitem rows at SF1) and load customer,
    orders and lineitem through the port's own DDL, distribution and
-   ingest into a temporary data_dir (shard_count 8);
-4. the main path: with every kernel launch count at 0, run TPC-H Q1, Q3
-   and the high-cardinality GROUP BY through Session.execute on the GPU,
-   check each answer against a plain numpy evaluation of the same query
-   over the generated arrays, and require each kernel to have launched;
+   ingest into a temporary data_dir (shard_count 8), plus
+   lineitem_nullable: lineitem's rows with l_discount and l_tax NULL on
+   a seeded 10% of rows each;
+4. the main path, under the default scan_pipeline=auto (device decode
+   on a CUDA session): with every kernel launch count at 0, run TPC-H
+   Q1, Q3, the high-cardinality GROUP BY and a NULL-aware aggregate over
+   lineitem_nullable through Session.execute on the GPU, check each
+   answer against a plain numpy evaluation of the same query over the
+   generated arrays, and require each kernel to have launched on the
+   query that carries it;
 5. hold each kernel against its plain PyTorch version on the inputs the
    main path gave it, and time kernel, plain version and one library
-   call against the card's bound;
-6. time warm runs of the three queries (rows/s), and profile one more
-   warm run of each (device busy time, idle share, heaviest kernels);
-7. print the kernels line, then the device line last.
+   call (where one exists) against the card's bound;
+6. scan modes: for Q1 and the nullable query, one fresh session per
+   scan_pipeline mode (off, host, device, then device, host, off) on
+   the same data_dir: first-run wall, the pipeline's phase split and
+   wire/decoded bytes, the answers against numpy, and the ledger's
+   prefetch bytes back at 0; then the link's copy time for those bytes;
+7. time warm runs of Q1, Q3 and the GROUP BY (rows/s), and profile one
+   more warm run of each (device busy time, idle share, heaviest
+   kernels);
+8. print the kernels line, then the device line last.
 
 Exits non-zero without a result when no GPU is visible or the port's
 package is not next to this script.  Imports nothing of JAX.
@@ -49,13 +60,22 @@ REPLACES = {
     "dense_grid_sum": "citus_tpu/ops/pallas_kernels.py:85",
     "bucketed_probe": "citus_tpu/ops/pallas_kernels.py:133",
     "bucketed_groupby_sums": "citus_tpu/ops/pallas_kernels.py:203",
+    "bit_unpack": "citus_tpu/ops/pallas_kernels.py:270",
+    "dict_decode": "citus_tpu/ops/pallas_kernels.py:303",
 }
 # the query of the main path that must carry each kernel
 CARRIER = {"dense_grid_sum": "Q1", "bucketed_probe": "Q3",
-           "bucketed_groupby_sums": "high_card_groupby"}
+           "bucketed_groupby_sums": "high_card_groupby",
+           "dict_decode": "Q1", "bit_unpack": "nullable"}
 
 HIGH_CARD_SQL = ("select l_orderkey, count(*), sum(l_quantity) "
                  "from lineitem group by l_orderkey")
+NULLABLE_SQL = ("select l_returnflag, l_linestatus, count(*), "
+                "count(l_discount), sum(l_discount), sum(l_tax) "
+                "from lineitem_nullable where l_shipdate <= date '1998-09-02' "
+                "group by l_returnflag, l_linestatus order by 1, 2")
+NULL_SHARE = 0.1
+SCAN_MODES = ("off", "host", "device", "device", "host", "off")
 
 
 def log(*a):
@@ -135,6 +155,71 @@ def numpy_high_card(li):
     qty = np.bincount(lidx, weights=li["l_quantity"])
     keys = np.flatnonzero(cnt) * 4 + 1
     return keys, cnt[cnt > 0], qty[cnt > 0]
+
+
+def nullable_masks(n: int):
+    """The seeded NULL positions of lineitem_nullable's l_discount and
+    l_tax."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    return rng.random(n) < NULL_SHARE, rng.random(n) < NULL_SHARE
+
+
+def load_nullable(sess, li, tpch) -> int:
+    """lineitem_nullable: lineitem's DDL (its measures are nullable),
+    shard_count 8 on l_orderkey, loaded from the generated arrays with
+    l_discount and l_tax passed as lists holding None where NULL."""
+    import numpy as np
+    from citus_tpu_torch.ingest.copy_from import _ingest_batch
+
+    sess.execute(tpch.SCHEMAS["lineitem"].replace(
+        "create table lineitem", "create table lineitem_nullable"))
+    sess.create_distributed_table("lineitem_nullable", "l_orderkey",
+                                  shard_count=8)
+    null_disc, null_tax = nullable_masks(len(li["l_orderkey"]))
+
+    def with_nulls(a, mask):
+        cells = a.tolist()
+        for i in np.flatnonzero(mask):
+            cells[i] = None
+        return cells
+
+    names = list(li)
+    batch = [with_nulls(li[c], null_disc) if c == "l_discount"
+             else with_nulls(li[c], null_tax) if c == "l_tax"
+             else list(li[c]) if li[c].dtype == object else li[c]
+             for c in names]
+    return _ingest_batch(sess, "lineitem_nullable", names, batch,
+                         pre_typed=True)[0]
+
+
+def numpy_nullable(li):
+    null_disc, null_tax = nullable_masks(len(li["l_orderkey"]))
+    m = li["l_shipdate"] <= days("1998-09-02")
+    rows = []
+    for rf in ("A", "N", "R"):
+        for ls in ("F", "O"):
+            g = m & (li["l_returnflag"] == rf) & (li["l_linestatus"] == ls)
+            n = int(g.sum())
+            if not n:
+                continue
+            rows.append((rf, ls, n, int((g & ~null_disc).sum()),
+                         li["l_discount"][g & ~null_disc].sum(),
+                         li["l_tax"][g & ~null_tax].sum()))
+    return rows
+
+
+def check_nullable(res, want):
+    got = res.rows()
+    if len(got) != len(want):
+        raise AssertionError(f"nullable: {len(got)} groups, numpy "
+                             f"{len(want)}")
+    for g, w in zip(got, want):
+        if (g[0], g[1], int(g[2]), int(g[3])) != w[:4]:
+            raise AssertionError(f"nullable keys/counts differ: {g} vs {w}")
+        if not (close(g[4], w[4]) and close(g[5], w[5])):
+            raise AssertionError(f"nullable sums differ: {g} vs {w}")
 
 
 def close(a, b, rtol=1e-4) -> bool:
@@ -255,6 +340,26 @@ def kernel_report(hk, name, args, launches):
         exact64 = None
         nbytes = nb * tile * 4 + 2 * nb * cap * 4
         ops = 0
+    elif name == "bit_unpack":
+        packed, cap = args
+        rows = packed.numel() // packed.shape[-1]
+        kern = lambda: hk.bit_unpack(packed, cap)  # noqa: E731
+        plain = lambda: hk.bit_unpack_plain(packed, cap)  # noqa: E731
+        library = None  # no single PyTorch call unpacks bits
+        exact64 = None
+        nbytes = packed.numel() + rows * cap
+        ops = 0
+    elif name == "dict_decode":
+        codes, lut = args
+        kern = lambda: hk.dict_decode(codes, lut)  # noqa: E731
+        plain = lambda: hk.dict_decode_plain(codes, lut)  # noqa: E731
+        idx = codes.to(torch.int64).reshape(-1)
+        library = lambda: torch.index_select(lut, 0, idx)  # noqa: E731
+        exact64 = None
+        nbytes = (codes.numel() * codes.element_size()
+                  + codes.numel() * lut.element_size()
+                  + lut.numel() * lut.element_size())
+        ops = 0
     else:
         loc2d, stack, tile = args
         nb, cap, a = stack.shape
@@ -302,7 +407,7 @@ def kernel_report(hk, name, args, launches):
         raise AssertionError(f"{name} disagrees with its plain version")
     ms = time_ms(kern)
     plain_ms = time_ms(plain)
-    library_ms = time_ms(library)
+    library_ms = time_ms(library) if library is not None else None
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
     rep = {"name": name, "route": "cuda",
@@ -354,6 +459,71 @@ def profile_query(sess, sql, top: int = 8) -> dict:
     return out
 
 
+def link_ms(nbytes: int, pinned: bool, reps: int = 5) -> float:
+    """Mean host→device copy time of `nbytes` (CUDA events)."""
+    import torch
+
+    host = torch.empty(max(1, nbytes), dtype=torch.uint8, pin_memory=pinned)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    host.to("cuda", non_blocking=pinned)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        host.to("cuda", non_blocking=pinned)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def scan_modes(ct, data_dir, queries, checks, want, ident) -> None:
+    """Phase 6: the first run of Q1 and the nullable query in each
+    scan_pipeline mode, one fresh session (fresh feed cache) per mode on
+    the same data_dir, in the order SCAN_MODES gives (the stripes are in
+    the page cache for every mode).  Walls are host clock around
+    Session.execute ending in a synchronize; the pipeline's phase walls
+    are host clock too, so on the card its transfer and device-decode
+    seconds are the time to enqueue the copies and kernels."""
+    import torch
+
+    from citus_tpu_torch.executor.hbm import accountant_for
+
+    acc = accountant_for(data_dir)
+    wire = {}
+    for mode in SCAN_MODES:
+        sess = ct.connect(data_dir, scan_pipeline=mode)
+        for q in ("Q1", "nullable"):
+            sess.executor.scan_stats.reset()
+            t0 = time.perf_counter()
+            res = sess.execute(queries[q])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            checks[q](res, want[q])
+            snap = sess.executor.scan_stats.snapshot()
+            prefetch = acc.live_bytes("prefetch")
+            if prefetch:
+                raise AssertionError(f"{mode} {q}: {prefetch} prefetch "
+                                     "bytes live after the statement")
+            if mode == "device" and not \
+                    0 < snap["bytes_on_wire"] < snap["bytes_decoded"]:
+                raise AssertionError(f"device {q}: wire bytes not below "
+                                     f"decoded bytes: {snap}")
+            if mode != "off" and snap["feeds_pipelined"] < 1:
+                raise AssertionError(f"{mode} {q}: no pipelined feed")
+            wire[mode, q] = snap
+            log(f"scan {mode} {q}: first run {dt!r} s, matches numpy, "
+                f"stats {json.dumps(snap)} ({ident})")
+        del sess
+    log(f"ledger {json.dumps(acc.snapshot())}, device budget "
+        f"{acc.budget_bytes('cuda')} bytes")
+    for q in ("Q1", "nullable"):
+        for key in ("bytes_on_wire", "bytes_decoded"):
+            n = wire["device", q][key]
+            log(f"link {q} device-mode {key} {n}: pinned "
+                f"{link_ms(n, True)!r} ms, pageable "
+                f"{link_ms(n, False)!r} ms ({ident})")
+
+
 # --------------------------------------------------------------------------
 
 def main() -> int:
@@ -375,6 +545,7 @@ def main() -> int:
     import numpy as np
 
     import citus_tpu_torch as ct
+    from citus_tpu_torch.executor.scanpipe import resolve_scan_mode
     from citus_tpu_torch.ingest import tpch
     from citus_tpu_torch.ops import hopper_kernels as hk
 
@@ -402,22 +573,31 @@ def main() -> int:
                                   tables={"customer", "orders", "lineitem"})
         log(f"load {counts}: {time.perf_counter() - t0:.3f} s")
         li, orders, cust = data["lineitem"], data["orders"], data["customer"]
+        t0 = time.perf_counter()
+        counts["lineitem_nullable"] = load_nullable(sess, li, tpch)
+        log(f"load lineitem_nullable {counts['lineitem_nullable']}: "
+            f"{time.perf_counter() - t0:.3f} s")
         want = {"Q1": numpy_q1(li), "Q3": numpy_q3(cust, orders, li),
-                "high_card_groupby": numpy_high_card(li)}
+                "high_card_groupby": numpy_high_card(li),
+                "nullable": numpy_nullable(li)}
         checks = {"Q1": check_q1, "Q3": check_q3,
-                  "high_card_groupby": check_high_card}
+                  "high_card_groupby": check_high_card,
+                  "nullable": check_nullable}
         queries = {"Q1": tpch.QUERIES["Q1"], "Q3": tpch.QUERIES["Q3"],
-                   "high_card_groupby": HIGH_CARD_SQL}
+                   "high_card_groupby": HIGH_CARD_SQL,
+                   "nullable": NULLABLE_SQL}
         rows = {"Q1": counts["lineitem"],
                 "Q3": counts["customer"] + counts["orders"]
                 + counts["lineitem"],
                 "high_card_groupby": counts["lineitem"]}
+        log(f"scan_pipeline {sess.settings.get('scan_pipeline')!r} resolves "
+            f"to {resolve_scan_mode(sess.settings, sess.device)!r}")
 
         # the main path, with the kernels' inputs recorded on the way
         recorders = {n: Recorder(hk, n) for n in hk.KERNELS}
         for r in recorders.values():
             r.install()
-        launches = {n: 0 for n in hk.KERNELS}
+        per_query = {}
         try:
             hk.reset_launch_counts()
             for q, sql in queries.items():
@@ -427,22 +607,27 @@ def main() -> int:
                 torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
                 checks[q](res, want[q])
-                delta = {n: hk.LAUNCHES[n] - before[n] for n in hk.KERNELS}
+                per_query[q] = {n: hk.LAUNCHES[n] - before[n]
+                                for n in hk.KERNELS}
                 log(f"{q}: {res.row_count} rows, matches numpy, first run "
-                    f"{dt:.3f} s, kernel launches {delta}")
+                    f"{dt:.3f} s, kernel launches {per_query[q]}")
             launches = dict(hk.LAUNCHES)
         finally:
             for r in recorders.values():
                 r.remove()
         for name, q in CARRIER.items():
-            if launches[name] <= 0:
+            if per_query[q][name] <= 0:
                 raise AssertionError(f"{name} never launched on the main "
-                                     f"path (expected on {q})")
+                                     f"path's {q}")
 
         reports = [kernel_report(hk, n, recorders[n].args, launches[n])
                    for n in hk.KERNELS]
 
-        for q, sql in queries.items():
+        scan_modes(ct, os.path.join(tmp, "data"), queries, checks, want,
+                   ident)
+
+        for q in ("Q1", "Q3", "high_card_groupby"):
+            sql = queries[q]
             best = None
             for _ in range(args.reps):
                 t0 = time.perf_counter()

@@ -111,6 +111,20 @@ _register(ConfigVar(
     "is refused before it allocates. 0 disables the guard.",
     int, min_value=0, max_value=1 << 44))
 _register(ConfigVar(
+    "scan_pipeline", "auto",
+    "Columnar scan feed pipeline (executor/scanpipe.py): 'off' = the "
+    "eager read-everything-then-transfer path; 'host' = prefetch + "
+    "native-codec decode on a producer thread overlapped with device "
+    "placement, column by column; 'device' = host pipeline plus "
+    "on-device decode — frame-of-reference packed ints, dictionary-"
+    "coded low-NDV columns and bit-packed validity planes cross the "
+    "wire and expand on the GPU (the bit_unpack / dict_decode CUDA "
+    "kernels). 'auto' picks device on a CUDA session and host on a CPU "
+    "one, engaging only above a small row floor. No reference GUC — "
+    "the analogue is the columnar reader's chunk streaming, "
+    "columnar_reader.c:323.",
+    str, choices=("auto", "off", "host", "device")))
+_register(ConfigVar(
     "columnar_stripe_row_limit", 150_000,
     "Rows per stripe (ref default 150000, columnar/README.md:96-112).",
     int, min_value=1_000, max_value=10_000_000))

@@ -69,6 +69,18 @@ class ExecutionError(CitusTpuError):
     """Runtime failure during distributed execution."""
 
 
+class ResourceExhausted(ExecutionError):
+    """Device memory could not be made to fit: the clean, client-facing
+    error (the reference fails such a query with 53200 out_of_memory)."""
+
+
+class DeviceMemoryExhausted(ResourceExhausted):
+    """A device allocation failed (torch.cuda.OutOfMemoryError, or the
+    accountant's armed MemSim budget).  Raised at the device-placement
+    seam (executor/hbm.py).  The pipelined scan sheds to the eager path
+    on it; elsewhere it surfaces as a clean ResourceExhausted."""
+
+
 class CapacityOverflowError(ExecutionError):
     """A static-capacity device buffer overflowed (join/shuffle output).
 

@@ -184,7 +184,11 @@ class FeedCache:
     """LRU byte-bounded cache of device-resident table feeds.
 
     Thread-safe; an evicted entry's tensors stay alive for any thread
-    already holding them (tensors are reference-counted)."""
+    already holding them (tensors are reference-counted).  Eager and
+    pipelined feeds are cached alike; their tensors carry the
+    accountant's ``cache`` charge, released when the last holder of an
+    evicted entry's tensors drops them.  Entries hold no views of placed
+    tensors, so the charge never outlives or undercounts the memory."""
 
     def __init__(self, max_bytes: int = 4 << 30):
         self.max_bytes = max_bytes

@@ -8,9 +8,12 @@ reads here unchanged.  Reference tables feed the same way, marked
 replicated.  Shard pruning (ScanNode.pruned_shards) and chunk min/max
 skipping apply host-side before anything is copied.
 
-Placement goes through one seam, `place`, which copies a host array to
-the session device — the slim stand-in for the JAX package's accounted
-executor/hbm.py, and where its accountant will hook in.
+Every scan first tries the pipelined path (executor/scanpipe.py); the
+eager path below serves when that returns None (scan_pipeline off, a
+small table under 'auto', or a pipeline shed after a prefetch OOM) and
+is the reference semantics the pipeline is held to.  Placement goes
+through the accounted seam (executor/hbm.py): feeds built for the feed
+cache are charged as ``cache``, the rest as ``feed``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..planner.plan import (
 )
 from ..storage import TableStore
 from .compiler import _round_cap
+from .scanpipe import maybe_pipelined_feed
 
 
 @dataclass
@@ -51,11 +55,6 @@ class FeedSpec:
     dev_rows: list[int] | None = None
 
 
-def place(host: np.ndarray, device) -> torch.Tensor:
-    """The one host→device placement seam."""
-    return torch.from_numpy(np.ascontiguousarray(host)).to(device)
-
-
 def walk_plan(node: PlanNode):
     yield node
     if isinstance(node, JoinNode):
@@ -66,14 +65,18 @@ def walk_plan(node: PlanNode):
 
 
 def build_feeds(plan: QueryPlan, catalog: Catalog, store: TableStore,
-                device, compute_dtype=np.float32, cache=None
-                ) -> dict[int, FeedSpec]:
+                device, compute_dtype, cache, accountant,
+                stats) -> dict[int, FeedSpec]:
+    """One FeedSpec per scan node, placed through `accountant` (the
+    data_dir's DeviceMemoryAccountant); `stats` (a ScanPhaseStats)
+    collects the pipelined scans' phase walls."""
     feeds: dict[int, FeedSpec] = {}
     for node in walk_plan(plan.root):
         if isinstance(node, ScanNode):
             feeds[id(node)] = _feed_scan_cached(node, catalog, store, device,
                                                 plan.n_devices,
-                                                compute_dtype, cache)
+                                                compute_dtype, cache,
+                                                accountant, stats)
     return feeds
 
 
@@ -135,12 +138,16 @@ def make_chunk_filter(filter_expr, storage_name=None):
 
 
 def _feed_scan_cached(node: ScanNode, catalog: Catalog, store: TableStore,
-                      device, n_dev: int, compute_dtype, cache) -> FeedSpec:
+                      device, n_dev: int, compute_dtype, cache, accountant,
+                      stats) -> FeedSpec:
     """Device-feed cache wrapper keyed on (table, data version, columns,
-    pruning, placement, skip filter) — see executor/cache.py."""
+    pruning, placement, skip filter) — see executor/cache.py.  Eager and
+    pipelined feeds share the key: both hold the same rows in the same
+    places."""
     table = node.rel.table
     if cache is None:
-        return _feed_scan(node, catalog, store, device, n_dev, compute_dtype)
+        return _feed_scan(node, catalog, store, device, n_dev, compute_dtype,
+                          accountant, "feed", stats)
     shards = catalog.table_shards(table)
     placement_sig = tuple(
         (s.shard_id, catalog.active_placement(s.shard_id).node_id)
@@ -155,7 +162,10 @@ def _feed_scan_cached(node: ScanNode, catalog: Catalog, store: TableStore,
     entry = cache.get(key)
     if entry is None:
         cache.invalidate_table(table, keep_version=key[1])
-        spec = _feed_scan(node, catalog, store, device, n_dev, compute_dtype)
+        # charged as "cache" from the start: the tensors become
+        # cache-resident below and release when the entry is evicted
+        spec = _feed_scan(node, catalog, store, device, n_dev, compute_dtype,
+                          accountant, "cache", stats)
         from .cache import CachedFeed
 
         nbytes = sum(t.numel() * t.element_size()
@@ -172,9 +182,15 @@ def _feed_scan_cached(node: ScanNode, catalog: Catalog, store: TableStore,
 
 
 def _feed_scan(node: ScanNode, catalog: Catalog, store: TableStore,
-               device, n_dev: int, compute_dtype) -> FeedSpec:
+               device, n_dev: int, compute_dtype, accountant,
+               category: str, stats) -> FeedSpec:
     if n_dev != 1:
         raise ExecutionError("the port executes on one device")
+    pipelined = maybe_pipelined_feed(node, catalog, store, device,
+                                     compute_dtype, accountant, category,
+                                     stats)
+    if pipelined is not None:
+        return pipelined
     rel = node.rel
     meta = catalog.table(rel.table)
     colnames = [cid.split(".", 1)[1] for cid in node.columns]
@@ -209,6 +225,10 @@ def _feed_scan(node: ScanNode, catalog: Catalog, store: TableStore,
             vals_l[c].append(vals[c])
             mask_l[c].append(mask[c])
     cap = _round_cap(max(rows, 1))
+
+    def place(host: np.ndarray) -> torch.Tensor:
+        return accountant.place(host, device, category)
+
     arrays, nulls = {}, {}
     for cid, cname in zip(node.columns, colnames):
         dtype = rel.schema.column(cname).dtype.numpy_dtype
@@ -221,10 +241,10 @@ def _feed_scan(node: ScanNode, catalog: Catalog, store: TableStore,
             if not m.all():
                 nbuf = np.zeros(cap, dtype=bool)
                 nbuf[:rows] = ~m
-                nulls[cid] = place(nbuf, device)
-        arrays[cid] = place(buf, device)
+                nulls[cid] = place(nbuf)
+        arrays[cid] = place(buf)
     valid = np.zeros(cap, dtype=bool)
     valid[:rows] = True
     return FeedSpec(node=node, sharded=sharded, arrays=arrays, nulls=nulls,
-                    valid=place(valid, device), capacity=cap,
+                    valid=place(valid), capacity=cap,
                     dev_rows=[rows] if sharded else None)

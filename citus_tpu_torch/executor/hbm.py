@@ -1,0 +1,275 @@
+"""Device-memory accountant: the ONE host→device placement seam.
+
+Counterpart of citus_tpu/executor/hbm.py, pruned to one device.  Every
+feed tensor the port puts on its device flows through
+`DeviceMemoryAccountant.place` (or `adopt`, for tensors a device decode
+produced), which charges a measured ledger of live bytes, turns an
+allocator OOM into the classified `DeviceMemoryExhausted`, and hangs a
+``weakref.finalize`` off the returned tensor so the charge is released
+the moment the tensor is garbage.  Attach the finalizer to the tensor
+the feed holds — never to a view or to `untyped_storage()` (a new
+Python object on every call): handing a view past the feed would
+release the charge while the memory is still live.
+
+`MemSim` arms a simulated byte budget (or a fail-at-allocation-N
+trigger) at the seam, so tests sweep OOMs on hardware that never runs
+out.
+
+Charge categories:
+
+* ``feed``     — transient statement-scoped table feeds
+* ``cache``    — feed-cache-resident tensors (released on eviction)
+* ``prefetch`` — pipelined-scan buffers placed ahead of consumption
+                 (executor/scanpipe.py); graduate to their final
+                 category through `recharge` when adopted
+* ``other``    — anything else routed through the seam
+
+Not in this slice (ROADMAP queue A item 5): `lease` for plan buffers,
+the eviction registry (`evict_evictable`), `resize_mesh`, the
+degradation ladder, and the multi-slice `place_sharded_slices` seam —
+on one device a sharded buffer is one `place`.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import weakref
+
+import numpy as np
+import torch
+
+from ..errors import DeviceMemoryExhausted
+
+CATEGORIES = ("feed", "cache", "prefetch", "other")
+
+# substring MemSim (deliberately, like the XLA allocator in the JAX
+# package) puts in every simulated OOM message
+_OOM_TOKEN = "RESOURCE_EXHAUSTED"
+
+
+def is_resource_exhausted(exc: BaseException) -> bool:
+    """Does this exception report a device-allocator OOM?"""
+    return isinstance(exc, torch.cuda.OutOfMemoryError) or \
+        _OOM_TOKEN in str(exc)
+
+
+class MemSim:
+    """One simulated device-memory lifetime: arm with ``budget`` (bytes;
+    a charge that would exceed it OOMs) and/or ``fail_at=N`` (the N-th
+    charge through the seam OOMs once, 1-based).  Journals every
+    charge."""
+
+    def __init__(self, budget: int | None = None,
+                 fail_at: int | None = None):
+        self.budget = budget
+        self.fail_at = fail_at
+        self.allocs = 0
+        self.oom_raised = 0
+        self.journal: list[tuple[int, str, int]] = []
+
+
+def _host_tensor(host) -> torch.Tensor:
+    if isinstance(host, torch.Tensor):
+        return host
+    return torch.from_numpy(np.ascontiguousarray(host))
+
+
+class DeviceMemoryAccountant:
+    """Measured live device bytes for one data_dir's device."""
+
+    def __init__(self, data_dir: str):
+        self.data_dir = data_dir
+        # REENTRANT: _release runs from weakref finalizers, which the
+        # interpreter may fire at ANY allocation point — including gc
+        # triggered inside a _charge that already holds the lock.  A
+        # plain Lock would self-deadlock there; with an RLock the
+        # nested _release interleaves safely (it touches only its own
+        # handle's entry)
+        self._mu = threading.RLock()
+        self._next_handle = 0
+        self._live: dict[int, tuple[str, int]] = {}
+        self._live_total = 0
+        self._live_by_cat: dict[str, int] = {c: 0 for c in CATEGORIES}
+        self.peak_bytes = 0
+        self.charges_total = 0
+        self.releases_total = 0
+        self.oom_total = 0
+        self._sim: MemSim | None = None
+
+    # -- the seam ----------------------------------------------------------
+    def place(self, host, device, category: str = "feed") -> torch.Tensor:
+        """Copy one host array (numpy, or a CPU tensor — pinned ones copy
+        asynchronously on the current stream) to `device` through the
+        accounted seam.  Raises DeviceMemoryExhausted when the allocator
+        (real or simulated) refuses.  On the CPU the tensor shares the
+        host array's memory."""
+        out, _handle = self.place_tracked(host, device, category)
+        return out
+
+    def place_tracked(self, host, device, category: str = "feed"):
+        """`place` returning ``(tensor, charge_handle)`` — the pipelined
+        scan places columns under ``prefetch`` while they sit in its
+        queue and graduates the charge via `recharge` on adoption."""
+        # fault seam executor.hbm_exhausted: not in this slice (queue A
+        # item 6), citus_tpu/executor/hbm.py:156
+        t = _host_tensor(host)
+        nbytes = t.numel() * t.element_size()
+        handle = self._charge(category, nbytes)
+        try:
+            out = t.to(device, non_blocking=t.is_pinned())
+        except Exception as e:
+            self._release(handle)
+            if is_resource_exhausted(e):
+                self._count_oom()
+                err = DeviceMemoryExhausted(
+                    f"device allocator OOM placing {nbytes} bytes "
+                    f"(category {category!r}): {e}")
+                err.nbytes = nbytes
+                raise err from e
+            raise
+        weakref.finalize(out, self._release, handle)
+        return out, handle
+
+    def recharge(self, handle: int, category: str) -> None:
+        """Move a live charge to another category.  A handle whose charge
+        already released is a no-op."""
+        if category not in CATEGORIES:
+            category = "other"
+        with self._mu:
+            entry = self._live.get(handle)
+            if entry is None:
+                return
+            old_cat, nbytes = entry
+            if old_cat == category:
+                return
+            self._live[handle] = (category, nbytes)
+            self._live_by_cat[old_cat] -= nbytes
+            self._live_by_cat[category] += nbytes
+
+    def adopt(self, tensor: torch.Tensor, category: str = "feed") -> None:
+        """Charge a device tensor the seam did NOT place (the output of
+        an on-device decode), released by the tensor's finalizer."""
+        handle = self._charge(category,
+                              tensor.numel() * tensor.element_size())
+        weakref.finalize(tensor, self._release, handle)
+
+    # -- ledger ------------------------------------------------------------
+    def _charge(self, category: str, nbytes: int) -> int:
+        if category not in CATEGORIES:
+            category = "other"
+        with self._mu:
+            sim = self._sim
+            if sim is not None:
+                sim.allocs += 1
+                sim.journal.append((sim.allocs, category, nbytes))
+                fail = sim.fail_at is not None and sim.allocs == sim.fail_at
+                would = self._live_total + nbytes
+                over = sim.budget is not None and would > sim.budget
+                if fail or over:
+                    sim.oom_raised += 1
+                    self.oom_total += 1
+                    why = (f"armed at allocation {sim.fail_at}" if fail
+                           else f"budget {sim.budget} bytes, live would "
+                                f"reach {would}")
+                    err = DeviceMemoryExhausted(
+                        f"{_OOM_TOKEN} (MemSim): allocation {sim.allocs} "
+                        f"of {nbytes} bytes (category {category!r}) "
+                        f"refused — {why}")
+                    err.nbytes = nbytes
+                    raise err
+            self._next_handle += 1
+            handle = self._next_handle
+            self._live[handle] = (category, nbytes)
+            self._live_total += nbytes
+            self._live_by_cat[category] += nbytes
+            self.charges_total += 1
+            if self._live_total > self.peak_bytes:
+                self.peak_bytes = self._live_total
+            return handle
+
+    def _release(self, handle: int) -> None:
+        with self._mu:
+            entry = self._live.pop(handle, None)
+            if entry is None:
+                return
+            category, nbytes = entry
+            self._live_total -= nbytes
+            self._live_by_cat[category] -= nbytes
+            self.releases_total += 1
+
+    def _count_oom(self) -> None:
+        with self._mu:
+            self.oom_total += 1
+
+    # -- reads -------------------------------------------------------------
+    def live_bytes(self, category: str | None = None) -> int:
+        with self._mu:
+            return (self._live_total if category is None
+                    else self._live_by_cat.get(category, 0))
+
+    def budget_bytes(self, device=None) -> int:
+        """The byte ceiling of the device: an armed MemSim budget, else
+        the CUDA device's total memory.  0 = unknown (a CPU device)."""
+        with self._mu:
+            if self._sim is not None and self._sim.budget is not None:
+                return self._sim.budget
+        if device is not None and torch.device(device).type == "cuda":
+            return int(torch.cuda.get_device_properties(
+                torch.device(device)).total_memory)
+        return 0
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            snap = {
+                "live_bytes": self._live_total,
+                "peak_bytes": self.peak_bytes,
+                "charges_total": self.charges_total,
+                "releases_total": self.releases_total,
+                "oom_total": self.oom_total,
+                "memsim_armed": self._sim is not None,
+                "memsim_budget": (self._sim.budget
+                                  if self._sim is not None else None),
+                "memsim_allocs": (self._sim.allocs
+                                  if self._sim is not None else 0),
+            }
+            for c in CATEGORIES:
+                snap[f"live_{c}_bytes"] = self._live_by_cat[c]
+        return snap
+
+    # -- simulation --------------------------------------------------------
+    def install_sim(self, sim: MemSim | None) -> None:
+        with self._mu:
+            self._sim = sim
+
+
+# process-wide registry: sessions sharing a data_dir share the device,
+# so they share ONE ledger
+_registry: dict[str, DeviceMemoryAccountant] = {}
+_registry_mu = threading.Lock()
+
+
+def accountant_for(data_dir: str) -> DeviceMemoryAccountant:
+    key = os.path.realpath(data_dir)
+    with _registry_mu:
+        if key not in _registry:
+            _registry[key] = DeviceMemoryAccountant(key)
+        return _registry[key]
+
+
+class oom_budget:
+    """``with oom_budget(accountant, budget=..., fail_at=...) as sim:``
+    — arm a MemSim for the duration of the block."""
+
+    def __init__(self, accountant: DeviceMemoryAccountant,
+                 budget: int | None = None, fail_at: int | None = None):
+        self.accountant = accountant
+        self.sim = MemSim(budget, fail_at)
+
+    def __enter__(self) -> MemSim:
+        self.accountant.install_sim(self.sim)
+        return self.sim
+
+    def __exit__(self, *exc) -> bool:
+        self.accountant.install_sim(None)
+        return False

@@ -45,7 +45,9 @@ from .cache import (
 )
 from .compiler import Capacities, PlanCompiler, _round_cap, unpack_outputs
 from .feed import build_feeds, walk_plan
+from .hbm import accountant_for
 from .host_exprs import ColumnSource, evaluate, predicate_mask
+from .scanpipe import ScanPhaseStats
 
 MAX_RETRIES = 4
 
@@ -79,6 +81,10 @@ class Executor:
         self.device = device
         self.plan_cache = PlanCache(settings.get("max_cached_plans"))
         self.feed_cache = FeedCache(settings.get("max_cached_feed_bytes"))
+        # the data_dir's device-memory ledger (shared by every session on
+        # it) and this executor's pipelined-scan phase walls
+        self.accountant = accountant_for(store.data_dir)
+        self.scan_stats = ScanPhaseStats()
         # fingerprint → walk-index-keyed converged capacities
         self._caps_memo: dict = {}
         # fingerprints already tightened by feedback (at most once each)
@@ -92,7 +98,8 @@ class Executor:
                 self.store.refresh_if_stale(node.rel.table)
         compute_dtype = np.dtype(self.settings.get("compute_dtype"))
         feeds = build_feeds(plan, self.catalog, self.store, self.device,
-                            compute_dtype, cache=self.feed_cache)
+                            compute_dtype, self.feed_cache, self.accountant,
+                            self.scan_stats)
         topk_sig = (plan.device_topk, tuple(
             (repr(e), d, nf) for e, d, nf in plan.host_order_by)
             if plan.device_topk is not None else ())

@@ -1,12 +1,14 @@
 """Hand-written Hopper kernels for the aggregation and join-probe paths.
 
-Counterpart of citus_tpu/ops/pallas_kernels.py.  Three of its five TPU
-kernels sit on the port's main path and have a CUDA C++ twin here, each
-in its own source under citus_tpu_torch/csrc/:
+Counterpart of citus_tpu/ops/pallas_kernels.py.  Each of its five TPU
+kernels has a CUDA C++ twin here, in its own source under
+citus_tpu_torch/csrc/:
 
   dense_grid_sum         ← dense_grid_aggregate_pallas   (Q1's dense grid)
   bucketed_probe         ← bucketed_probe_pallas         (Q3's lookup)
   bucketed_groupby_sums  ← bucketed_groupby_sums_pallas  (high-card GROUP BY)
+  bit_unpack             ← bit_unpack_pallas    (null planes, device scans)
+  dict_decode            ← dict_decode_pallas   (low-NDV floats, device scans)
 
 Each wrapper dispatches on the tensor's device and nothing else: a CPU
 tensor takes the plain PyTorch version beside it (the CPU tests and the
@@ -44,6 +46,8 @@ KERNELS = {
                        "pplllp"),
     "bucketed_groupby_sums": ("bucketed_groupby_sums.cu",
                               "bucketed_groupby_sums_launch", "ppllllp"),
+    "bit_unpack": ("bit_unpack.cu", "bit_unpack_launch", "plllp"),
+    "dict_decode": ("dict_decode.cu", "dict_decode_launch", "plpllllp"),
 }
 _CTYPE = {"p": ctypes.c_void_p, "l": ctypes.c_longlong}
 
@@ -272,4 +276,62 @@ def bucketed_groupby_sums(loc2d: torch.Tensor, stack: torch.Tensor,
                 tile, dst)
         if dst is not out:
             out[:, :, c0:c1] = dst
+    return out
+
+
+# -- K4: validity-plane bit unpack ------------------------------------------
+
+def bit_unpack_plain(packed: torch.Tensor, cap: int) -> torch.Tensor:
+    """Bit 7 - (i % 8) of byte i // 8 (numpy packbits order) for i < cap."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], -1)[..., :cap].bool()
+
+
+def bit_unpack(packed: torch.Tensor, cap: int) -> torch.Tensor:
+    """packed [w] or [rows, w] uint8 (np.packbits along the last axis)
+    → [cap] or [rows, cap] bool, cap ≤ 8·w (replaces bit_unpack_pallas)."""
+    if _on_cpu(packed):
+        return bit_unpack_plain(packed, cap)
+    _check(packed, "packed", torch.uint8, packed.dim())
+    if packed.dim() not in (1, 2):
+        raise ValueError(f"packed: expected 1 or 2 dims, got {packed.dim()}")
+    w = packed.shape[-1]
+    if not 0 <= cap <= 8 * w:
+        raise ValueError(f"cap {cap} outside [0, 8·{w}]")
+    rows = packed.shape[0] if packed.dim() == 2 else 1
+    out = torch.empty(*packed.shape[:-1], cap, dtype=torch.bool,
+                      device=packed.device)
+    if rows and w and cap:
+        _launch("bit_unpack", packed, rows, w, cap, out)
+    return out
+
+
+# -- K5: dictionary decode --------------------------------------------------
+
+def dict_decode_plain(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """out[...] = lut[codes[...]]."""
+    return lut[codes.to(torch.int64)]
+
+
+def dict_decode(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """codes (any shape) uint8 or uint16, lut [nv] float32 or float64 →
+    codes' shape in lut's dtype (replaces dict_decode_pallas).  The
+    table is staged in shared memory when it fits, else read through
+    the read-only cache.  Codes are not range-checked."""
+    if _on_cpu(codes, lut):
+        return dict_decode_plain(codes, lut)
+    if codes.dtype not in (torch.uint8, torch.uint16):
+        raise TypeError(f"codes: expected uint8 or uint16, got {codes.dtype}")
+    _check(codes, "codes", codes.dtype, codes.dim())
+    if lut.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"lut: expected float32 or float64, got {lut.dtype}")
+    _check(lut, "lut", lut.dtype, 1)
+    out = torch.empty(codes.shape, dtype=lut.dtype, device=codes.device)
+    n = codes.numel()
+    if n:
+        lut_bytes = lut.numel() * lut.element_size()
+        _launch("dict_decode", codes, n, codes.element_size(), lut,
+                lut.numel(), lut.element_size(),
+                int(lut_bytes <= MAX_SMEM_BYTES), out)
     return out

@@ -70,7 +70,9 @@ class Session:
     def __init__(self, data_dir: str | None = None, device=None,
                  **settings):
         """`device=None` runs on cuda:0 and raises when no GPU is
-        visible; `device="cpu"` runs the plain formulations (tests)."""
+        visible; `device="cpu"` runs the plain formulations (tests).
+        `settings` are config variables (config.py), e.g.
+        scan_pipeline="off" for the eager feed path."""
         self.device = resolve_device(device)
         self.data_dir = data_dir or tempfile.mkdtemp(prefix="citus_port_")
         os.makedirs(self.data_dir, exist_ok=True)

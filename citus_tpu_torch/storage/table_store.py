@@ -269,6 +269,12 @@ class TableStore:
         return integrity.read_mask(
             os.path.join(self.shard_dir(table, shard_id), fname))
 
+    def shard_stripe_records(self, table: str, shard_id: int) -> list[dict]:
+        """Copies of a shard's visible stripe records, in manifest
+        order."""
+        man = self.manifest(table)
+        return [dict(r) for r in man["shards"].get(str(shard_id), [])]
+
     def column_range(self, table: str,
                      column: str) -> tuple[float, float] | None:
         """Table-wide (min, max) for a numeric/date column from manifest

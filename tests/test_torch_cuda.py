@@ -7,10 +7,11 @@ the GPU machine, which has no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Each kernel is held against a numpy oracle (np.add.at / take) and the
-wrapper's launch count; the end-to-end test holds the GPU answers to the
-port's own CPU answers on the same data_dir.  Float32 sums: rtol 1e-4,
-atol 1e-2 (atomics add in run-dependent order); gathers exact.
+Each kernel is held against a numpy oracle (np.add.at / take /
+unpackbits) and the wrapper's launch count; the end-to-end tests hold the
+GPU answers to the port's own CPU answers on the same data_dir.  Float32
+sums: rtol 1e-4, atol 1e-2 (atomics add in run-dependent order); gathers,
+bit unpacks and dictionary decodes exact.
 """
 
 import numpy as np
@@ -126,4 +127,105 @@ def test_gpu_session_matches_cpu_session(tmp_path, cuda):
                         assert x == y
     finally:
         pjoin.PROBE_BUCKET_MIN_EXTENT = saved
-    assert all(v > 0 for v in hk.LAUNCHES.values()), hk.LAUNCHES
+    # every kernel of the path: TPC-H has no NULLs, so bit_unpack is
+    # held by test_device_scan_matches_cpu_session instead
+    assert all(hk.LAUNCHES[k] > 0 for k in hk.KERNELS
+               if k != "bit_unpack"), hk.LAUNCHES
+
+
+@pytest.mark.parametrize("shape,cap", [((16,), 128), ((3, 16), 128),
+                                       ((768,), 6144), ((2, 768), 6144),
+                                       ((2, 768), 6100)])
+def test_bit_unpack_kernel(rng, cuda, shape, cap):
+    bits = rng.random(shape[:-1] + (shape[-1] * 8,)) < 0.3
+    packed = np.packbits(bits, axis=-1)
+    before = hk.LAUNCHES["bit_unpack"]
+    got = hk.bit_unpack(_to(packed, cuda), cap)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["bit_unpack"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.unpackbits(packed, axis=-1)[..., :cap]
+                                  .astype(bool))
+
+
+@pytest.mark.parametrize("code_dtype,nv", [(np.uint8, 1), (np.uint8, 37),
+                                           (np.uint16, 37),
+                                           (np.uint16, 65536)])
+@pytest.mark.parametrize("value_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", [(128,), (3, 6144)])
+def test_dict_decode_kernel(rng, cuda, nv, code_dtype, value_dtype, shape):
+    lut = rng.uniform(-1e3, 1e3, nv).astype(value_dtype)
+    codes = rng.integers(0, nv, shape).astype(code_dtype)
+    before = hk.LAUNCHES["dict_decode"]
+    got = hk.dict_decode(_to(codes, cuda), _to(lut, cuda))
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["dict_decode"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  lut[codes.astype(np.int64)])
+
+
+def _write_deletion(store, table, shard_id, record, mask):
+    """Leave a stripe as a DELETE of the JAX package leaves it: a
+    deletion bitmap beside the stripe and the manifest record pointing
+    at it (the port reads such bitmaps; it has no DML of its own)."""
+    import os
+
+    name = f"{record['file']}.del0001.npy"
+    np.save(os.path.join(store.shard_dir(table, shard_id), name), mask)
+    man = store.manifest(table)
+    for rec in man["shards"][str(shard_id)]:
+        if rec["file"] == record["file"]:
+            rec.update(deletes=name, del_version=1,
+                       live_rows=int((~mask).sum()))
+    store._save_manifest(table)
+    store.bump_data_version(table)
+
+
+def test_device_scan_matches_cpu_session(tmp_path, cuda, rng):
+    """A scan_pipeline=device session on the GPU answers like the port's
+    eager CPU path on one data_dir: NULLs in an int, a text and a float
+    column, several stripes per shard, deleted rows and chunk-skippable
+    filters.  Renamed and added columns are held against the JAX package
+    on the CPU (tests/test_torch_scanpipe.py)."""
+    import citus_tpu_torch
+    from citus_tpu_torch.ingest.copy_from import _ingest_batch
+
+    data_dir = str(tmp_path / "d")
+    cpu = citus_tpu_torch.connect(data_dir, device="cpu",
+                                  scan_pipeline="off",
+                                  columnar_stripe_row_limit=1000,
+                                  columnar_chunk_group_row_limit=256,
+                                  columnar_compression="zlib")
+    cpu.execute("create table kv (id int, v int, name text, "
+                "f double precision)")
+    cpu.create_distributed_table("kv", "id", shard_count=4)
+    n = 6000
+    ids = np.arange(n)
+    cols = [ids, [None if i % 3 == 0 else int(i * 10) for i in ids],
+            [None if i % 4 == 0 else f"n{i % 7}" for i in ids],
+            [None if i % 5 == 0 else (i % 11) * 0.25 for i in ids]]
+    _ingest_batch(cpu, "kv", ["id", "v", "name", "f"], cols, pre_typed=True)
+    shard = cpu.catalog.table_shards("kv")[1].shard_id
+    rec = cpu.store.shard_stripe_records("kv", shard)[0]
+    _write_deletion(cpu.store, "kv", shard, rec, rng.random(rec["rows"]) < 0.4)
+    gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device")
+    hk.reset_launch_counts()
+    for q in ["select count(*), sum(v) from kv",
+              "select name, count(*), min(v) from kv group by name",
+              "select count(*) from kv where v >= 15000",
+              "select count(*) from kv where v is null",
+              "select count(f), sum(f), count(*) from kv",
+              "select count(*) from kv where id = 5999"]:
+        want = sorted(cpu.execute(q).rows(), key=repr)
+        got = sorted(gpu.execute(q).rows(), key=repr)
+        assert len(got) == len(want), q
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                if isinstance(y, (float, np.floating)):
+                    assert abs(float(x) - float(y)) <= \
+                        1e-5 * max(1.0, abs(float(y))), (q, g, w)
+                else:
+                    assert x == y, (q, g, w)
+    assert hk.LAUNCHES["bit_unpack"] > 0 and hk.LAUNCHES["dict_decode"] > 0
+    assert gpu.executor.scan_stats.snapshot()["feeds_pipelined"] > 0
+    assert gpu.executor.accountant.live_bytes("prefetch") == 0

@@ -1,4 +1,4 @@
-"""The three Hopper kernels' plain versions vs the JAX Pallas kernels.
+"""The five Hopper kernels' plain versions vs the JAX Pallas kernels.
 
 On the CPU each wrapper in citus_tpu_torch/ops/hopper_kernels.py runs
 its plain PyTorch version (the tensor lies on the CPU); that version is
@@ -6,9 +6,10 @@ held here against the Pallas kernel it replaces, run with
 interpret=True exactly as tests/test_pallas_kernels.py runs it, and
 against the numpy oracles in citus_tpu/ops/pallas_kernels.py.
 Tolerances: float32 sums at rtol 1e-5, atol 1e-3 (another summation
-order); the probe gather exact.  Shapes cover the padding edges: cap not
-a multiple of 512, total + 1 crossing 512, empty buckets and garbage
-lanes.
+order); the probe gather, the bit unpack and the dictionary decode
+exact.  Shapes cover the padding edges: cap not a multiple of 512,
+total + 1 crossing 512, empty buckets and garbage lanes, 1-D and 2-D
+planes, and luts of 1 to 65,536 values.
 
 The CUDA kernels themselves are tested on the card by
 tests/test_torch_cuda.py.
@@ -19,9 +20,13 @@ import pytest
 import torch
 
 from citus_tpu.ops.pallas_kernels import (
+    bit_unpack_pallas,
+    bit_unpack_reference,
     bucketed_groupby_sums_pallas,
     bucketed_probe_pallas,
     dense_grid_aggregate_pallas,
+    dict_decode_pallas,
+    dict_decode_reference,
     groupby_sums_reference,
     pallas_available,
     probe_gather_reference,
@@ -124,6 +129,39 @@ def test_bucketed_groupby_sums_plain_matches_pallas(rng, nb, cap, tile, a):
         loc2d, stack, tile, interpret=True)), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("shape,cap", [((16,), 128), ((3, 16), 128),
+                                       ((768,), 6144), ((2, 768), 6144),
+                                       ((2, 768), 6100)])
+def test_bit_unpack_plain_matches_pallas(rng, shape, cap):
+    _pallas()
+    bits = rng.random(shape[:-1] + (shape[-1] * 8,)) < 0.3
+    packed = np.packbits(bits, axis=-1)
+    got = hk.bit_unpack(T(packed), cap).numpy()
+    assert got.dtype == np.bool_ and got.shape == shape[:-1] + (cap,)
+    np.testing.assert_array_equal(got, bit_unpack_reference(packed, cap))
+    p2 = packed.reshape(1, -1) if packed.ndim == 1 else packed
+    want = np.asarray(bit_unpack_pallas(p2, cap, interpret=True))
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("code_dtype,nv", [(np.uint8, 1), (np.uint8, 37),
+                                           (np.uint16, 37),
+                                           (np.uint16, 65536)])
+@pytest.mark.parametrize("value_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", [(128,), (2, 6144)])
+def test_dict_decode_plain_matches_pallas(rng, code_dtype, nv, value_dtype,
+                                          shape):
+    _pallas()
+    lut = rng.uniform(-1e3, 1e3, nv).astype(value_dtype)
+    codes = rng.integers(0, nv, shape).astype(code_dtype)
+    got = hk.dict_decode(T(codes), T(lut)).numpy()
+    assert got.dtype == value_dtype
+    np.testing.assert_array_equal(got, dict_decode_reference(codes, lut))
+    c2 = codes.reshape(1, -1) if codes.ndim == 1 else codes
+    want = np.asarray(dict_decode_pallas(c2, lut, interpret=True))
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting(rng):
     hk.reset_launch_counts()
     slot, vals = _k1_inputs(rng, 64, 3, 2)
@@ -132,6 +170,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting(rng):
     hk.bucketed_probe(T(dir2d), T(loc2d))
     loc, stack = _k3_inputs(rng, 2, 10, 64, 1)
     hk.bucketed_groupby_sums(T(loc), T(stack), 64)
+    hk.bit_unpack(T(np.packbits(rng.random(128) < 0.5)), 128)
+    hk.dict_decode(T(np.zeros(10, np.uint8)), T(np.ones(3, np.float32)))
     assert hk.LAUNCHES == {n: 0 for n in hk.KERNELS}
 
 
