@@ -22,7 +22,10 @@ Phases, each fatal on failure (no result line is printed then):
    query that carries it;
 5. hold each kernel against its plain PyTorch version on the inputs the
    main path gave it, and time kernel, plain version and one library
-   call (where one exists) against the card's bound;
+   call (where one exists) against the card's bound: back-to-back
+   wrapper calls (CUDA events: what a statement's thread pays), and the
+   kernel's and the library call's own device time at cold L2
+   (torch.profiler, 64 MB written between launches);
 6. scan modes: for Q1 and the nullable query, one fresh session per
    scan_pipeline mode (off, host, device, then device, host, off) on
    the same data_dir: first-run wall, the pipeline's phase split and
@@ -54,6 +57,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+# bytes copied between two scratch buffers before every launch timed on
+# the device, more than the H100's 50 MB L2: each launch finds L2 cold, as
+# a first-touch scan does
+FLUSH_BYTES = 64 << 20
+DEVICE_REPS = 24
 
 # which Pallas kernel each CUDA kernel replaces (def lines)
 REPLACES = {
@@ -309,6 +318,63 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_entries(prof):
+    """(name, device µs, count) of each device-side entry of a
+    torch.profiler run: kernels and copies.  CPU-side operator entries
+    are left out: their device time repeats their kernels'."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            out.append((e.key, us, e.count))
+    return out
+
+
+def device_ms(fn, match=None, reps: int = DEVICE_REPS,
+              tries: int = 3) -> float:
+    """Device time of fn's kernels at cold L2, from torch.profiler:
+    FLUSH_BYTES are copied between two scratch buffers before each of
+    `reps` calls.  Counted are the kernel entries (never a copy or
+    memset) whose names hold `match`: a wrapper's own kernel, not its
+    output fill; with no `match`, every kernel of the call.  Returns ms
+    per launch with `match`, else ms per call (a library call of one or
+    more kernels).  A profile that shows fewer launches than calls is
+    taken again, up to `tries` times, then fails; so does one whose
+    flush copies did not show as device-to-device memcpys."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    fn()
+    torch.cuda.synchronize()
+    what = match or "the library call"
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                dst.copy_(src)
+                fn()
+            torch.cuda.synchronize()
+        entries = device_entries(prof)
+        flushes = sum(n for k, _, n in entries
+                      if k.startswith("Memcpy DtoD"))
+        hits = [(us, n) for k, us, n in entries
+                if not k.startswith(("Memcpy", "Memset"))
+                and (match is None or match in k)]
+        launches = sum(n for _, n in hits)
+        if launches >= reps and flushes >= reps:
+            return (sum(us for us, _ in hits) / 1e3
+                    / (launches if match else reps))
+        log(f"device time of {what}: {launches} launches and {flushes} "
+            f"flush copies profiled in {reps} calls; profiling again")
+    raise AssertionError(f"device time of {what}: the profiler saw "
+                         f"fewer launches than calls {tries} times")
+
+
 def kernel_report(hk, name, args, launches):
     import torch
 
@@ -408,17 +474,24 @@ def kernel_report(hk, name, args, launches):
     ms = time_ms(kern)
     plain_ms = time_ms(plain)
     library_ms = time_ms(library) if library is not None else None
+    dev_ms = device_ms(kern, match=name)
+    lib_dev_ms = device_ms(library) if library is not None else None
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
+    # "ms" is the wrapper's time per back-to-back call (= call_ms); the
+    # bound is read against device_ms
     rep = {"name": name, "route": "cuda",
            "source": f"citus_tpu_torch/csrc/{name}.cu",
            "replaces": REPLACES[name], "launches": launches,
-           "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": max_err, "ms": ms, "call_ms": ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": library_ms}
-    log(f"time {name}: kernel {ms!r} ms, plain {plain_ms!r} ms, library "
-        f"{library_ms!r} ms, bound {rep['bound_ms']!r} ms "
+           "library_ms": library_ms, "library_device_ms": lib_dev_ms}
+    log(f"time {name}: device {dev_ms!r} ms at cold L2 "
+        f"({rep['bound_ms'] / dev_ms:.1%} of the bound), call {ms!r} ms, "
+        f"plain {plain_ms!r} ms, library call {library_ms!r} ms, library "
+        f"device {lib_dev_ms!r} ms, bound {rep['bound_ms']!r} ms "
         f"({rep['bound_by']})")
     return rep
 
@@ -430,7 +503,6 @@ def profile_query(sess, sql, top: int = 8) -> dict:
     device entries by name.  CPU-side operator entries are left out:
     their device time repeats their kernels'."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -441,17 +513,12 @@ def profile_query(sess, sql, top: int = 8) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
-
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    heavy = sorted(events, key=dev_us, reverse=True)[:top]
+    events = device_entries(prof)
+    busy_ms = sum(us for _, us, _ in events) / 1e3
+    heavy = sorted(events, key=lambda e: e[1], reverse=True)[:top]
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-           "top": [(e.key[:80], dev_us(e) / 1e3, e.count) for e in heavy]}
+           "top": [(k[:80], us / 1e3, n) for k, us, n in heavy]}
     log(f"  profile: wall {wall_ms!r} ms, device busy {busy_ms!r} ms, "
         f"idle share {out['device_idle_share']!r}")
     for name, ms, count in out["top"]:

@@ -58,13 +58,31 @@ def test_dense_grid_sum_kernel(rng, cuda, n, total, a):
                                atol=1e-2)
 
 
-@pytest.mark.parametrize("nb,tile,cap", [(4, 256, 700), (5, 1 << 15, 3333),
-                                         (3, 1022, 100)])
-def test_bucketed_probe_kernel(rng, cuda, nb, tile, cap):
+def _view_at(a, offset, dev):
+    """`a` on the card as a contiguous view `offset` elements into a
+    larger buffer (offset 1: not 16-byte aligned)."""
+    if not offset:
+        return _to(a, dev)
+    flat = np.concatenate([np.zeros(offset, a.dtype), a.reshape(-1)])
+    return _to(flat, dev)[offset:].view(a.shape)
+
+
+@pytest.mark.parametrize("nb,tile,cap,offset", [
+    (4, 256, 700, 0), (5, 1 << 15, 3333, 0), (3, 1022, 100, 0),
+    (3, 1022, 101, 0),      # tile·4 not a multiple of 16, cap not of 4
+    (5, 256, 1023, 0),      # cap not a multiple of 4: rows mid-vector
+    (3, 256, 700, 1),       # dir2d and loc2d views, not 16-byte aligned
+    (1, 1 << 15, 5, 0),     # fewer probes than a vector per thread
+    (184, 1 << 15, 65280, 0),  # the SF1 main path's shapes
+])
+def test_bucketed_probe_kernel(rng, cuda, nb, tile, cap, offset):
     dir2d = rng.integers(-5, 10_000, (nb, tile)).astype(np.int32)
     loc2d = rng.integers(0, tile, (nb, cap)).astype(np.int32)
-    got = hk.bucketed_probe(_to(dir2d, cuda), _to(loc2d, cuda))
+    before = hk.LAUNCHES["bucketed_probe"]
+    got = hk.bucketed_probe(_view_at(dir2d, offset, cuda),
+                            _view_at(loc2d, offset, cuda))
     torch.cuda.synchronize()
+    assert hk.LAUNCHES["bucketed_probe"] == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   np.take_along_axis(dir2d, loc2d, axis=1))
 
@@ -149,15 +167,23 @@ def test_bit_unpack_kernel(rng, cuda, shape, cap):
 
 
 @pytest.mark.parametrize("code_dtype,nv", [(np.uint8, 1), (np.uint8, 37),
+                                           (np.uint8, 51),
                                            (np.uint16, 37),
                                            (np.uint16, 65536)])
 @pytest.mark.parametrize("value_dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("shape", [(128,), (3, 6144)])
-def test_dict_decode_kernel(rng, cuda, nv, code_dtype, value_dtype, shape):
+@pytest.mark.parametrize("shape,offset", [
+    ((128,), 0), ((3, 6144), 0),
+    ((1001,), 0),           # n not a multiple of 16
+    ((7,), 0),              # fewer codes than one vector
+    ((6145,), 1),           # codes[1:]: a view at an odd offset
+    ((6_001_536,), 0),      # the SF1 main path's l_quantity column
+])
+def test_dict_decode_kernel(rng, cuda, nv, code_dtype, value_dtype, shape,
+                            offset):
     lut = rng.uniform(-1e3, 1e3, nv).astype(value_dtype)
     codes = rng.integers(0, nv, shape).astype(code_dtype)
     before = hk.LAUNCHES["dict_decode"]
-    got = hk.dict_decode(_to(codes, cuda), _to(lut, cuda))
+    got = hk.dict_decode(_view_at(codes, offset, cuda), _to(lut, cuda))
     torch.cuda.synchronize()
     assert hk.LAUNCHES["dict_decode"] == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(),

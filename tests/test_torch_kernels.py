@@ -9,7 +9,10 @@ Tolerances: float32 sums at rtol 1e-5, atol 1e-3 (another summation
 order); the probe gather, the bit unpack and the dictionary decode
 exact.  Shapes cover the padding edges: cap not a multiple of 512,
 total + 1 crossing 512, empty buckets and garbage lanes, 1-D and 2-D
-planes, and luts of 1 to 65,536 values.
+planes, and luts of 1 to 65,536 values; and the edges the CUDA kernels
+treat apart: a probe cap not a multiple of 4 and a tile of 1022 slots
+(not 16-byte sized), codes whose count is not a multiple of 16 and a
+contiguous view of codes at an odd offset.
 
 The CUDA kernels themselves are tested on the card by
 tests/test_torch_cuda.py.
@@ -103,6 +106,8 @@ def test_dense_grid_sum_plain_large_uses_scatter(rng):
     (1, 128, 100),      # cap below one probe chunk
     (4, 256, 700),      # ragged cap, an empty bucket
     (3, 1024, 1536),    # cap a multiple of the chunk
+    (3, 1022, 101),     # tile·4 not a multiple of 16, cap not of 4
+    (5, 256, 1023),     # cap not a multiple of 4: rows start mid-vector
 ])
 def test_bucketed_probe_plain_matches_pallas(rng, nb, tile, cap):
     _pallas()
@@ -148,13 +153,22 @@ def test_bit_unpack_plain_matches_pallas(rng, shape, cap):
                                            (np.uint16, 37),
                                            (np.uint16, 65536)])
 @pytest.mark.parametrize("value_dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("shape", [(128,), (2, 6144)])
+@pytest.mark.parametrize("shape,offset", [
+    pytest.param((128,), 0, id="shape0"),
+    pytest.param((2, 6144), 0, id="shape1"),
+    pytest.param((1001,), 0, id="n_not_16k"),    # n not a multiple of 16
+    pytest.param((6145,), 1, id="odd_view"),     # codes[1:]: odd offset
+])
 def test_dict_decode_plain_matches_pallas(rng, code_dtype, nv, value_dtype,
-                                          shape):
+                                          shape, offset):
     _pallas()
     lut = rng.uniform(-1e3, 1e3, nv).astype(value_dtype)
-    codes = rng.integers(0, nv, shape).astype(code_dtype)
-    got = hk.dict_decode(T(codes), T(lut)).numpy()
+    full = rng.integers(0, nv, offset + int(np.prod(shape))).astype(
+        code_dtype)
+    codes = full[offset:].reshape(shape)
+    view = T(full)[offset:].view(shape)  # a contiguous view, like codes[1:]
+    assert view.is_contiguous() and view.storage_offset() == offset
+    got = hk.dict_decode(view, T(lut)).numpy()
     assert got.dtype == value_dtype
     np.testing.assert_array_equal(got, dict_decode_reference(codes, lut))
     c2 = codes.reshape(1, -1) if codes.ndim == 1 else codes
