@@ -31,9 +31,9 @@ Phases, each fatal on failure (no result line is printed then):
    the same data_dir: first-run wall, the pipeline's phase split and
    wire/decoded bytes, the answers against numpy, and the ledger's
    prefetch bytes back at 0; then the link's copy time for those bytes;
-7. time warm runs of Q1, Q3 and the GROUP BY (rows/s), and profile one
-   more warm run of each (device busy time, idle share, heaviest
-   kernels);
+7. time warm runs of Q1, Q3, the GROUP BY and the nullable query
+   (rows/s), and profile one more warm run of each (device busy time,
+   idle share, heaviest kernels);
 8. print the kernels line, then the device line last.
 
 Exits non-zero without a result when no GPU is visible or the port's
@@ -277,9 +277,26 @@ def check_high_card(res, want):
 
 # -- kernels against their plain versions ----------------------------------
 
+def _nbytes(a) -> int:
+    if hasattr(a, "numel"):
+        return a.numel() * a.element_size()
+    if isinstance(a, (list, tuple)):
+        return sum(_nbytes(x) for x in a)
+    return 0
+
+
+def _clone(a):
+    if hasattr(a, "clone"):
+        return a.clone()
+    if isinstance(a, (list, tuple)):
+        return [_clone(x) for x in a]
+    return a
+
+
 class Recorder:
-    """Wraps a kernel wrapper to keep the inputs of its largest call on
-    the main path (what phase 5 replays)."""
+    """Wraps a kernel wrapper to keep the inputs of its largest call (in
+    bytes; a sequence of columns counts each column) on the main path:
+    what phase 5 replays."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -288,11 +305,10 @@ class Recorder:
         self.size = -1
 
     def __call__(self, *args):
-        size = sum(a.numel() for a in args if hasattr(a, "numel"))
+        size = _nbytes(args)
         if size > self.size:
             self.size = size
-            self.args = tuple(a.clone() if hasattr(a, "clone") else a
-                              for a in args)
+            self.args = tuple(_clone(a) for a in args)
         return self.fn(*args)
 
     def install(self):
@@ -340,10 +356,17 @@ def device_ms(fn, match=None, reps: int = DEVICE_REPS,
     `reps` calls.  Counted are the kernel entries (never a copy or
     memset) whose names hold `match`: a wrapper's own kernel, not its
     output fill; with no `match`, every kernel of the call.  Returns ms
-    per launch with `match`, else ms per call (a library call of one or
-    more kernels).  A profile that shows fewer launches than calls is
-    taken again, up to `tries` times, then fails; so does one whose
-    flush copies did not show as device-to-device memcpys."""
+    per launch of the kernels matched, else ms per call: each kernel's
+    total over its own count, times its launches per call (a library
+    call of one or more kernels).
+
+    A profile must hold `reps` flush copies or more, and each kernel's
+    launches in a whole multiple of `reps`.  torch.profiler (2.11, CUDA
+    12.8, on an H100) has dropped a single record (one flush copy, or
+    one launch) from a session: such a profile is logged with its
+    entries and taken again, up to `tries` times.  Only when every try
+    lost records is one that lost at most one record of each kind
+    taken, and said so; else this fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -352,7 +375,8 @@ def device_ms(fn, match=None, reps: int = DEVICE_REPS,
     fn()
     torch.cuda.synchronize()
     what = match or "the library call"
-    for _ in range(tries):
+    near = None  # ms of the first profile that lost one record
+    for t in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -365,14 +389,27 @@ def device_ms(fn, match=None, reps: int = DEVICE_REPS,
         hits = [(us, n) for k, us, n in entries
                 if not k.startswith(("Memcpy", "Memset"))
                 and (match is None or match in k)]
-        launches = sum(n for _, n in hits)
-        if launches >= reps and flushes >= reps:
-            return (sum(us for us, _ in hits) / 1e3
-                    / (launches if match else reps))
-        log(f"device time of {what}: {launches} launches and {flushes} "
-            f"flush copies profiled in {reps} calls; profiling again")
-    raise AssertionError(f"device time of {what}: the profiler saw "
-                         f"fewer launches than calls {tries} times")
+        per_call = [max(1, round(n / reps)) for _, n in hits]
+        if match:
+            ms = sum(us for us, _ in hits) / 1e3 / max(
+                1, sum(n for _, n in hits))
+        else:
+            ms = sum(us / n * m for (us, n), m in zip(hits, per_call)) / 1e3
+        lost = [m * reps - n for (_, n), m in zip(hits, per_call)]
+        if hits and flushes >= reps and not any(lost):
+            return ms
+        log(f"device time of {what}: profile {t + 1} of {tries} lost "
+            f"records ({flushes} flush copies of {reps}, launches short "
+            f"by {lost}); entries {[(k[:60], n) for k, _, n in entries]}")
+        if near is None and hits and flushes >= reps - 1 \
+                and all(0 <= x <= 1 for x in lost):
+            near = ms
+    if near is not None:
+        log(f"device time of {what}: taken from a profile that lost one "
+            "record")
+        return near
+    raise AssertionError(f"device time of {what}: {tries} profiles lost "
+                         "more than one record each")
 
 
 def kernel_report(hk, name, args, launches):
@@ -382,19 +419,28 @@ def kernel_report(hk, name, args, launches):
         raise AssertionError(f"{name}: the main path never called it")
     if name == "dense_grid_sum":
         slot, values, total = args
-        n, a = values.shape
+        cols = list(values.unbind(1)) if hasattr(values, "unbind") \
+            else list(values)
+        n, a = slot.shape[0], len(cols)
         kern = lambda: hk.dense_grid_sum(slot, values, total)  # noqa: E731
         plain = lambda: hk.dense_grid_sum_plain(slot, values,  # noqa: E731
                                                 total)
+        # the yardstick sums a float32 stack built here, outside its
+        # timed region
+        stack = torch.stack([c.to(torch.float32) for c in cols], dim=1)
+        counts = ((stack == 0) | (stack == 1)).all(dim=0)
         idx = torch.where((slot >= 0) & (slot < total), slot.long(),
                           torch.full_like(slot, total, dtype=torch.long))
-        lib_out = torch.zeros(total + 1, a, device=values.device)
-        library = lambda: lib_out.index_add_(0, idx, values)  # noqa: E731
+        lib_out = torch.zeros(total + 1, a, device=slot.device)
+        library = lambda: lib_out.index_add_(0, idx, stack)  # noqa: E731
         exact64 = lambda: torch.zeros(  # noqa: E731
-            total + 1, a, dtype=torch.float64, device=values.device
-        ).index_add_(0, idx, values.double())[:total]
-        nbytes = n * 4 + n * a * 4 + total * a * 4
+            total + 1, a, dtype=torch.float64, device=slot.device
+        ).index_add_(0, idx, stack.double())[:total]
+        nbytes = n * 4 + sum(n * c.element_size() for c in cols) \
+            + total * a * 4
         ops = n * a
+        shape = (f"N {n}, total {total}, A {a}, columns "
+                 f"{[str(c.dtype).replace('torch.', '') for c in cols]}")
     elif name == "bucketed_probe":
         dir2d, loc2d = args
         nb, tile = dir2d.shape
@@ -406,6 +452,7 @@ def kernel_report(hk, name, args, launches):
         exact64 = None
         nbytes = nb * tile * 4 + 2 * nb * cap * 4
         ops = 0
+        shape = f"dir2d {tuple(dir2d.shape)}, loc2d {tuple(loc2d.shape)}"
     elif name == "bit_unpack":
         packed, cap = args
         rows = packed.numel() // packed.shape[-1]
@@ -415,6 +462,7 @@ def kernel_report(hk, name, args, launches):
         exact64 = None
         nbytes = packed.numel() + rows * cap
         ops = 0
+        shape = f"packed {tuple(packed.shape)}, cap {cap}"
     elif name == "dict_decode":
         codes, lut = args
         kern = lambda: hk.dict_decode(codes, lut)  # noqa: E731
@@ -426,6 +474,8 @@ def kernel_report(hk, name, args, launches):
                   + codes.numel() * lut.element_size()
                   + lut.numel() * lut.element_size())
         ops = 0
+        shape = (f"codes {tuple(codes.shape)} {codes.dtype}, "
+                 f"lut {lut.numel()}")
     else:
         loc2d, stack, tile = args
         nb, cap, a = stack.shape
@@ -443,6 +493,10 @@ def kernel_report(hk, name, args, launches):
         ).index_add_(0, flat, vals.double()).reshape(nb, tile, a)
         nbytes = nb * cap * 4 + nb * cap * a * 4 + nb * tile * a * 4
         ops = nb * cap * a
+        counts = ((stack == 0) | (stack == 1)).all(dim=1).all(dim=0)
+        garbage = float((stack == 0).all(dim=2).double().mean())
+        shape = (f"nb {nb}, cap {cap}, a {a}, tile {tile}, garbage share "
+                 f"{garbage!r}")
     got = kern()
     want = plain()
     torch.cuda.synchronize()
@@ -463,12 +517,16 @@ def kernel_report(hk, name, args, launches):
         scale = ref.abs().amax(dim=red, keepdim=True) + 1.0
         k64 = float(((got.double() - ref).abs() / scale).max())
         p64 = float(((want.double() - ref).abs() / scale).max())
-        ok = bool(torch.all(err <= 1e-2 * scale)) and k64 <= 1e-4
+        # columns of 0/1 values are counts: exact
+        exact = bool(torch.equal(got.double()[..., counts],
+                                 ref[..., counts]))
+        ok = bool(torch.all(err <= 1e-2 * scale)) and k64 <= 1e-4 and exact
         tol = (f"|kernel - plain| <= 1e-2·(1 + max|column|) and "
-               f"|kernel - float64| <= 1e-4·(1 + max|column|); "
+               f"|kernel - float64| <= 1e-4·(1 + max|column|), "
+               f"{int(counts.sum())} count columns exact: {exact}; "
                f"vs float64: kernel {k64!r}, plain {p64!r}")
-    log(f"check {name}: shapes {[tuple(x.shape) for x in args if hasattr(x, 'shape')]}"
-        f" max_abs_err {max_err!r} ({tol}) -> {'ok' if ok else 'FAIL'}")
+    log(f"check {name}: {shape}; max_abs_err {max_err!r} ({tol}) -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     ms = time_ms(kern)
@@ -593,6 +651,23 @@ def scan_modes(ct, data_dir, queries, checks, want, ident) -> None:
 
 # --------------------------------------------------------------------------
 
+def warm_runs(sess, q, sql, rows, reps, ident) -> None:
+    """Phase 7 for one query: best of `reps` warm runs, then one more
+    under the profiler."""
+    import torch
+
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sess.execute(sql)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    log(f"{q}: best of {reps} warm runs {best!r} s, {rows / best!r} "
+        f"rows/s ({ident})")
+    profile_query(sess, sql)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0)
@@ -656,7 +731,8 @@ def main() -> int:
         rows = {"Q1": counts["lineitem"],
                 "Q3": counts["customer"] + counts["orders"]
                 + counts["lineitem"],
-                "high_card_groupby": counts["lineitem"]}
+                "high_card_groupby": counts["lineitem"],
+                "nullable": counts["lineitem_nullable"]}
         log(f"scan_pipeline {sess.settings.get('scan_pipeline')!r} resolves "
             f"to {resolve_scan_mode(sess.settings, sess.device)!r}")
 
@@ -686,6 +762,11 @@ def main() -> int:
             if per_query[q][name] <= 0:
                 raise AssertionError(f"{name} never launched on the main "
                                      f"path's {q}")
+        for q in ("Q1", "nullable"):  # one call per dense aggregate
+            if per_query[q]["dense_grid_sum"] != 1:
+                raise AssertionError(f"{q}: dense_grid_sum launched "
+                                     f"{per_query[q]['dense_grid_sum']} "
+                                     "times, not once")
 
         reports = [kernel_report(hk, n, recorders[n].args, launches[n])
                    for n in hk.KERNELS]
@@ -693,18 +774,8 @@ def main() -> int:
         scan_modes(ct, os.path.join(tmp, "data"), queries, checks, want,
                    ident)
 
-        for q in ("Q1", "Q3", "high_card_groupby"):
-            sql = queries[q]
-            best = None
-            for _ in range(args.reps):
-                t0 = time.perf_counter()
-                sess.execute(sql)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                best = dt if best is None else min(best, dt)
-            log(f"{q}: best of {args.reps} warm runs {best!r} s, "
-                f"{rows[q] / best!r} rows/s ({ident})")
-            profile_query(sess, sql)
+        for q in ("Q1", "Q3", "high_card_groupby", "nullable"):
+            warm_runs(sess, q, queries[q], rows[q], args.reps, ident)
 
         print(json.dumps({"kernels": reports}), flush=True)
     finally:

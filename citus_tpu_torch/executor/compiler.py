@@ -16,9 +16,10 @@ unchanged, which keeps the runner's retry and feedback logic valid:
   through `unpack_outputs`.
 
 On one device every repartition, psum and all_gather is the identity.
-The dense-grid segment sum runs in the dense_grid_sum kernel on the card
-where the JAX executor takes its one-hot branch (f32 stacks and int32
-counts with n < 2^24, at most DENSE_ONEHOT_MAX_SLOTS slots).
+The dense aggregate's per-slot sums run in one dense_grid_sum kernel call
+on the card, reading the columns where they lie, where the JAX executor
+takes its one-hot branch (f32 sums, and counts while n < 2^24, over at
+most DENSE_ONEHOT_MAX_SLOTS slots).
 
 Not in this slice (raise UnsupportedQueryError): window functions,
 semi/anti joins, expansion-path outer joins, INSERT..SELECT routing.
@@ -787,48 +788,49 @@ class PlanCompiler:
                            torch.full_like(slot, total)).to(torch.int32)
 
         values = self._agg_values(node, blk)
-        rows_per_slot = self._dense_segment_sum(
-            blk.valid.to(torch.int32)[:, None], slot, total)[:total, 0]
-        # stacked reductions: one segment op per (reduction kind, dtype)
-        results: list = [None] * len(values)
-        companions: list = [None] * len(values)
+        # per-slot sums: the row count, each sum and count, and each
+        # companion contribution count, all in one _dense_sums call.
+        # Invalid rows sit in the trash slot, so a sum column needs
+        # zeroing only under its NULLs.
+        sums = [blk.valid]
+        sum_of: dict[int, int] = {}
+        companion_of: dict[int, int] = {}
         by_kind: dict[tuple, list] = {}
         for i, (v, kind, vv) in enumerate(values):
             contrib = blk.valid if vv is None else (blk.valid & vv)
             if kind == "count":
-                by_kind.setdefault(("sum", torch.int32), []).append(
-                    (i, contrib.to(torch.int32)))
+                sum_of[i] = len(sums)
+                sums.append(contrib)
                 continue
             if kind == "sum":
-                arr = torch.where(contrib, v, torch.zeros_like(v))
-                by_kind.setdefault(("sum", v.dtype), []).append((i, arr))
+                sum_of[i] = len(sums)
+                sums.append(v if vv is None else
+                            torch.where(vv, v, torch.zeros_like(v)))
             elif kind in ("min", "max"):
                 ident = _big(v.dtype) if kind == "min" else _small(v.dtype)
                 arr = torch.where(contrib, v, torch.full_like(v, ident))
                 by_kind.setdefault((kind, v.dtype), []).append((i, arr))
             else:
                 raise ExecutionError(f"bad agg kind {kind}")
-            by_kind.setdefault(("companion", torch.int32), []).append(
-                (i, contrib.to(torch.int32)))
-        slot64 = slot.to(torch.int64)
+            companion_of[i] = len(sums)
+            sums.append(contrib)
+        red = self._dense_sums(sums, slot, total)
+        rows_per_slot = red[0]
+        results = [red[sum_of[i]] if i in sum_of else None
+                   for i in range(len(values))]
+        companions = [red[companion_of[i]] if i in companion_of else None
+                      for i in range(len(values))]
+        slot64 = slot.to(torch.int64) if by_kind else None
         for (op, _dt), items in by_kind.items():
             data = torch.stack([a for _, a in items], dim=1)
-            if op in ("sum", "companion"):
-                red = self._dense_segment_sum(data, slot, total)
-            else:
-                ident = _big(data.dtype) if op == "min" else \
-                    _small(data.dtype)
-                red = torch.full((total + 1, data.shape[1]), ident,
-                                 dtype=data.dtype, device=self.device)
-                red.scatter_reduce_(0, slot64[:, None].expand_as(data), data,
-                                    reduce="amin" if op == "min" else "amax",
-                                    include_self=True)
-            red = red[:total]
+            ident = _big(data.dtype) if op == "min" else _small(data.dtype)
+            ext = torch.full((total + 1, data.shape[1]), ident,
+                             dtype=data.dtype, device=self.device)
+            ext.scatter_reduce_(0, slot64[:, None].expand_as(data), data,
+                                reduce="amin" if op == "min" else "amax",
+                                include_self=True)
             for j, (i, _a) in enumerate(items):
-                if op == "companion":
-                    companions[i] = red[:, j]
-                else:
-                    results[i] = red[:, j]
+                results[i] = ext[:total, j]
         out_valid = rows_per_slot > 0
 
         # reconstruct key columns from the slot grid
@@ -931,29 +933,49 @@ class PlanCompiler:
             out = self._compact(out, k)
         return out
 
-    def _dense_segment_sum(self, data: torch.Tensor, slot: torch.Tensor,
-                           total: int) -> torch.Tensor:
-        """Σ per slot of [n, m] data → [total+1, m] (row `total` holds
-        no contributions).  Where the JAX executor takes its one-hot
-        branch — f32 sums, and int32 counts exact in f32 while n < 2^24,
-        over at most DENSE_ONEHOT_MAX_SLOTS slots — the sum runs in the
-        dense_grid_sum kernel (its plain version on the CPU); int64 /
-        f64 stacks stay on an exact index_add_."""
+    def _dense_sums(self, arrays: list, slot: torch.Tensor,
+                    total: int) -> list:
+        """Σ per slot of each [n] array → [total] each (rows at slot
+        `total` add nothing).  Where the JAX executor takes its one-hot
+        branch — f32 sums, and bool counts exact in f32 while n < 2^24,
+        over at most DENSE_ONEHOT_MAX_SLOTS slots — the arrays go as
+        they lie into one dense_grid_sum call (its plain version on the
+        CPU), an array passed twice read once; counts come back int64.
+        Other arrays (int64 / f64 sums) stay on an exact index_add_ in
+        their own dtype."""
         from ..ops.hopper_kernels import dense_grid_sum
 
-        n, m = data.shape
-        dt = data.dtype
-        eligible = (total + 1 <= self.DENSE_ONEHOT_MAX_SLOTS
-                    and (dt == torch.float32
-                         or (dt == torch.int32 and n < (1 << 24))))
-        if not eligible:
-            out = torch.zeros(total + 1, m, dtype=dt, device=self.device)
-            return out.index_add_(0, slot.to(torch.int64), data)
-        red = dense_grid_sum(slot.contiguous(),
-                             data.to(torch.float32).contiguous(), total)
-        red = torch.cat([red, torch.zeros(1, m, dtype=torch.float32,
-                                          device=self.device)])
-        return red.to(dt) if dt == torch.int32 else red
+        n = slot.shape[0]
+        small = total + 1 <= self.DENSE_ONEHOT_MAX_SLOTS
+        col_of: dict[int, int] = {}
+        cols: list = []
+        rest: dict[torch.dtype, list] = {}
+        for j, arr in enumerate(arrays):
+            if small and (arr.dtype == torch.float32 or (
+                    arr.dtype == torch.bool and n < (1 << 24))):
+                if id(arr) not in col_of:
+                    col_of[id(arr)] = len(cols)
+                    cols.append(arr)
+            else:
+                rest.setdefault(arr.dtype, []).append(j)
+        out: list = [None] * len(arrays)
+        if cols:
+            red = dense_grid_sum(slot, cols, total)
+            for j, arr in enumerate(arrays):
+                if id(arr) in col_of:
+                    r = red[:, col_of[id(arr)]]
+                    out[j] = r if arr.dtype == torch.float32 else \
+                        r.to(torch.int64)
+        slot64 = slot.to(torch.int64) if rest else None
+        for dt, js in rest.items():
+            wide = torch.int64 if dt == torch.bool else dt
+            data = torch.stack([arrays[j] for j in js], dim=1).to(wide)
+            acc = torch.zeros(total + 1, len(js), dtype=wide,
+                              device=self.device)
+            acc.index_add_(0, slot64, data)
+            for c, j in enumerate(js):
+                out[j] = acc[:total, c]
+        return out
 
     def _slice_groups(self, node: AggregateNode, gk, res, gvalid, ngroups):
         """Slice front-packed group slots to the planner's estimated

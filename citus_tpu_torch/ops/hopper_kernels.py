@@ -41,11 +41,11 @@ _BUILD = os.path.join(_CSRC, "build")
 # cudaGetLastError() as int)
 KERNELS = {
     "dense_grid_sum": ("dense_grid_sum.cu", "dense_grid_sum_launch",
-                       "pplllp"),
+                       "plpllpl"),
     "bucketed_probe": ("bucketed_probe.cu", "bucketed_probe_launch",
                        "pplllp"),
     "bucketed_groupby_sums": ("bucketed_groupby_sums.cu",
-                              "bucketed_groupby_sums_launch", "ppllllp"),
+                              "bucketed_groupby_sums_launch", "pplllllp"),
     "bit_unpack": ("bit_unpack.cu", "bit_unpack_launch", "plllp"),
     "dict_decode": ("dict_decode.cu", "dict_decode_launch", "plpllllp"),
 }
@@ -74,8 +74,14 @@ def _nvcc() -> str:
 
 
 def _so_path(src: str) -> str:
-    with open(os.path.join(_CSRC, src), "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    """The library's path, named by a digest of its source and of the
+    shared headers (csrc/*.cuh) it may include."""
+    digest = hashlib.sha1()
+    for name in [src] + sorted(f for f in os.listdir(_CSRC)
+                               if f.endswith(".cuh")):
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:12]
     return os.path.join(_BUILD, f"{os.path.splitext(src)[0]}-{digest}.so")
 
 
@@ -163,40 +169,77 @@ def _on_cpu(*tensors) -> bool:
 
 # -- K1: dense-grid segment sum ---------------------------------------------
 
-def dense_grid_sum_plain(slot: torch.Tensor, values: torch.Tensor,
+# columns per launch (the kernel's by-value column table); more take more
+# launches
+DENSE_MAX_COLS = 16
+_DENSE_DTYPES = {torch.float32: 0, torch.int32: 1, torch.bool: 2}
+
+
+def _dense_columns(values) -> list[torch.Tensor]:
+    """An [N, A] tensor or a sequence of A [N] columns → the A columns
+    (a stack's columns are views of stride A)."""
+    if isinstance(values, torch.Tensor):
+        if values.dim() != 2:
+            raise ValueError(f"values: expected [N, A], got {values.dim()} "
+                             "dims")
+        return list(values.unbind(1))
+    return list(values)
+
+
+def dense_grid_sum_plain(slot: torch.Tensor, values,
                          total: int) -> torch.Tensor:
-    """sums[k, a] = Σ_{slot[i]=k} values[i, a] for k < total; rows whose
-    slot is outside [0, total) are ignored.  One-hot × values for small
-    grids (the JAX executor's formulation), index_add_ otherwise."""
-    n, a = values.shape
-    vals = values.to(torch.float32)
+    """sums[k, j] = Σ_{slot[i]=k} column j at row i for k < total; rows
+    whose slot is outside [0, total) are ignored.  The columns stacked
+    as float32, then one-hot × values for small grids (the JAX
+    executor's formulation), index_add_ otherwise."""
+    vals = values.to(torch.float32) if isinstance(values, torch.Tensor) \
+        else torch.stack([c.to(torch.float32) for c in values], dim=1)
+    n, a = vals.shape
     keep = (slot >= 0) & (slot < total)
     s = torch.where(keep, slot.to(torch.int64),
                     torch.full_like(slot, total, dtype=torch.int64))
+    # an ignored row's value (inf or NaN under a filter) must not reach
+    # the product
+    vals = torch.where(keep[:, None], vals,
+                       torch.zeros((), device=vals.device))
     if n * (total + 1) <= (1 << 26):
         ids = torch.arange(total + 1, device=slot.device)
         onehot = (s[:, None] == ids[None, :]).to(torch.float32)
         return (onehot.T @ vals)[:total]
-    out = torch.zeros(total + 1, a, dtype=torch.float32,
-                      device=values.device)
+    out = torch.zeros(total + 1, a, dtype=torch.float32, device=vals.device)
     return out.index_add_(0, s, vals)[:total]
 
 
-def dense_grid_sum(slot: torch.Tensor, values: torch.Tensor,
-                   total: int) -> torch.Tensor:
-    """slot [N] int32, values [N, A] float32 → [total, A] float32.
-    Kernel form of compiler._dense_segment_sum (replaces
+def dense_grid_sum(slot: torch.Tensor, values, total: int) -> torch.Tensor:
+    """slot [N] int32; values an [N, A] tensor or a sequence of A columns
+    [N], each float32, int32 or bool, at any element stride → [total, A]
+    float32.  The kernel reads each column where it lies and converts in
+    registers; one launch per DENSE_MAX_COLS columns.  Kernel form of
+    the dense aggregate's per-slot sums (replaces
     dense_grid_aggregate_pallas)."""
-    if _on_cpu(slot, values):
+    cols = _dense_columns(values)
+    if _on_cpu(slot, *cols):
         return dense_grid_sum_plain(slot, values, total)
     _check(slot, "slot", torch.int32, 1)
-    _check(values, "values", torch.float32, 2)
-    n, a = values.shape
-    if slot.shape[0] != n:
-        raise ValueError("slot and values disagree on N")
-    out = torch.zeros(total, a, dtype=torch.float32, device=values.device)
-    if n and total and a:
-        _launch("dense_grid_sum", slot, values, n, a, total, out)
+    n = slot.shape[0]
+    for j, c in enumerate(cols):
+        if c.dtype not in _DENSE_DTYPES:
+            raise TypeError(f"column {j}: expected float32, int32 or bool, "
+                            f"got {c.dtype}")
+        if c.dim() != 1 or c.shape[0] != n:
+            raise ValueError(f"column {j}: expected shape [{n}], got "
+                             f"{tuple(c.shape)}")
+    a = len(cols)
+    out = torch.zeros(total, a, dtype=torch.float32, device=slot.device)
+    if not (n and total and a):
+        return out
+    for c0 in range(0, a, DENSE_MAX_COLS):
+        part = cols[c0:c0 + DENSE_MAX_COLS]
+        desc = (ctypes.c_longlong * (3 * len(part)))(*[
+            x for c in part
+            for x in (c.data_ptr(), c.stride(0), _DENSE_DTYPES[c.dtype])])
+        _launch("dense_grid_sum", slot, n, ctypes.addressof(desc),
+                len(part), total, out.data_ptr() + 4 * c0, a)
     return out
 
 
@@ -231,6 +274,30 @@ def bucketed_probe(dir2d: torch.Tensor, loc2d: torch.Tensor) -> torch.Tensor:
 
 # -- K3: bucket-tiled group-by sums -----------------------------------------
 
+# lanes a block of the group-by sums takes at least when buckets split
+GROUPBY_MIN_SPLIT_ROWS = 1024
+
+_SMS: dict[int, int] = {}  # SM count per device index
+
+
+def _sm_count(device: torch.device) -> int:
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def groupby_split_rows(nb: int, cap: int, sms: int) -> int:
+    """Lanes per block of the group-by sums (a multiple of 4): buckets
+    split into row ranges until about 2 blocks per SM run, but no range
+    is shorter than GROUPBY_MIN_SPLIT_ROWS.  A result >= cap gives every
+    bucket one block, which owns its output tile."""
+    splits = max(1, -(-2 * sms // max(nb, 1)))
+    rows = max(-(-cap // splits), GROUPBY_MIN_SPLIT_ROWS)
+    return -(-rows // 4) * 4
+
+
 def bucketed_groupby_sums_plain(loc2d: torch.Tensor, stack: torch.Tensor,
                                 tile: int) -> torch.Tensor:
     """Per bucket b: out[b, k, :] = Σ_{loc2d[b, i]=k} stack[b, i, :]
@@ -249,8 +316,9 @@ def bucketed_groupby_sums(loc2d: torch.Tensor, stack: torch.Tensor,
                           tile: int) -> torch.Tensor:
     """loc2d [nb, cap] int32 tile-local slots (garbage lanes hold slot 0
     with zeroed values), stack [nb, cap, A] float32 → [nb, tile, A]
-    float32 (replaces bucketed_groupby_sums_pallas).  Stacks wider than
-    the shared-memory accumulator split by column, one launch each."""
+    float32 (replaces bucketed_groupby_sums_pallas).  Lanes whose values
+    are all ±0 add nothing and are skipped.  Stacks wider than the
+    shared-memory accumulator split by column, one launch each."""
     if _on_cpu(loc2d, stack):
         return bucketed_groupby_sums_plain(loc2d, stack, tile)
     _check(loc2d, "loc2d", torch.int32, 2)
@@ -261,20 +329,25 @@ def bucketed_groupby_sums(loc2d: torch.Tensor, stack: torch.Tensor,
         raise ValueError("loc2d and stack disagree on [nb, cap]")
     if tile * 4 > MAX_SMEM_BYTES:
         raise ValueError(f"a tile of {tile} slots exceeds shared memory")
-    out = torch.zeros(nb, tile, a, dtype=torch.float32, device=stack.device)
     if not (nb and cap and a):
-        return out
+        return torch.zeros(nb, tile, a, dtype=torch.float32,
+                           device=stack.device)
+    rows = groupby_split_rows(nb, cap, _sm_count(stack.device))
+    # one block per bucket writes every cell of its tile; split buckets
+    # add into a zeroed output
+    alloc = torch.empty if rows >= cap else torch.zeros
+    out = alloc(nb, tile, a, dtype=torch.float32, device=stack.device)
     cols = max(1, MAX_SMEM_BYTES // (tile * 4))
     for c0 in range(0, a, cols):
         c1 = min(a, c0 + cols)
-        part = stack if (c0, c1) == (0, a) else \
-            stack[:, :, c0:c1].contiguous()
-        dst = out if (c0, c1) == (0, a) else \
-            torch.zeros(nb, tile, c1 - c0, dtype=torch.float32,
-                        device=stack.device)
+        whole = (c0, c1) == (0, a)
+        part = stack if whole else stack[:, :, c0:c1].contiguous()
+        dst = out if whole else alloc(nb, tile, c1 - c0,
+                                      dtype=torch.float32,
+                                      device=stack.device)
         _launch("bucketed_groupby_sums", loc2d, part, nb, cap, c1 - c0,
-                tile, dst)
-        if dst is not out:
+                tile, rows, dst)
+        if not whole:
             out[:, :, c0:c1] = dst
     return out
 

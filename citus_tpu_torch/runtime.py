@@ -9,9 +9,9 @@ Counterpart of citus_tpu/runtime.py.  Two contracts carry over:
   never narrows a key unless the planner proved its range fits int32
   (JoinNode.key_int32), exactly like the JAX executor.
 * **float32 sums are exact float32.**  The dense-grid sums
-  (compiler._dense_segment_sum) rely on exact f32 accumulation of int32
-  counts while n < 2^24; TF32 would keep only ~10 mantissa bits, so it
-  is pinned off for matmuls and cuDNN alike.
+  (compiler._dense_sums) rely on exact f32 accumulation of int32 and
+  bool counts while n < 2^24; TF32 would keep only ~10 mantissa bits,
+  so it is pinned off for matmuls and cuDNN alike.
 
 `resolve_device(None)` picks CUDA and raises when no GPU is visible:
 the port never falls back to the CPU on its own.  The CPU is chosen

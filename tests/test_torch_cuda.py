@@ -7,9 +7,14 @@ the GPU machine, which has no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Each kernel is held against a numpy oracle (np.add.at / take /
-unpackbits) and the wrapper's launch count; the end-to-end tests hold the
-GPU answers to the port's own CPU answers on the same data_dir.  Float32
+Each kernel is held against a numpy oracle (np.add.at in float64 / take
+/ unpackbits) and the wrapper's launch count, on the shapes and data the
+main path gives it (a few hot slots, slot runs, half-garbage buckets,
+0.0 and -0.0 lanes) and on the edges its loads treat apart (views not
+16-byte aligned, lengths not a multiple of 4, every shared-memory
+layout of the dense grid, split and single-owner buckets); the
+end-to-end tests hold the GPU answers to the port's own CPU answers on
+the same data_dir.  Float32
 sums: rtol 1e-4, atol 1e-2 (atomics add in run-dependent order); gathers,
 bit unpacks and dictionary decodes exact.
 """
@@ -42,20 +47,59 @@ def _to(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-@pytest.mark.parametrize("n,total,a", [(100, 5, 3), (200_000, 6, 7),
-                                       (5000, 513, 3), (50_000, 20_000, 2)])
-def test_dense_grid_sum_kernel(rng, cuda, n, total, a):
-    slot = rng.integers(0, total + 1, n).astype(np.int32)  # incl. trash
-    vals = rng.uniform(-50, 50, (n, a)).astype(np.float32)
+def _k1_slots(rng, n, total, dist):
+    if dist == "hot4":  # TPC-H Q1: 4 non-empty groups
+        return rng.choice(rng.choice(total, 4, replace=False), n).astype(
+            np.int32)
+    return rng.integers(0, total + 1, n).astype(np.int32)  # incl. trash
+
+
+def _k1_columns(rng, n, a, form):
+    """`form` stack: one [N, A] float32 array; columns: float32, int32
+    and bool columns in turn."""
+    if form == "stack":
+        return [rng.uniform(-50, 50, (n, a)).astype(np.float32)]
+    return [rng.uniform(-50, 50, n).astype(np.float32) if j % 3 == 0
+            else rng.integers(-1000, 1000, n).astype(np.int32) if j % 3 == 1
+            else rng.random(n) < 0.5 for j in range(a)]
+
+
+@pytest.mark.parametrize("n,total,a,form,offset,dist", [
+    (100, 5, 3, "stack", 0, "uniform"),
+    (200_000, 6, 7, "stack", 0, "uniform"),
+    (5000, 513, 3, "stack", 0, "uniform"),
+    (50_000, 20_000, 2, "stack", 0, "uniform"),  # one grid per block
+    (70_001, 12, 6, "columns", 0, "hot4"),  # per-thread grids, N % 4 = 1
+    (70_003, 12, 6, "columns", 1, "hot4"),     # views not 16-byte aligned
+    (70_001, 64, 3, "columns", 0, "hot4"),     # per-warp grids
+    (70_002, 64, 3, "columns", 1, "uniform"),
+    (70_001, 293, 6, "columns", 0, "hot4"),  # the largest per-warp grid
+    (70_001, 294, 6, "columns", 0, "hot4"),  # the smallest per-block grid
+    (9_999, 5000, 2, "columns", 0, "uniform"),  # one grid per block
+    (30_002, 70_000, 1, "columns", 1, "uniform"),  # global atomics
+    (4_097, 12, 20, "columns", 0, "uniform"),  # 20 columns: two launches
+    (6_001_520, 12, 6, "columns", 0, "hot4"),  # the SF1 Q1 call's shape
+    (6_001_520, 12, 6, "stack", 0, "hot4"),
+])
+def test_dense_grid_sum_kernel(rng, cuda, n, total, a, form, offset, dist):
+    slot = _k1_slots(rng, n, total, dist)
+    cols = _k1_columns(rng, n, a, form)
+    vals = cols[0] if form == "stack" else np.stack(
+        [c.astype(np.float64) for c in cols], axis=1)
     want = np.zeros((total, a), np.float64)
     keep = slot < total
     np.add.at(want, slot[keep], vals[keep].astype(np.float64))
+    args = _view_at(cols[0], offset, cuda) if form == "stack" else \
+        [_view_at(c, offset, cuda) for c in cols]
     before = hk.LAUNCHES["dense_grid_sum"]
-    got = hk.dense_grid_sum(_to(slot, cuda), _to(vals, cuda), total)
+    got = hk.dense_grid_sum(_view_at(slot, offset, cuda), args, total)
     torch.cuda.synchronize()
-    assert hk.LAUNCHES["dense_grid_sum"] == before + 1
-    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
-                               atol=1e-2)
+    assert hk.LAUNCHES["dense_grid_sum"] == before + -(-a // 16)
+    got = got.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
+    if form == "columns":  # int32 and bool counts are exact
+        ints = [j for j in range(a) if j % 3]
+        np.testing.assert_array_equal(got[:, ints], want[:, ints])
 
 
 def _view_at(a, offset, dev):
@@ -87,21 +131,45 @@ def test_bucketed_probe_kernel(rng, cuda, nb, tile, cap, offset):
                                   np.take_along_axis(dir2d, loc2d, axis=1))
 
 
-@pytest.mark.parametrize("nb,cap,tile,a", [(7, 333, 128, 1),
-                                           (30, 5000, 4096, 3),
-                                           (2, 700, 4096, 15)])
-def test_bucketed_groupby_sums_kernel(rng, cuda, nb, cap, tile, a):
+@pytest.mark.parametrize("nb,cap,tile,a,layout,offset", [
+    (7, 333, 128, 1, "ragged", 0),
+    (30, 5000, 4096, 3, "ragged", 0),   # split buckets: zeroed output
+    (2, 700, 4096, 15, "ragged", 0),    # 15 columns: split by column
+    (300, 1001, 4096, 2, "half_garbage", 0),  # nb >= 264: one owner
+    (300, 1003, 4096, 1, "runs", 0),    # cap % 4 != 0: rows mid-vector
+    (40, 2000, 512, 2, "signed_zeros", 0),
+    (280, 999, 1024, 3, "half_garbage", 1),   # views not 16-byte aligned
+    (265, 4100, 4096, 5, "runs", 0),    # 5 columns: column-wise loads
+    (1465, 12_288, 4096, 3, "runs", 0),  # the SF1 GROUP BY's shape
+])
+def test_bucketed_groupby_sums_kernel(rng, cuda, nb, cap, tile, a, layout,
+                                      offset):
     loc2d = rng.integers(0, tile, (nb, cap)).astype(np.int32)
     stack = rng.uniform(-20, 20, (nb, cap, a)).astype(np.float32)
-    loc2d[0, cap // 2:] = 0  # garbage lanes: slot 0, zeroed values
-    stack[0, cap // 2:] = 0
+    fill = rng.integers(cap // 2, cap + 1, nb)
+    if layout == "half_garbage":  # the runner's 2x capacity
+        fill = rng.integers(0, cap // 2 + 1, nb)
+    elif layout == "runs":  # l_orderkey order: runs of equal slots
+        loc2d = np.sort(loc2d, axis=1)
+    elif layout == "signed_zeros":  # valid lanes of 0.0 and -0.0
+        stack[:, ::3] = 0.0
+        stack[:, 1::5] = -0.0
+    fill[0] = 0  # an all-garbage bucket
+    for b in range(nb):  # garbage lanes: slot 0, zeroed values
+        loc2d[b, fill[b]:] = 0
+        stack[b, fill[b]:] = 0
     want = np.zeros((nb, tile, a), np.float64)
     for b in range(nb):
         np.add.at(want[b], loc2d[b], stack[b].astype(np.float64))
-    got = hk.bucketed_groupby_sums(_to(loc2d, cuda), _to(stack, cuda), tile)
+    before = hk.LAUNCHES["bucketed_groupby_sums"]
+    got = hk.bucketed_groupby_sums(_view_at(loc2d, offset, cuda),
+                                   _view_at(stack, offset, cuda), tile)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
-                               atol=1e-2)
+    assert hk.LAUNCHES["bucketed_groupby_sums"] == before + -(-a // 14)
+    got = got.cpu().numpy()
+    assert not np.isnan(got).any()  # every cell written
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
+    assert not got[0].any()
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -111,6 +179,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         hk.dense_grid_sum(slot, vals, 3)
     with pytest.raises(ValueError):
         hk.dense_grid_sum(slot.to(torch.int32).cpu(), vals, 3)
+    slot32 = slot.to(torch.int32)
+    with pytest.raises(TypeError):  # int64 columns stay on index_add_
+        hk.dense_grid_sum(slot32, [vals[:, 0], slot], 3)
+    with pytest.raises(ValueError):
+        hk.dense_grid_sum(slot32, [vals[:5, 0]], 3)
 
 
 def test_gpu_session_matches_cpu_session(tmp_path, cuda):

@@ -9,10 +9,14 @@ Tolerances: float32 sums at rtol 1e-5, atol 1e-3 (another summation
 order); the probe gather, the bit unpack and the dictionary decode
 exact.  Shapes cover the padding edges: cap not a multiple of 512,
 total + 1 crossing 512, empty buckets and garbage lanes, 1-D and 2-D
-planes, and luts of 1 to 65,536 values; and the edges the CUDA kernels
+planes, and luts of 1 to 65,536 values; the edges the CUDA kernels
 treat apart: a probe cap not a multiple of 4 and a tile of 1022 slots
 (not 16-byte sized), codes whose count is not a multiple of 16 and a
-contiguous view of codes at an odd offset.
+contiguous view of codes at an odd offset; and the data the main path
+gives the two sums: a few hot slots, one slot, ascending runs and only
+trash rows for the dense grid, whose columns may also come as float32,
+int32 and bool vectors; half-garbage buckets, slot runs and valid lanes
+of 0.0 and -0.0 for the bucketed sums.
 
 The CUDA kernels themselves are tested on the card by
 tests/test_torch_cuda.py.
@@ -51,10 +55,38 @@ def _pallas():
         pytest.skip("pallas unavailable")
 
 
-def _k1_inputs(rng, n, total, a):
-    slot = rng.integers(0, total + 1, n).astype(np.int32)  # incl. trash
+def _k1_slots(rng, n, total, dist):
+    """Slot columns of the shapes the main path gives K1."""
+    if dist == "hot4":  # TPC-H Q1: 4 non-empty groups in a wider grid
+        return rng.choice(rng.choice(total, 4, replace=False), n).astype(
+            np.int32)
+    if dist == "one_slot":
+        return np.full(n, total // 2, np.int32)
+    if dist == "runs":  # ascending runs of equal slots
+        return np.sort(rng.integers(0, total, n)).astype(np.int32)
+    if dist == "all_trash":  # every row invalid (parked at slot total)
+        return np.full(n, total, np.int32)
+    return rng.integers(0, total + 1, n).astype(np.int32)  # incl. trash
+
+
+def _k1_inputs(rng, n, total, a, dist="uniform"):
+    slot = _k1_slots(rng, n, total, dist)
     vals = rng.uniform(-50, 50, (n, a)).astype(np.float32)
     return slot, vals
+
+
+def _k1_columns(rng, n, a):
+    """A float32, int32 and bool columns in turn, as the dense aggregate
+    passes its sums, counts and row masks."""
+    cols = []
+    for j in range(a):
+        if j % 3 == 0:
+            cols.append(rng.uniform(-50, 50, n).astype(np.float32))
+        elif j % 3 == 1:
+            cols.append(rng.integers(-1000, 1000, n).astype(np.int32))
+        else:
+            cols.append(rng.random(n) < 0.5)
+    return cols
 
 
 def _k2_inputs(rng, nb, tile, cap):
@@ -65,11 +97,18 @@ def _k2_inputs(rng, nb, tile, cap):
     return dir2d, loc2d
 
 
-def _k3_inputs(rng, nb, cap, tile, a):
+def _k3_inputs(rng, nb, cap, tile, a, layout="ragged"):
     loc2d = rng.integers(0, tile, (nb, cap)).astype(np.int32)
     stack = rng.uniform(-20, 20, (nb, cap, a)).astype(np.float32)
     # garbage lanes: slot 0 with zeroed values, as pack_by_target emits
     fill = rng.integers(0, cap + 1, nb)
+    if layout == "half_garbage":  # the runner's 2x capacity: tails >= 1/2
+        fill = rng.integers(0, cap // 2 + 1, nb)
+    elif layout == "runs":  # l_orderkey order: runs of 1-7 equal slots
+        loc2d = np.sort(loc2d, axis=1)
+    elif layout == "signed_zeros":  # valid lanes holding 0.0 and -0.0
+        stack[:, ::3] = 0.0
+        stack[:, 1::5] = -0.0
     if nb > 1:
         fill[0] = 0  # an empty bucket
     for b in range(nb):
@@ -78,20 +117,49 @@ def _k3_inputs(rng, nb, cap, tile, a):
     return loc2d, stack
 
 
-@pytest.mark.parametrize("n,total,a", [
-    (100, 5, 3),        # tiny, sub-tile
-    (3000, 16, 2),      # multi-tile rows
-    (5000, 513, 3),     # total + 1 crosses a 512 chunk
-    (2048, 1023, 1),    # total + 1 exactly 1024
+@pytest.mark.parametrize("n,total,a,dist", [
+    pytest.param(100, 5, 3, "uniform", id="100-5-3"),    # tiny, sub-tile
+    pytest.param(3000, 16, 2, "uniform", id="3000-16-2"),  # multi-tile
+    pytest.param(5000, 513, 3, "uniform", id="5000-513-3"),  # crosses 512
+    pytest.param(2048, 1023, 1, "uniform", id="2048-1023-1"),  # 1024 exactly
+    pytest.param(4099, 64, 6, "hot4", id="hot4"),       # 4 hot slots of 64
+    pytest.param(1001, 12, 3, "one_slot", id="one_slot"),
+    pytest.param(2050, 300, 2, "runs", id="runs"),
+    pytest.param(777, 12, 2, "all_trash", id="all_trash"),
 ])
-def test_dense_grid_sum_plain_matches_pallas(rng, n, total, a):
+def test_dense_grid_sum_plain_matches_pallas(rng, n, total, a, dist):
     _pallas()
-    slot, vals = _k1_inputs(rng, n, total, a)
+    slot, vals = _k1_inputs(rng, n, total, a, dist)
     got = hk.dense_grid_sum(T(slot), T(vals), total).numpy()
     np.testing.assert_allclose(got, segment_sum_reference(slot, vals, total),
                                rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, np.asarray(dense_grid_aggregate_pallas(
         slot, vals, total, interpret=True)), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dist", ["uniform", "hot4", "one_slot", "runs",
+                                  "all_trash"])
+def test_dense_grid_sum_columns_match_stack(rng, dist):
+    """The column form (float32, int32 and bool columns, some of them
+    strided views) sums what the [N, A] float32 stack of the same values
+    sums, and what the Pallas kernel and the numpy oracle sum; integer
+    columns exactly."""
+    _pallas()
+    n, total, a = 2051, 64, 6
+    slot = _k1_slots(rng, n, total, dist)
+    cols = _k1_columns(rng, n, a)
+    stack = np.stack([c.astype(np.float32) for c in cols], axis=1)
+    tcols = [T(c) for c in cols]
+    tcols[0] = T(np.repeat(cols[0], 2))[::2]  # a view of stride 2
+    got = hk.dense_grid_sum(T(slot), tcols, total).numpy()
+    np.testing.assert_array_equal(
+        got, hk.dense_grid_sum(T(slot), T(stack), total).numpy())
+    want = segment_sum_reference(slot, stack, total)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    ints = [j for j in range(a) if j % 3]  # int32 and bool: exact
+    np.testing.assert_array_equal(got[:, ints], want[:, ints])
+    np.testing.assert_allclose(got, np.asarray(dense_grid_aggregate_pallas(
+        slot, stack, total, interpret=True)), rtol=RTOL, atol=ATOL)
 
 
 def test_dense_grid_sum_plain_large_uses_scatter(rng):
@@ -118,20 +186,26 @@ def test_bucketed_probe_plain_matches_pallas(rng, nb, tile, cap):
         dir2d, loc2d, interpret=True)))
 
 
-@pytest.mark.parametrize("nb,cap,tile,a", [
-    (1, 100, 64, 3),      # single bucket, tile below one chunk
-    (7, 333, 128, 1),     # ragged cap, empty + partly filled buckets
-    (3, 1100, 512, 5),    # cap crosses a row tile
+@pytest.mark.parametrize("nb,cap,tile,a,layout", [
+    pytest.param(1, 100, 64, 3, "ragged", id="1-100-64-3"),  # one bucket
+    pytest.param(7, 333, 128, 1, "ragged", id="7-333-128-1"),  # ragged cap
+    pytest.param(3, 1100, 512, 5, "ragged", id="3-1100-512-5"),  # row tiles
+    pytest.param(5, 1001, 256, 2, "half_garbage", id="half_garbage"),
+    pytest.param(4, 700, 128, 2, "runs", id="runs"),
+    pytest.param(3, 999, 64, 3, "signed_zeros", id="signed_zeros"),
 ])
-def test_bucketed_groupby_sums_plain_matches_pallas(rng, nb, cap, tile, a):
+def test_bucketed_groupby_sums_plain_matches_pallas(rng, nb, cap, tile, a,
+                                                    layout):
     _pallas()
-    loc2d, stack = _k3_inputs(rng, nb, cap, tile, a)
+    loc2d, stack = _k3_inputs(rng, nb, cap, tile, a, layout)
     got = hk.bucketed_groupby_sums(T(loc2d), T(stack), tile).numpy()
     np.testing.assert_allclose(got, groupby_sums_reference(loc2d, stack,
                                                            tile),
                                rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, np.asarray(bucketed_groupby_sums_pallas(
         loc2d, stack, tile, interpret=True)), rtol=RTOL, atol=ATOL)
+    if nb > 1:
+        assert not got[0].any()  # the all-garbage bucket sums to zero
 
 
 @pytest.mark.parametrize("shape,cap", [((16,), 128), ((3, 16), 128),

@@ -115,6 +115,66 @@ def test_port_float32_policy_close_to_jax(jax_dir):
     compare_results(got, want["q1"], True, 1e-5)
 
 
+NULLABLE_SQL = ("select flag, status, count(*), count(x), sum(x), sum(y) "
+                "from nt where id >= 40 group by flag, status order by 1, 2")
+
+
+@pytest.fixture(scope="module")
+def jax_nullable_dir(tmp_path_factory):
+    """A JAX data_dir holding nt: two low-cardinality text keys (the
+    dense grid's shape, as in Q1) and two float measures with NULLs."""
+    data_dir = str(tmp_path_factory.mktemp("torch_port_nullable"))
+    sess = citus_tpu.connect(data_dir=data_dir, n_devices=1,
+                             exec_cache_enabled=False,
+                             compute_dtype="float64",
+                             serving_result_cache_bytes=0)
+    sess.execute("create table nt (id bigint, flag text, status text, "
+                 "x double precision, y double precision)")
+    sess.create_distributed_table("nt", "id", shard_count=4)
+    sess.execute("insert into nt values " + ", ".join(
+        f"({i}, '{'ANR'[i % 3]}', '{'FO'[i % 2]}', "
+        + ("NULL" if i % 7 == 0 else f"{(i % 13) * 0.5}") + ", "
+        + ("NULL" if i % 5 == 0 else f"{i * 0.25}") + ")"
+        for i in range(3000)))
+    want = sess.execute(NULLABLE_SQL).rows()
+    sess.close()
+    return data_dir, want
+
+
+@pytest.mark.parametrize("compute_dtype,tol", [("float64", TOL),
+                                               ("float32", 1e-5)])
+@pytest.mark.parametrize("name", ["q1", "nullable"])
+def test_dense_aggregate_is_one_kernel_call(jax_dir, jax_nullable_dir,
+                                            monkeypatch, name,
+                                            compute_dtype, tol):
+    """The dense aggregate's per-slot sums (row count, sums, counts,
+    companion counts) go into one dense_grid_sum call, as columns, with
+    no stack; the answer still matches the JAX package's on the same
+    data_dir.  Under float64 the sums stay on index_add_ and only the
+    counts reach the kernel; float32 answers within f32 accumulation
+    error (rtol 1e-5)."""
+    from citus_tpu_torch.ops import hopper_kernels as hk
+
+    data_dir, want = jax_dir if name == "q1" else jax_nullable_dir
+    sql = QUERIES["q1"] if name == "q1" else NULLABLE_SQL
+    want = want["q1"] if name == "q1" else want
+    calls = []
+    real = hk.dense_grid_sum
+
+    def spy(slot, values, total):
+        calls.append([c.dtype for c in values])
+        return real(slot, values, total)
+
+    monkeypatch.setattr(hk, "dense_grid_sum", spy)
+    sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   compute_dtype=compute_dtype)
+    got = sess.execute(sql).rows()
+    assert len(calls) == 1, calls
+    assert torch.bool in calls[0]
+    assert (torch.float32 in calls[0]) == (compute_dtype == "float32")
+    compare_results(got, want, True, tol)
+
+
 def test_port_ingest_round_trips_with_jax(tmp_path, jax_dir):
     """The port's own DDL/distribution/ingest writes the JAX format: the
     port answers like the JAX-loaded data_dir, and the JAX package reads
