@@ -59,7 +59,8 @@ LAUNCHES = {name: 0 for name in KERNELS}
 MAX_SMEM_BYTES = 232448
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+# kernel name → its C entry point, argtypes set: bound once, called as is
+_entries: dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launch_counts() -> None:
@@ -95,7 +96,7 @@ def build_all(verbose: bool = False) -> dict[str, str]:
         os.makedirs(_BUILD, exist_ok=True)
         procs = {}
         for name, (src, _entry, _sig) in KERNELS.items():
-            if name in _libs:
+            if name in _entries:
                 continue
             so = _so_path(src)
             if os.path.exists(so):
@@ -120,23 +121,24 @@ def build_all(verbose: bool = False) -> dict[str, str]:
         if errors:
             raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
         for name, (src, entry, sig) in KERNELS.items():
-            if name not in _libs:
-                lib = ctypes.CDLL(_so_path(src))
-                fn = getattr(lib, entry)
+            if name not in _entries:
+                fn = getattr(ctypes.CDLL(_so_path(src)), entry)
                 fn.argtypes = [_CTYPE[c] for c in sig] + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-                _libs[name] = lib
+                _entries[name] = fn
         return built
 
 
 def _fn(name: str):
-    if name not in _libs:
+    fn = _entries.get(name)
+    if fn is None:
         build_all()
-    return getattr(_libs[name], KERNELS[name][1])
+        fn = _entries[name]
+    return fn
 
 
 def _check(t: torch.Tensor, what: str, dtype, ndim: int) -> None:
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
@@ -147,23 +149,24 @@ def _check(t: torch.Tensor, what: str, dtype, ndim: int) -> None:
 
 
 def _launch(name: str, *args) -> None:
-    """Launch on the current stream; the tensors in `args` stay
-    referenced by the caller for the kernel's lifetime."""
-    stream = torch.cuda.current_stream().cuda_stream
-    argv = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-            for a in args]
-    err = _fn(name)(*argv, stream)
+    """Launch on the current device's current stream.  `args` are the
+    entry point's arguments before the stream, tensors as their
+    data_ptr(); the caller keeps the tensors referenced for the
+    kernel's lifetime."""
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    err = _fn(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
     LAUNCHES[name] += 1
 
 
 def _on_cpu(*tensors) -> bool:
+    on_cuda = sum(t.is_cuda for t in tensors)
+    if on_cuda == len(tensors):
+        return False
     devs = {t.device.type for t in tensors}
     if devs == {"cpu"}:
         return True
-    if devs == {"cuda"}:
-        return False
     raise ValueError(f"tensors on mixed or unsupported devices: {devs}")
 
 
@@ -238,8 +241,9 @@ def dense_grid_sum(slot: torch.Tensor, values, total: int) -> torch.Tensor:
         desc = (ctypes.c_longlong * (3 * len(part)))(*[
             x for c in part
             for x in (c.data_ptr(), c.stride(0), _DENSE_DTYPES[c.dtype])])
-        _launch("dense_grid_sum", slot, n, ctypes.addressof(desc),
-                len(part), total, out.data_ptr() + 4 * c0, a)
+        _launch("dense_grid_sum", slot.data_ptr(), n,
+                ctypes.addressof(desc), len(part), total,
+                out.data_ptr() + 4 * c0, a)
     return out
 
 
@@ -268,7 +272,8 @@ def bucketed_probe(dir2d: torch.Tensor, loc2d: torch.Tensor) -> torch.Tensor:
     cap = loc2d.shape[1]
     out = torch.empty(nb, cap, dtype=torch.int32, device=dir2d.device)
     if nb and cap:
-        _launch("bucketed_probe", dir2d, loc2d, nb, tile, cap, out)
+        _launch("bucketed_probe", dir2d.data_ptr(), loc2d.data_ptr(), nb,
+                tile, cap, out.data_ptr())
     return out
 
 
@@ -345,8 +350,8 @@ def bucketed_groupby_sums(loc2d: torch.Tensor, stack: torch.Tensor,
         dst = out if whole else alloc(nb, tile, c1 - c0,
                                       dtype=torch.float32,
                                       device=stack.device)
-        _launch("bucketed_groupby_sums", loc2d, part, nb, cap, c1 - c0,
-                tile, rows, dst)
+        _launch("bucketed_groupby_sums", loc2d.data_ptr(), part.data_ptr(),
+                nb, cap, c1 - c0, tile, rows, dst.data_ptr())
         if not whole:
             out[:, :, c0:c1] = dst
     return out
@@ -366,17 +371,20 @@ def bit_unpack(packed: torch.Tensor, cap: int) -> torch.Tensor:
     → [cap] or [rows, cap] bool, cap ≤ 8·w (replaces bit_unpack_pallas)."""
     if _on_cpu(packed):
         return bit_unpack_plain(packed, cap)
-    _check(packed, "packed", torch.uint8, packed.dim())
-    if packed.dim() not in (1, 2):
-        raise ValueError(f"packed: expected 1 or 2 dims, got {packed.dim()}")
-    w = packed.shape[-1]
+    ndim = packed.dim()
+    _check(packed, "packed", torch.uint8, ndim)
+    if ndim not in (1, 2):
+        raise ValueError(f"packed: expected 1 or 2 dims, got {ndim}")
+    shape = packed.shape
+    w = shape[-1]
     if not 0 <= cap <= 8 * w:
         raise ValueError(f"cap {cap} outside [0, 8·{w}]")
-    rows = packed.shape[0] if packed.dim() == 2 else 1
-    out = torch.empty(*packed.shape[:-1], cap, dtype=torch.bool,
+    rows = shape[0] if ndim == 2 else 1
+    out = torch.empty(*shape[:-1], cap, dtype=torch.bool,
                       device=packed.device)
     if rows and w and cap:
-        _launch("bit_unpack", packed, rows, w, cap, out)
+        _launch("bit_unpack", packed.data_ptr(), rows, w, cap,
+                out.data_ptr())
     return out
 
 
@@ -404,7 +412,7 @@ def dict_decode(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     n = codes.numel()
     if n:
         lut_bytes = lut.numel() * lut.element_size()
-        _launch("dict_decode", codes, n, codes.element_size(), lut,
-                lut.numel(), lut.element_size(),
-                int(lut_bytes <= MAX_SMEM_BYTES), out)
+        _launch("dict_decode", codes.data_ptr(), n, codes.element_size(),
+                lut.data_ptr(), lut.numel(), lut.element_size(),
+                int(lut_bytes <= MAX_SMEM_BYTES), out.data_ptr())
     return out

@@ -364,6 +364,9 @@ class Binder:
                       if e.else_result is not None else None)
             dtypes = [r.dtype for r in results] + (
                 [else_r.dtype] if else_r is not None else [])
+            if DataType.STRING in dtypes:
+                raise UnsupportedQueryError(
+                    "CASE with a text result is not in this port yet")
             dtype = dtypes[0]
             for d in dtypes[1:]:
                 dtype = ir.promote(dtype, d)

@@ -1194,9 +1194,9 @@ class DistributedPlanner:
         """
         dargs = {a.arg for a, _ in aggs if a.distinct}
         if len(dargs) > 1:
-            raise PlanningError(
+            raise UnsupportedQueryError(
                 "multiple DISTINCT aggregates over different "
-                "expressions are not supported")
+                "expressions are not in this port yet")
         darg = next(iter(dargs))
         inner_keys = list(group_keys) + [(darg, "gd")]
         inner_aggs: list[tuple[ir.BAgg, str]] = []

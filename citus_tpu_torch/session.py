@@ -9,8 +9,9 @@ session's device.  A Session opens any data_dir the JAX package wrote
 opens the port's.
 
 Not in this slice: DML beyond ingest, transactions, prepared statements,
-EXPLAIN, subqueries/CTEs in FROM, UDFs, serving, WLM, replication, CDC,
-tracing, streaming and the OOM ladder.
+EXPLAIN, subqueries and WITH (refused with UnsupportedQueryError before
+binding), UDFs, serving, WLM, replication, CDC, tracing, streaming and
+the OOM ladder.
 """
 
 from __future__ import annotations
@@ -64,6 +65,39 @@ class _StoreDicts(DictProvider):
 
     def dictionary(self, table: str, column: str):
         return self.store.dictionary(table, column)
+
+
+def _refuse_recursive_shapes(sel: ast.Select) -> None:
+    """Refuse the shapes the reference plans recursively before binding
+    (citus_tpu/session.py _recursive_plan): WITH, subqueries in FROM,
+    and scalar, IN and EXISTS subqueries.  The port has no recursive
+    planning yet, and the binder takes none of them."""
+    if sel.ctes:
+        raise UnsupportedQueryError("WITH queries are not in this port yet")
+    exprs = [it.expr for it in sel.items] + list(sel.group_by) + [
+        o.expr for o in sel.order_by] + [
+        e for e in (sel.where, sel.having) if e is not None]
+    items = list(sel.from_items)
+    while items:
+        item = items.pop()
+        if isinstance(item, ast.SubqueryRef):
+            raise UnsupportedQueryError(
+                "subqueries in FROM are not in this port yet")
+        if isinstance(item, ast.Join):
+            items += [item.left, item.right]
+            if item.condition is not None:
+                exprs.append(item.condition)
+    for e in exprs:
+        for node in ast.walk_expr(e):
+            if isinstance(node, ast.ScalarSubquery):
+                raise UnsupportedQueryError(
+                    "scalar subqueries are not in this port yet")
+            if isinstance(node, ast.InSubquery):
+                raise UnsupportedQueryError(
+                    "IN (subquery) is not in this port yet")
+            if isinstance(node, ast.Exists):
+                raise UnsupportedQueryError(
+                    "EXISTS (subquery) is not in this port yet")
 
 
 class Session:
@@ -163,6 +197,7 @@ class Session:
         return self.executor.execute_plan(self.plan_select(sel))
 
     def plan_select(self, sel: ast.Select) -> QueryPlan:
+        _refuse_recursive_shapes(sel)
         binder = Binder(self.catalog, _StoreDicts(self.store))
         bound = binder.bind_select(sel)
         planner = DistributedPlanner(

@@ -224,19 +224,48 @@ def test_gpu_session_matches_cpu_session(tmp_path, cuda):
                if k != "bit_unpack"), hk.LAUNCHES
 
 
-@pytest.mark.parametrize("shape,cap", [((16,), 128), ((3, 16), 128),
-                                       ((768,), 6144), ((2, 768), 6144),
-                                       ((2, 768), 6100)])
-def test_bit_unpack_kernel(rng, cuda, shape, cap):
+@pytest.mark.parametrize("shape,cap,offset", [
+    pytest.param((16,), 128, 0, id="shape0-128"),
+    pytest.param((3, 16), 128, 0, id="shape1-128"),
+    pytest.param((768,), 6144, 0, id="shape2-6144"),
+    pytest.param((2, 768), 6144, 0, id="shape3-6144"),
+    pytest.param((2, 768), 6100, 0, id="shape4-6100"),
+    # the SF1 main path: one plane of a 6,001,520-row column
+    pytest.param((750_192,), 6_001_536, 0, id="main_path"),
+    pytest.param((6145,), 49_160, 1, id="odd_view"),  # packed[1:]
+    pytest.param((3, 1001), 8001, 0, id="ragged_rows"),
+    pytest.param((4096, 3), 17, 0, id="many_short_rows"),
+    # rows starting 8 but not 16 bytes apart: every other row's first
+    # packed byte is written alone
+    pytest.param((5, 1001), 8008, 0, id="ragged_cap_8_mod_16"),
+    pytest.param((1001,), 8008, 0, id="cap_8_mod_16"),
+    pytest.param((1001,), 8005, 0, id="cap_not_8k"),
+    pytest.param((1,), 1, 0, id="one_bit"),
+    pytest.param((16,), 0, 0, id="cap_0"),
+])
+def test_bit_unpack_kernel(rng, cuda, shape, cap, offset):
+    """Exact against np.unpackbits, one launch per call (none for cap
+    0), and nothing written past rows·cap: the entry point, run into a
+    buffer with guard bytes after it, leaves them as they were."""
     bits = rng.random(shape[:-1] + (shape[-1] * 8,)) < 0.3
     packed = np.packbits(bits, axis=-1)
+    want = np.unpackbits(packed, axis=-1)[..., :cap].astype(bool)
+    dev_packed = _view_at(packed, offset, cuda)
     before = hk.LAUNCHES["bit_unpack"]
-    got = hk.bit_unpack(_to(packed, cuda), cap)
+    got = hk.bit_unpack(dev_packed, cap)
     torch.cuda.synchronize()
-    assert hk.LAUNCHES["bit_unpack"] == before + 1
-    np.testing.assert_array_equal(got.cpu().numpy(),
-                                  np.unpackbits(packed, axis=-1)[..., :cap]
-                                  .astype(bool))
+    assert hk.LAUNCHES["bit_unpack"] == before + (1 if cap else 0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    rows = packed.shape[0] if packed.ndim == 2 else 1
+    guarded = torch.full((rows * cap + 64,), 0xAA, dtype=torch.uint8,
+                         device=cuda)
+    if cap:
+        hk._launch("bit_unpack", dev_packed.data_ptr(), rows,
+                   packed.shape[-1], cap, guarded.data_ptr())
+    torch.cuda.synchronize()
+    guarded = guarded.cpu().numpy()
+    np.testing.assert_array_equal(guarded[:rows * cap], want.reshape(-1))
+    assert (guarded[rows * cap:] == 0xAA).all()
 
 
 @pytest.mark.parametrize("code_dtype,nv", [(np.uint8, 1), (np.uint8, 37),

@@ -133,7 +133,8 @@ def test_float_policy_follows_compute_dtype(rng):
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "tools", f)
-        for f in ("compare_grid_sums.py", "dense_grid_layouts.py")]
+        for f in ("compare_grid_sums.py", "dense_grid_layouts.py",
+                  "compare_bit_unpack.py")]
     for root, _dirs, files in os.walk(os.path.join(REPO, "citus_tpu_torch")):
         out.extend(os.path.join(root, f) for f in files if f.endswith(".py"))
     return out

@@ -208,14 +208,31 @@ def test_bucketed_groupby_sums_plain_matches_pallas(rng, nb, cap, tile, a,
         assert not got[0].any()  # the all-garbage bucket sums to zero
 
 
-@pytest.mark.parametrize("shape,cap", [((16,), 128), ((3, 16), 128),
-                                       ((768,), 6144), ((2, 768), 6144),
-                                       ((2, 768), 6100)])
-def test_bit_unpack_plain_matches_pallas(rng, shape, cap):
+@pytest.mark.parametrize("shape,cap,offset", [
+    pytest.param((16,), 128, 0, id="shape0-128"),
+    pytest.param((3, 16), 128, 0, id="shape1-128"),
+    pytest.param((768,), 6144, 0, id="shape2-6144"),
+    pytest.param((2, 768), 6144, 0, id="shape3-6144"),
+    pytest.param((2, 768), 6100, 0, id="shape4-6100"),
+    # the SF1 main path: one plane of a 6,001,520-row column
+    pytest.param((750_192,), 6_001_536, 0, id="main_path"),
+    pytest.param((6145,), 49_160, 1, id="odd_view"),  # packed[1:]
+    pytest.param((3, 1001), 8001, 0, id="ragged_rows"),
+    pytest.param((4096, 3), 17, 0, id="many_short_rows"),
+    pytest.param((5, 1001), 8008, 0, id="ragged_cap_8_mod_16"),
+    pytest.param((1001,), 8008, 0, id="cap_8_mod_16"),
+    pytest.param((1001,), 8005, 0, id="cap_not_8k"),
+    pytest.param((1,), 1, 0, id="one_bit"),
+    pytest.param((16,), 0, 0, id="cap_0"),
+])
+def test_bit_unpack_plain_matches_pallas(rng, shape, cap, offset):
     _pallas()
     bits = rng.random(shape[:-1] + (shape[-1] * 8,)) < 0.3
     packed = np.packbits(bits, axis=-1)
-    got = hk.bit_unpack(T(packed), cap).numpy()
+    # a contiguous view `offset` bytes into a larger buffer
+    view = T(np.concatenate([np.zeros(offset, np.uint8),
+                             packed.reshape(-1)]))[offset:].view(shape)
+    got = hk.bit_unpack(view, cap).numpy()
     assert got.dtype == np.bool_ and got.shape == shape[:-1] + (cap,)
     np.testing.assert_array_equal(got, bit_unpack_reference(packed, cap))
     p2 = packed.reshape(1, -1) if packed.ndim == 1 else packed

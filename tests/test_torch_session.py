@@ -256,3 +256,60 @@ def test_unsupported_statement_is_refused(jax_dir):
     sess = citus_tpu_torch.connect(data_dir, device="cpu")
     with pytest.raises(citus_tpu_torch.UnsupportedQueryError):
         sess.execute("delete from lineitem")
+
+
+# shapes the reference plans recursively (or rewrites) before binding,
+# which the port refuses until it has recursive planning
+RECURSIVE_SHAPES = {
+    "scalar_subquery": "select count(*) from nt "
+                       "where x > (select avg(x) from nt)",
+    "in_subquery": "select count(*) from nt "
+                   "where id in (select id from nt where y > 100)",
+    "exists_subquery": "select count(*) from nt where exists "
+                       "(select 1 from nt n2 where n2.id = nt.id "
+                       "and n2.x > 3)",
+    "from_subquery": "select count(*), sum(s.x) from "
+                     "(select x from nt where id < 100) s",
+    "with": "with t as (select id, x from nt where id < 500) "
+            "select count(*), sum(x) from t",
+    "multi_distinct": "select count(distinct flag), count(distinct status) "
+                      "from nt",
+}
+
+
+@pytest.mark.parametrize("shape", sorted(RECURSIVE_SHAPES))
+def test_recursive_shapes_are_refused_where_jax_answers(jax_nullable_dir,
+                                                        shape):
+    """Each shape is refused with the slice's error, naming it, and the
+    JAX package answers it on the same data_dir: the gap is a refusal,
+    not a wrong answer."""
+    data_dir, _want = jax_nullable_dir
+    sql = RECURSIVE_SHAPES[shape]
+    sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   compute_dtype="float64")
+    with pytest.raises(citus_tpu_torch.UnsupportedQueryError,
+                       match="not in this port yet"):
+        sess.execute(sql)
+    jsess = citus_tpu.connect(data_dir=data_dir, n_devices=1,
+                              exec_cache_enabled=False,
+                              compute_dtype="float64",
+                              serving_result_cache_bytes=0)
+    try:
+        rows = jsess.execute(sql).rows()
+    finally:
+        jsess.close()
+    assert len(rows) == 1 and all(v is not None for v in rows[0])
+
+
+def test_text_case_is_refused(jax_nullable_dir):
+    """A CASE whose result is text is refused while planning, before a
+    tensor is made (the JAX package fails on it too)."""
+    data_dir, _want = jax_nullable_dir
+    sess = citus_tpu_torch.connect(data_dir, device="cpu")
+    for sql in ["select case when x > 0 then 'pos' else 'zero' end "
+                "from nt",
+                "select id, case when x > 0 then 'pos' end from nt",
+                "select case when y > 1 then flag else 'none' end from nt"]:
+        with pytest.raises(citus_tpu_torch.UnsupportedQueryError,
+                           match="CASE with a text result"):
+            sess.execute(sql)
