@@ -8,9 +8,9 @@ Phases, each fatal on failure (no result line is printed then):
 1. print the card's name and power limit (nvidia-smi);
 2. build the five Hopper kernels from citus_tpu_torch/csrc (nvcc,
    one process per source, started together);
-3. generate TPC-H at --sf (6.0M lineitem rows at SF1) and load customer,
-   orders and lineitem through the port's own DDL, distribution and
-   ingest into a temporary data_dir (shard_count 8), plus
+3. generate TPC-H at --sf (6.0M lineitem rows at SF1) and load its
+   eight tables through the port's own DDL, distribution and ingest
+   into a temporary data_dir (shard_count 8), plus
    lineitem_nullable: lineitem's rows with l_discount and l_tax NULL on
    a seeded 10% of rows each;
 4. the main path, under the default scan_pipeline=auto (device decode
@@ -34,7 +34,19 @@ Phases, each fatal on failure (no result line is printed then):
 7. time warm runs of Q1, Q3, the GROUP BY and the nullable query
    (rows/s), and profile one more warm run of each (device busy time,
    idle share, heaviest kernels);
-8. print the kernels line, then the device line last.
+8. TPC-H 22: with every launch count at 0, each of the 22 TPC-H
+   statements in a fresh session on the card (a cold scan with device
+   decode), then the best of --reps warm runs; per statement the walls,
+   retries, rows, each kernel's launches and the rows and host seconds
+   of each intermediate result it stored.  Every answer is held against
+   the port's own CPU session on the same data_dir (float32 on both
+   sides), and Q4, Q13, Q18 and Q21 against numpy too.  Fails when an
+   answer differs, when the dense-grid sum, the bucketed group-by sums
+   or the dictionary decode never launch on the 14 statements that
+   plan recursively, or when an `__intermediate_` temp outlives its
+   statement (catalog, data_dir, feed cache) or prefetch bytes stay
+   live.  One warm run each of Q4, Q13, Q18 and Q21 is profiled;
+9. print the kernels line, then the device line last.
 
 Exits non-zero without a result when no GPU is visible or the port's
 package is not next to this script.  Imports nothing of JAX.
@@ -507,7 +519,7 @@ def kernel_report(hk, name, args, launches):
         tol = "exact"
     else:
         # f32 sums of millions of rows in two different orders: the
-        # plain version's blocked product (or scatter) accumulates long
+        # plain version's one-hot product (K3's scatter) accumulates long
         # f32 runs and drifts by up to ~1e-3 of a column's magnitude at
         # 6M rows, so the kernel is held to the plain version at 1e-2 of
         # each column's largest value and, tightly, to a float64 sum of
@@ -649,6 +661,276 @@ def scan_modes(ct, data_dir, queries, checks, want, ident) -> None:
                 f"{link_ms(n, False)!r} ms ({ident})")
 
 
+# -- phase 8: the 22 TPC-H statements --------------------------------------
+
+# the statements that plan recursively (subqueries, derived tables, WITH,
+# views), and those whose answer numpy also checks
+RECURSIVE_QUERIES = ("Q2", "Q4", "Q7", "Q8", "Q9", "Q11", "Q13", "Q15",
+                     "Q16", "Q17", "Q18", "Q20", "Q21", "Q22")
+# kernels that must launch on the recursive statements
+TPCH22_KERNELS = ("dense_grid_sum", "bucketed_groupby_sums", "dict_decode")
+PROFILED = ("Q4", "Q13", "Q18", "Q21")
+TEMP_PREFIX = "__intermediate_"
+
+
+def iso(day) -> str:
+    import numpy as np
+
+    return str(np.datetime64(int(day), "D"))
+
+
+def numpy_q4(orders, li):
+    """Orders of 1993 Q3 with a line received after its commit date
+    (the semi join), counted per priority."""
+    import numpy as np
+
+    n_ord = len(orders["o_orderkey"])
+    late = li["l_commitdate"] < li["l_receiptdate"]
+    has = np.bincount((li["l_orderkey"][late] - 1) // 4,
+                      minlength=n_ord) > 0
+    od = orders["o_orderdate"]
+    m = (od >= days("1993-07-01")) & (od < days("1993-10-01")) & has
+    keys, cnt = np.unique(orders["o_orderpriority"][m].astype(str),
+                          return_counts=True)
+    return [(str(k), int(c)) for k, c in zip(keys, cnt)]
+
+
+def numpy_q13(cust, orders):
+    """Orders per customer (0 for customers without any: the LEFT
+    join's null-extended rows), then customers per order count."""
+    import re
+
+    import numpy as np
+
+    pat = re.compile("special.*requests", re.S)
+    keep = np.fromiter((pat.search(c) is None for c in orders["o_comment"]),
+                       dtype=bool, count=len(orders["o_comment"]))
+    per = np.bincount(orders["o_custkey"][keep],
+                      minlength=int(cust["c_custkey"].max()) + 1)
+    dist = np.bincount(per[cust["c_custkey"]])
+    rows = [(c, int(n)) for c, n in enumerate(dist) if n]
+    return sorted(rows, key=lambda r: (-r[1], -r[0]))
+
+
+def numpy_q18(cust, orders, li):
+    """Orders whose lines sum past 212 units (the IN list over the
+    high-cardinality GROUP BY), with their customer; sorted on the
+    float32 prices the card compares (compute_dtype float32)."""
+    import numpy as np
+
+    n_ord = len(orders["o_orderkey"])
+    qty = np.bincount((li["l_orderkey"] - 1) // 4,
+                      weights=li["l_quantity"], minlength=n_ord)
+    big = np.flatnonzero(qty > 212)
+    price32 = orders["o_totalprice"].astype(np.float32)
+    order = np.lexsort((orders["o_orderkey"][big], orders["o_orderdate"][big],
+                        -price32[big]))[:100]
+    rows = []
+    for i in big[order]:
+        c = int(orders["o_custkey"][i])
+        rows.append((str(cust["c_name"][c - 1]), c,
+                     int(orders["o_orderkey"][i]),
+                     iso(orders["o_orderdate"][i]),
+                     float(orders["o_totalprice"][i]), float(qty[i])))
+    return rows
+
+
+def numpy_q21(supp, nation, orders, li):
+    """Late lines of Saudi suppliers in F orders where another supplier
+    shipped a line of the order (the semi join) and no other supplier's
+    line was late (the anti join), counted per supplier."""
+    import numpy as np
+
+    n_ord = len(orders["o_orderkey"])
+    o = (li["l_orderkey"] - 1) // 4
+    sk = li["l_suppkey"]
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    top = np.iinfo(np.int64).max
+    lo_all, hi_all = np.full(n_ord, top), np.full(n_ord, -1)
+    np.minimum.at(lo_all, o, sk)
+    np.maximum.at(hi_all, o, sk)
+    lo_late, hi_late = np.full(n_ord, top), np.full(n_ord, -1)
+    np.minimum.at(lo_late, o[late], sk[late])
+    np.maximum.at(hi_late, o[late], sk[late])
+    saudi_key = int(nation["n_nationkey"][
+        nation["n_name"] == "SAUDI ARABIA"][0])
+    saudi = np.zeros(int(supp["s_suppkey"].max()) + 1, dtype=bool)
+    saudi[supp["s_suppkey"][supp["s_nationkey"] == saudi_key]] = True
+    status_f = orders["o_orderstatus"] == "F"
+    m = (late & saudi[sk] & status_f[o]
+         & ((lo_all[o] != sk) | (hi_all[o] != sk))
+         & (lo_late[o] == sk) & (hi_late[o] == sk))
+    cnt = np.bincount(sk[m], minlength=len(saudi))
+    rows = [(str(supp["s_name"][k - 1]), int(cnt[k]))
+            for k in np.flatnonzero(cnt)]
+    return sorted(rows, key=lambda r: (-r[1], r[0]))[:100]
+
+
+def same_rows(got, want, ordered: bool, rtol: float = 1e-4) -> str | None:
+    """None when `got` matches `want` (floats within rtol, everything
+    else exact), else what differs.  An ordered answer may differ from
+    the other side's order only where rows tie within rtol on the
+    floats the ORDER BY compares: such a pair is matched as a multiset
+    and said so."""
+
+    def cell_eq(a, b) -> bool:
+        if a is None or b is None:
+            return a is None and b is None
+        if isinstance(a, float) or isinstance(b, float):
+            return close(a, b, rtol)
+        return a == b
+
+    def row_eq(g, w) -> bool:
+        return len(g) == len(w) and all(cell_eq(a, b) for a, b in zip(g, w))
+
+    got = [tuple(x.item() if hasattr(x, "item") else x for x in r)
+           for r in got]
+    want = [tuple(x.item() if hasattr(x, "item") else x for x in r)
+            for r in want]
+    if len(got) != len(want):
+        return f"{len(got)} rows against {len(want)}"
+    if ordered and all(row_eq(g, w) for g, w in zip(got, want)):
+        return None
+    # as multisets: rows bucketed by their exact cells, floats within rtol
+    buckets: dict = {}
+    for w in want:
+        buckets.setdefault(tuple(None if isinstance(x, float) else x
+                                 for x in w), []).append(w)
+    for g in got:
+        pool = buckets.get(tuple(None if isinstance(x, float) else x
+                                 for x in g), [])
+        hit = next((i for i, w in enumerate(pool) if row_eq(g, w)), None)
+        if hit is None:
+            return f"row {g} has no match"
+        pool.pop(hit)
+    if ordered:
+        moved = [i for i, (g, w) in enumerate(zip(got, want))
+                 if not row_eq(g, w)]
+        log(f"    same rows; order differs at positions {moved}")
+    return None
+
+
+def check_no_temps(sess, acc, where: str) -> None:
+    tables = [t for t in sess.catalog.tables if t.startswith(TEMP_PREFIX)]
+    on_disk = [t for t in os.listdir(os.path.join(sess.data_dir, "tables"))
+               if t.startswith(TEMP_PREFIX)]
+    feeds = [k[0] for k in sess.executor.feed_cache._entries
+             if k[0].startswith(TEMP_PREFIX)]
+    prefetch = acc.live_bytes("prefetch")
+    if tables or on_disk or feeds or prefetch:
+        raise AssertionError(
+            f"{where}: temps left in the catalog {tables}, the data_dir "
+            f"{on_disk}, the feed cache {feeds}; prefetch bytes {prefetch}")
+
+
+class TempTimer:
+    """Wraps Session._store_result: the rows and host seconds of each
+    intermediate result a statement stores."""
+
+    def __init__(self, session_cls):
+        self.cls, self.fn = session_cls, session_cls._store_result
+        self.temps = []
+
+    def install(self):
+        timer = self
+
+        def timed(sess, result, *args, **kw):
+            t0 = time.perf_counter()
+            name = timer.fn(sess, result, *args, **kw)
+            timer.temps.append((result.row_count,
+                                time.perf_counter() - t0))
+            return name
+
+        self.cls._store_result = timed
+
+    def remove(self):
+        self.cls._store_result = self.fn
+
+
+def tpch22(ct, hk, data_dir, data, reps, ident) -> dict:
+    """Phase 8.  Returns each kernel's launches over the 22 first runs."""
+    import torch
+
+    from citus_tpu_torch.executor.hbm import accountant_for
+    from citus_tpu_torch.ingest import tpch
+    from citus_tpu_torch.session import Session
+
+    acc = accountant_for(data_dir)
+    li, orders, cust = data["lineitem"], data["orders"], data["customer"]
+    want_np = {"Q4": numpy_q4(orders, li), "Q13": numpy_q13(cust, orders),
+               "Q18": numpy_q18(cust, orders, li),
+               "Q21": numpy_q21(data["supplier"], data["nation"], orders,
+                                li)}
+    names = sorted(tpch.QUERIES, key=lambda q: int(q[1:]))
+    timer = TempTimer(Session)
+    timer.install()
+    answers, first, profiles = {}, {}, {}
+    hk.reset_launch_counts()
+    try:
+        for q in names:
+            sql = tpch.QUERIES[q]
+            sess = ct.connect(data_dir)
+            del timer.temps[:]
+            before = dict(hk.LAUNCHES)
+            t0 = time.perf_counter()
+            res = sess.execute(sql)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            check_no_temps(sess, acc, q)
+            launched = {n: hk.LAUNCHES[n] - before[n] for n in hk.KERNELS}
+            temps = list(timer.temps)
+            best, warm_launched, warm_retries = None, None, []
+            for _ in range(reps):
+                before = dict(hk.LAUNCHES)
+                t0 = time.perf_counter()
+                again = sess.execute(sql)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                best = dt if best is None else min(best, dt)
+                warm_launched = {n: hk.LAUNCHES[n] - before[n]
+                                 for n in hk.KERNELS}
+                warm_retries.append(again.retries)
+                check_no_temps(sess, acc, f"{q} warm")
+            answers[q] = res.rows()
+            first[q] = launched
+            log(f"tpch22 {q}: {res.row_count} rows, first run {cold!r} s, "
+                f"best of {reps} warm {best!r} s, retries {res.retries} "
+                f"(warm {warm_retries}), launches first {launched} warm "
+                f"{warm_launched}, temps (rows, host s) {temps} ({ident})")
+            if q in want_np:
+                diff = same_rows(answers[q], want_np[q], True)
+                if diff:
+                    raise AssertionError(f"{q} against numpy: {diff}")
+                log(f"  {q} matches numpy")
+            if q in PROFILED:
+                profiles[q] = profile_query(sess, sql)
+            del sess
+    finally:
+        timer.remove()
+    for n in TPCH22_KERNELS:
+        if not sum(first[q][n] for q in RECURSIVE_QUERIES):
+            raise AssertionError(f"{n} never launched on the recursive "
+                                 "TPC-H statements")
+    cpu = ct.connect(data_dir, device="cpu", compute_dtype="float32")
+    differ = []
+    for q in names:
+        t0 = time.perf_counter()
+        sql = tpch.QUERIES[q]
+        want = cpu.execute(sql).rows()
+        dt = time.perf_counter() - t0
+        check_no_temps(cpu, acc, f"{q} on the CPU")
+        diff = same_rows(answers[q], want, "order by" in sql.lower())
+        if diff:
+            differ.append(q)
+            log(f"  {q}: card against CPU: {diff}; card {answers[q][:5]}, "
+                f"CPU {want[:5]}")
+        else:
+            log(f"  {q} matches the CPU session ({dt!r} s on the CPU)")
+    if differ:
+        raise AssertionError(f"card against CPU: {differ} differ")
+    return {n: sum(first[q][n] for q in names) for n in hk.KERNELS}
+
+
 # --------------------------------------------------------------------------
 
 def warm_runs(sess, q, sql, rows, reps, ident) -> None:
@@ -711,8 +993,7 @@ def main() -> int:
         log(f"generate SF{args.sf}: {time.perf_counter() - t0:.3f} s")
         sess = ct.connect(os.path.join(tmp, "data"))
         t0 = time.perf_counter()
-        counts = tpch.load_tables(sess, data,
-                                  tables={"customer", "orders", "lineitem"})
+        counts = tpch.load_tables(sess, data)
         log(f"load {counts}: {time.perf_counter() - t0:.3f} s")
         li, orders, cust = data["lineitem"], data["orders"], data["customer"]
         t0 = time.perf_counter()
@@ -776,6 +1057,13 @@ def main() -> int:
 
         for q in ("Q1", "Q3", "high_card_groupby", "nullable"):
             warm_runs(sess, q, queries[q], rows[q], args.reps, ident)
+
+        t0 = time.perf_counter()
+        launched = tpch22(ct, hk, os.path.join(tmp, "data"), data,
+                          args.reps, ident)
+        log(f"tpch22: {time.perf_counter() - t0:.3f} s, launches {launched}")
+        for rep in reports:
+            rep["launches_tpch22"] = launched[rep["name"]]
 
         print(json.dumps({"kernels": reports}), flush=True)
     finally:

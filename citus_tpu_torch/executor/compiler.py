@@ -21,8 +21,8 @@ on the card, reading the columns where they lie, where the JAX executor
 takes its one-hot branch (f32 sums, and counts while n < 2^24, over at
 most DENSE_ONEHOT_MAX_SLOTS slots).
 
-Not in this slice (raise UnsupportedQueryError): window functions,
-semi/anti joins, expansion-path outer joins, INSERT..SELECT routing.
+Not in this port yet (raise UnsupportedQueryError): window functions and
+INSERT..SELECT routing.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import torch
 
 from ..errors import ExecutionError, PlanningError, UnsupportedQueryError
 from ..ops.aggregate import segment_aggregate
-from ..ops.join import expand_join_pairs
+from ..ops.join import expand_join_outer, expand_join_pairs
 from ..planner.plan import (
     AggregateNode,
     JoinNode,
@@ -142,9 +142,9 @@ class PlanCompiler:
     # port routes the same shapes through the dense_grid_sum kernel
     DENSE_ONEHOT_MAX_SLOTS = 4096
 
-    def __init__(self, plan: QueryPlan, caps: Capacities,
-                 compute_dtype=np.float32, device="cpu"):
-        self.caps = caps
+    def __init__(self, plan: QueryPlan, compute_dtype=np.float32,
+                 device="cpu"):
+        self.caps = None
         self.compute_dtype = _TORCH_FLOAT[np.dtype(compute_dtype)]
         self.device = torch.device(device)
         self.out_meta = None
@@ -156,8 +156,10 @@ class PlanCompiler:
                 "INSERT..SELECT device routing is not in this port yet")
 
     # ------------------------------------------------------------------
-    def run(self, plan: QueryPlan, feeds) -> tuple:
-        """Execute against `feeds` (FeedSpec by scan-node id).  Returns
+    def run(self, plan: QueryPlan, feeds, caps: Capacities) -> tuple:
+        """Execute against `feeds` (FeedSpec by scan-node id) with `caps`
+        keyed by this plan's node ids: a cached instance serves every
+        plan of its shape, and each statement plans anew.  Returns
         (packed [n_out, 1, cap] int64 numpy, counters [2 + n_stages]
         int64 numpy, out_meta, stage_keys): counters are [capacity
         overflow, dense_oob, *stage actuals] and stage_keys entries are
@@ -165,6 +167,7 @@ class PlanCompiler:
         from .cache import plan_order
 
         self.plan = plan
+        self.caps = caps
         self._walk_order = plan_order(plan)
         self._stage_actual = {}
         self._stage_width = {}
@@ -203,7 +206,7 @@ class PlanCompiler:
             packed = torch.stack(rows).cpu().numpy()
             counters = counters.cpu().numpy()
         finally:
-            self.plan = None
+            self.plan = self.caps = None
         self.out_meta, self.stage_keys = meta, stage_keys
         return packed[:, None, :], counters, meta, stage_keys
 
@@ -456,11 +459,11 @@ class PlanCompiler:
         return Block(cols, out_valid, nulls)
 
     def _exec_join(self, node: JoinNode, feeds) -> Block:
-        if node.join_type in ("semi", "anti"):
-            raise UnsupportedQueryError(
-                "semi/anti joins are not in this port yet")
         lblk, rblk, lkeys, lmatch, rkeys, rmatch = \
             self._join_inputs(node, feeds)
+        if node.join_type in ("semi", "anti"):
+            return self._exec_semi_join(node, lblk, rblk, lkeys, lmatch,
+                                        rkeys, rmatch)
         if getattr(node, "fuse_lookup", False) and not self.caps.dense_off:
             blk = self._exec_lookup_join(node, lblk, rblk, lkeys, lmatch,
                                          rkeys, rmatch)
@@ -474,40 +477,148 @@ class PlanCompiler:
                     if k is not None and k < blk.valid.shape[0]:
                         blk = self._compact(blk, k)
             return blk
-        if node.join_type != "inner":
-            raise UnsupportedQueryError(
-                f"{node.join_type} joins on the expansion path are not in "
-                "this port yet")
         out_cap = self.caps.join_out[id(node)]
-        if getattr(node, "build_side", "right") == "left":
-            bkeys, bmatch, bblk = lkeys, lmatch, lblk
-            pkeys, pmatch, pblk = rkeys, rmatch, rblk
-            extents = getattr(node, "left_key_extents", ())
+        if node.join_type != "inner":
+            blk = self._exec_outer_expand(node, lblk, rblk, lkeys, lmatch,
+                                          rkeys, rmatch, out_cap)
         else:
-            bkeys, bmatch, bblk = rkeys, rmatch, rblk
-            pkeys, pmatch, pblk = lkeys, lmatch, lblk
-            extents = getattr(node, "right_key_extents", ())
-        dense = self._dense_for(extents, bkeys)
-        bidx, pidx, out_valid, _miss, overflow, dense_oob = \
-            expand_join_pairs(bkeys, bmatch, pkeys, pmatch, pmatch,
-                              out_cap, probe_outer=False, dense=dense)
-        self._overflow = self._overflow + overflow
-        self._dense_oob = self._dense_oob + dense_oob
-        self._record(id(node), "join_out", out_valid.sum(), out_cap)
-        cols, nulls = {}, {}
-        for cid, arr in pblk.columns.items():
-            cols[cid] = arr[pidx]
-        for cid, nmask in pblk.nulls.items():
-            nulls[cid] = nmask[pidx]
-        for cid, arr in bblk.columns.items():
-            cols[cid] = arr[bidx]
-        for cid, nmask in bblk.nulls.items():
-            nulls[cid] = nmask[bidx]
-        blk = Block(cols, out_valid, nulls)
+            if getattr(node, "build_side", "right") == "left":
+                bkeys, bmatch, bblk = lkeys, lmatch, lblk
+                pkeys, pmatch, pblk = rkeys, rmatch, rblk
+                extents = getattr(node, "left_key_extents", ())
+            else:
+                bkeys, bmatch, bblk = rkeys, rmatch, rblk
+                pkeys, pmatch, pblk = lkeys, lmatch, lblk
+                extents = getattr(node, "right_key_extents", ())
+            dense = self._dense_for(extents, bkeys)
+            bidx, pidx, out_valid, _miss, overflow, dense_oob = \
+                expand_join_pairs(bkeys, bmatch, pkeys, pmatch, pmatch,
+                                  out_cap, probe_outer=False, dense=dense)
+            self._overflow = self._overflow + overflow
+            self._dense_oob = self._dense_oob + dense_oob
+            self._record(id(node), "join_out", out_valid.sum(), out_cap)
+            cols, nulls = {}, {}
+            for cid, arr in pblk.columns.items():
+                cols[cid] = arr[pidx]
+            for cid, nmask in pblk.nulls.items():
+                nulls[cid] = nmask[pidx]
+            for cid, arr in bblk.columns.items():
+                cols[cid] = arr[bidx]
+            for cid, nmask in bblk.nulls.items():
+                nulls[cid] = nmask[bidx]
+            blk = Block(cols, out_valid, nulls)
         if node.residual is not None:
             blk = blk.with_filter(predicate_mask(node.residual,
                                                  self._src(blk)))
         return blk
+
+    def _exec_semi_join(self, node: JoinNode, lblk: Block, rblk: Block,
+                        lkeys, lmatch, rkeys, rmatch) -> Block:
+        """Semi/anti join (decorrelated EXISTS / NOT EXISTS): the output
+        rows are the probe (left) rows.  Without a residual, one
+        directory or binary-search bounds pass gives each probe its match
+        count.  With a cross-side residual (Q21's `l2.l_suppkey <>
+        l1.l_suppkey`) candidate pairs expand, only the residual's
+        columns are gathered at pair capacity, and a scatter-max ORs the
+        surviving pairs back onto their probe rows.  On one device the
+        JAX package's flag combine across the mesh is the identity."""
+        from ..ops.join import _bounds
+        from ..planner.expr import expr_columns
+
+        dense = self._dense_for(getattr(node, "right_key_extents", ()),
+                                rkeys)
+        n = lblk.valid.shape[0]
+        if node.residual is None:
+            _order, lo, hi, dense_oob = _bounds(rkeys, rmatch, lkeys, dense)
+            self._dense_oob = self._dense_oob + dense_oob
+            matched = lmatch & (hi > lo)
+        else:
+            cap = self.caps.join_out[id(node)]
+            bidx, pidx, out_valid, _miss, overflow, dense_oob = \
+                expand_join_pairs(rkeys, rmatch, lkeys, lmatch, lmatch,
+                                  cap, probe_outer=False, dense=dense)
+            self._overflow = self._overflow + overflow
+            self._dense_oob = self._dense_oob + dense_oob
+            self._record(id(node), "join_out", out_valid.sum(), cap)
+            cols, nulls = {}, {}
+            for cid in expr_columns(node.residual):
+                if cid in lblk.columns:
+                    blk, idx = lblk, pidx
+                elif cid in rblk.columns:
+                    blk, idx = rblk, bidx
+                else:
+                    continue
+                cols[cid] = blk.columns[cid][idx]
+                nm = blk.nulls.get(cid)
+                if nm is not None:
+                    nulls[cid] = nm[idx]
+            pair = Block(cols, out_valid, nulls)
+            ok = out_valid & predicate_mask(node.residual, self._src(pair))
+            flags = torch.zeros(n, dtype=torch.int32, device=self.device)
+            if n:
+                flags.scatter_reduce_(0, pidx, ok.to(torch.int32),
+                                      reduce="amax", include_self=True)
+            matched = flags > 0
+        if node.join_type == "anti":
+            valid = lblk.valid & ~matched
+        else:
+            valid = lblk.valid & matched
+        return Block(dict(lblk.columns), valid, dict(lblk.nulls))
+
+    def _exec_outer_expand(self, node: JoinNode, lblk: Block, rblk: Block,
+                           lkeys, lmatch, rkeys, rmatch,
+                           out_cap: int) -> Block:
+        """LEFT/RIGHT/FULL pair emission with null extension.  LEFT:
+        unmatched probe (left) rows emit once with the build columns
+        NULL.  RIGHT/FULL: unmatched build rows append as a second
+        segment of the build side's capacity with the probe columns
+        NULL."""
+        probe_outer = node.join_type in ("left", "full")
+        build_outer = node.join_type in ("right", "full")
+        dense = self._dense_for(getattr(node, "right_key_extents", ()),
+                                rkeys)
+        bidx, pidx, pair_valid, bmissing, unmatched_b, overflow, dense_oob \
+            = expand_join_outer(rkeys, rblk.valid, rmatch, lkeys,
+                                lblk.valid, lmatch, out_cap, probe_outer,
+                                build_outer, dense=dense)
+        self._overflow = self._overflow + overflow
+        self._dense_oob = self._dense_oob + dense_oob
+        self._record(id(node), "join_out", pair_valid.sum(), out_cap)
+        cols, nulls = {}, {}
+        for cid, arr in lblk.columns.items():
+            cols[cid] = arr[pidx]
+        for cid, nmask in lblk.nulls.items():
+            nulls[cid] = nmask[pidx]
+        for cid, arr in rblk.columns.items():
+            cols[cid] = arr[bidx]
+            gathered = rblk.nulls.get(cid)
+            nulls[cid] = (bmissing if gathered is None
+                          else (gathered[bidx] | bmissing))
+        if not build_outer:
+            return Block(cols, pair_valid, nulls)
+        # the unmatched build rows' segment: probe columns NULL (zeros
+        # stand in for their values, as nothing reads them)
+        m = rblk.valid.shape[0]
+        out_cols, out_nulls = {}, {}
+        for cid in cols:
+            pn = nulls.get(cid)
+            if pn is None:
+                pn = torch.zeros(pair_valid.shape, dtype=torch.bool,
+                                 device=self.device)
+            if cid in rblk.columns:
+                seg = rblk.columns[cid]
+                nm = rblk.nulls.get(cid)
+                seg_null = (torch.zeros(m, dtype=torch.bool,
+                                        device=self.device)
+                            if nm is None else nm)
+            else:
+                seg = cols[cid].new_zeros((m,))
+                seg_null = torch.ones(m, dtype=torch.bool,
+                                      device=self.device)
+            out_cols[cid] = torch.cat([cols[cid], seg])
+            out_nulls[cid] = torch.cat([pn, seg_null])
+        return Block(out_cols, torch.cat([pair_valid, unmatched_b]),
+                     out_nulls)
 
     # -- aggregation ----------------------------------------------------
     def _agg_values(self, node: AggregateNode, blk: Block):

@@ -148,11 +148,10 @@ class Executor:
             key = fingerprint + (caps_signature(plan, caps),)
             compiler = self.plan_cache.get(key)
             if compiler is None:
-                compiler = PlanCompiler(plan, caps, compute_dtype,
-                                        self.device)
+                compiler = PlanCompiler(plan, compute_dtype, self.device)
                 self.plan_cache.put(key, compiler)
-            packed, counters, out_meta, stage_keys = compiler.run(plan,
-                                                                  feeds)
+            packed, counters, out_meta, stage_keys = compiler.run(
+                plan, feeds, caps)
             cap_overflow = int(counters[0])
             dense_oob = int(counters[1])
             if cap_overflow == 0 and dense_oob == 0:
@@ -315,6 +314,12 @@ class Executor:
                 lcap = cap_of(node.left)
                 rcap = cap_of(node.right)
                 if node.join_type in ("semi", "anti"):
+                    # the output rows are probe rows; only a cross-side
+                    # residual needs a candidate-pair buffer
+                    if node.residual is not None:
+                        join_out[id(node)] = _round_cap(int(
+                            lcap * join_factor
+                            * max(1.0, node.est_expansion)) + 128)
                     return lcap
                 if skip_emit:
                     return max(lcap, rcap)

@@ -9,6 +9,7 @@ from .join import (
     bucketed_unique_lookup,
     dense_unique_lookup,
     expand_join,
+    expand_join_outer,
     expand_join_pairs,
     lookup_join,
     lower_bound,
@@ -23,6 +24,7 @@ __all__ = [
     "group_bucket_eligible",
     "hash_token", "shard_index_from_token", "tile_buckets",
     "bucketed_unique_lookup", "dense_unique_lookup",
-    "expand_join", "expand_join_pairs", "lookup_join", "lower_bound",
+    "expand_join", "expand_join_outer", "expand_join_pairs", "lookup_join",
+    "lower_bound",
     "match_counts", "sort_build_side", "pack_by_target",
 ]

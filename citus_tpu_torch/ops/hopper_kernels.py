@@ -194,7 +194,10 @@ def dense_grid_sum_plain(slot: torch.Tensor, values,
     """sums[k, j] = Σ_{slot[i]=k} column j at row i for k < total; rows
     whose slot is outside [0, total) are ignored.  The columns stacked
     as float32, then one-hot × values for small grids (the JAX
-    executor's formulation), index_add_ otherwise."""
+    executor's formulation), else index_add_ accumulating in float64
+    and rounded to float32: a float32 scatter adds each slot's rows one
+    after another, and over millions of rows (Q1's groups at SF1) it
+    drifts past 1e-4 of the sum."""
     vals = values.to(torch.float32) if isinstance(values, torch.Tensor) \
         else torch.stack([c.to(torch.float32) for c in values], dim=1)
     n, a = vals.shape
@@ -209,8 +212,8 @@ def dense_grid_sum_plain(slot: torch.Tensor, values,
         ids = torch.arange(total + 1, device=slot.device)
         onehot = (s[:, None] == ids[None, :]).to(torch.float32)
         return (onehot.T @ vals)[:total]
-    out = torch.zeros(total + 1, a, dtype=torch.float32, device=vals.device)
-    return out.index_add_(0, s, vals)[:total]
+    out = torch.zeros(total + 1, a, dtype=torch.float64, device=vals.device)
+    return out.index_add_(0, s, vals.double())[:total].float()
 
 
 def dense_grid_sum(slot: torch.Tensor, values, total: int) -> torch.Tensor:

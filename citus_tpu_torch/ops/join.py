@@ -10,6 +10,8 @@ counting directory) and probes resolve to a contiguous run of matches.
   are counted into `dense_oob` so the host retries with the directory
   disabled (stale statistics cost one retry, never wrong answers).
 * **Lexicographic binary search** for multi-column or unbounded keys.
+* **Outer joins** (LEFT/RIGHT/FULL) emit pairs with null-extension flags
+  and mark the build rows no pair matched (expand_join_outer).
 * **Bucketed unique lookup** for large directories: probes pack by
   directory tile and the inner gather is the tile-resident kernel
   (ops.hopper_kernels.bucketed_probe) on the card.
@@ -101,6 +103,8 @@ def _search(sorted_keys, n_valid, probe_keys, cmp) -> torch.Tensor:
     dev = probe_keys[0].device
     steps = max(1, math.ceil(math.log2(m + 1)))
     lo = torch.zeros(n, dtype=torch.int64, device=dev)
+    if m == 0:
+        return lo  # nothing to search (JAX clamps the gather; torch raises)
     hi = n_valid.to(torch.int64).expand(n).clone()
     for _ in range(steps):
         active = lo < hi
@@ -282,6 +286,13 @@ def expand_join_pairs(build_keys, build_matchable, probe_keys, probe_valid,
     m = build_keys[0].shape[0]
     n = probe_keys[0].shape[0]
     dev = lo.device
+    if n == 0:
+        # no probe rows, no pairs (the slot arithmetic below gathers
+        # from per-probe arrays, which torch refuses when they are empty)
+        idx = torch.zeros(capacity, dtype=torch.int64, device=dev)
+        none = torch.zeros(capacity, dtype=torch.bool, device=dev)
+        return idx, idx, none, none, torch.zeros(
+            (), dtype=torch.int64, device=dev), dense_oob
     counts = torch.where(probe_matchable, hi - lo, torch.zeros_like(lo))
     if probe_outer:
         emit = torch.where(probe_valid & (counts == 0),
@@ -303,11 +314,51 @@ def expand_join_pairs(build_keys, build_matchable, probe_keys, probe_valid,
     slots = torch.arange(capacity, dtype=torch.int64, device=dev)
     offset = slots - starts[probe_idx]
     out_valid = (slots < total) & (offset >= 0) & (offset < emit[probe_idx])
-    sorted_pos = torch.clamp(lo[probe_idx] + offset, 0, m - 1)
-    build_idx = order[sorted_pos]
+    if m:
+        build_idx = order[torch.clamp(lo[probe_idx] + offset, 0, m - 1)]
+    else:
+        # empty build side: no pair matches (JAX clamps the gather; torch
+        # would raise on an index into nothing)
+        build_idx = torch.zeros(capacity, dtype=torch.int64, device=dev)
     build_missing = out_valid & (counts[probe_idx] == 0)
     build_idx = torch.where(build_missing, torch.zeros_like(build_idx),
                             build_idx)
     overflow = torch.clamp(total - capacity, min=0)
     return build_idx, probe_idx, out_valid, build_missing, overflow, \
         dense_oob
+
+
+def expand_join_outer(build_keys, build_valid, build_matchable, probe_keys,
+                      probe_valid, probe_matchable, capacity: int,
+                      probe_outer: bool, build_outer: bool, dense=None):
+    """Outer-join pair emission (LEFT/RIGHT/FULL null extension).
+
+    Returns (build_idx [C], probe_idx [C], out_valid [C],
+    build_missing [C], unmatched_build [M], overflow, dense_oob):
+
+    * probe_outer (LEFT): valid probe rows with zero matches emit one
+      pair flagged build_missing; the consumer NULLs the build columns.
+    * build_outer (RIGHT/FULL): unmatched_build marks valid build rows no
+      surviving pair references; the consumer appends them as a second
+      segment with the probe columns NULL.
+
+    On one device the JAX package's replicated-build flag combine is the
+    identity, and the unmatched segment always emits here."""
+    build_idx, probe_idx, out_valid, build_missing, overflow, dense_oob = \
+        expand_join_pairs(build_keys, build_matchable, probe_keys,
+                          probe_valid, probe_matchable, capacity,
+                          probe_outer, dense=dense)
+    m = build_keys[0].shape[0]
+    dev = build_valid.device
+    if build_outer:
+        hit = out_valid & ~build_missing
+        matched = torch.zeros(m, dtype=torch.int32, device=dev)
+        if m:
+            matched.scatter_reduce_(
+                0, torch.where(hit, build_idx, torch.zeros_like(build_idx)),
+                hit.to(torch.int32), reduce="amax", include_self=True)
+        unmatched_build = build_valid & (matched == 0)
+    else:
+        unmatched_build = torch.zeros(m, dtype=torch.bool, device=dev)
+    return (build_idx, probe_idx, out_valid, build_missing,
+            unmatched_build, overflow, dense_oob)

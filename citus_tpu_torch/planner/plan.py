@@ -763,7 +763,13 @@ class DistributedPlanner:
             residuals.append((frozenset(rels), c))
 
         # greedy left-deep order: start from the largest relation
-        # (BestJoinOrder starts from the largest table too)
+        # (BestJoinOrder starts from the largest table too); among
+        # candidates of one strategy rank, fewer matches per probe row
+        # first.  On one device every keyed join ranks "local", so size
+        # alone would join a small relation through a many-to-many key
+        # first (Q5's customer on c_nationkey = s_nationkey, thousands
+        # of matches per row at SF1) ahead of the PK join that keeps the
+        # stream one row per row
         remaining = dict(scans)
         start = max(remaining, key=lambda r: remaining[r].est_rows)
         current = remaining.pop(start)
@@ -780,7 +786,11 @@ class DistributedPlanner:
                 strategy = self._choose_strategy(current, scan, join_edges)
                 rank = _STRATEGY_RANK[strategy]
                 size = scan.est_rows
-                key = (rank, size, ri)
+                keys = [a if {n.rel_index for n in ir.walk(a)
+                              if isinstance(n, ir.BCol)} == {ri} else b
+                        for _, a, b in join_edges]
+                fanout = self._estimate_expansion_for(scan, keys)
+                key = (rank, max(1.0, fanout or 1.0), size, ri)
                 if best is None or key < best[0]:
                     best = (key, ri, join_edges, strategy)
             _, ri, join_edges, strategy = best
@@ -1194,9 +1204,9 @@ class DistributedPlanner:
         """
         dargs = {a.arg for a, _ in aggs if a.distinct}
         if len(dargs) > 1:
-            raise UnsupportedQueryError(
+            raise PlanningError(
                 "multiple DISTINCT aggregates over different "
-                "expressions are not in this port yet")
+                "expressions are not supported")
         darg = next(iter(dargs))
         inner_keys = list(group_keys) + [(darg, "gd")]
         inner_aggs: list[tuple[ir.BAgg, str]] = []

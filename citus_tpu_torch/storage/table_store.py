@@ -15,7 +15,8 @@ Directory layout::
         dict_<column>.json
         shard_<shard_id>/stripe_<n>.ctps
 
-This copy carries the single-writer append and scan paths only: no
+This copy carries the single-writer append and scan paths and the drop
+of a table's storage (the session's intermediate results) only: no
 transaction overlay, change feed, replica mirroring or fault seams.
 Stripes read from the primary shard directory; deletion bitmaps written
 by the JAX package's DML are honoured on read.
@@ -24,6 +25,7 @@ by the JAX package's DML are honoured on read.
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 
 import numpy as np
@@ -174,6 +176,16 @@ class TableStore:
     def bump_data_version(self, table: str) -> None:
         with self._lock:
             self._data_versions[table] = self._data_versions.get(table, 0) + 1
+
+    def drop_table_storage(self, table: str) -> None:
+        with self._lock:
+            self._manifests.pop(table, None)
+            self._manifest_stats.pop(table, None)
+            self._dicts = {k: v for k, v in self._dicts.items()
+                           if k[0] != table}
+            self.bump_data_version(table)
+            if os.path.exists(self.table_dir(table)):
+                shutil.rmtree(self.table_dir(table))
 
     # -- dictionaries ------------------------------------------------------
     def storage_column_name(self, table: str, column: str) -> str:

@@ -7,8 +7,8 @@ citus_tpu_torch.ops.*:
   hash_token_jax on int32/int64/float32/float64/bool, including
   negatives, extremes and NaN bit patterns;
 * partition.pack_by_target — exact (counting-rank and sort packs);
-* join — dense_unique_lookup, bucketed_unique_lookup and
-  expand_join_pairs, exact;
+* join — dense_unique_lookup, bucketed_unique_lookup, expand_join_pairs
+  and expand_join_outer, exact;
 * aggregate.segment_aggregate and groupby.bucketed_grid_aggregate (JAX
   side kernel='xla') — float64 at rtol 1e-12 (same sums, other order),
   float32 at rtol 1e-5 (f32 accumulation in another order); integers
@@ -211,6 +211,61 @@ def test_expand_join_pairs_exact(rng, dense, capacity):
     np.testing.assert_array_equal(pv, jv)
     np.testing.assert_array_equal(pp[pv], jp[jv])
     np.testing.assert_array_equal(pb[pv], jb[jv])
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("join_type", ["left", "right", "full"])
+@pytest.mark.parametrize("build_rows", ["some", "none"])
+def test_expand_join_outer_exact(rng, dense, join_type, build_rows):
+    """Outer pair emission: the pairs, their null-extension flags and the
+    unmatched build rows equal the JAX package's on one device; "none"
+    is an intermediate result without rows (every build slot invalid)."""
+    m, n, capacity = 400, 500, 2048
+    bkey = rng.integers(0, 300, m).astype(np.int64)
+    pkey = rng.integers(-10, 310, n).astype(np.int64)
+    bvalid = (rng.random(m) < 0.9) & (build_rows == "some")
+    bmatch = bvalid & (rng.random(m) < 0.95)
+    pvalid = rng.random(n) < 0.9
+    pmatch = pvalid & (rng.random(n) < 0.95)
+    d = (0, 300) if dense else None
+    probe_outer = join_type in ("left", "full")
+    build_outer = join_type in ("right", "full")
+    jres = jcall(jjoin.expand_join_outer, [jnp.asarray(bkey)],
+                 jnp.asarray(bvalid), jnp.asarray(bmatch),
+                 [jnp.asarray(pkey)], jnp.asarray(pvalid),
+                 jnp.asarray(pmatch), capacity=capacity,
+                 probe_outer=probe_outer, build_outer=build_outer, dense=d)
+    pres = pjoin.expand_join_outer([T(bkey)], T(bvalid), T(bmatch),
+                                   [T(pkey)], T(pvalid), T(pmatch), capacity,
+                                   probe_outer, build_outer, dense=d)
+    jb, jp, jv, jm, ju, jov, _jd = (np.asarray(x) for x in jres)
+    pb, pp, pv, pm, pu, pov, _pd = (N(x) for x in pres)
+    assert int(pov) == int(jov) == 0
+    np.testing.assert_array_equal(pv, jv)
+    np.testing.assert_array_equal(pp[pv], jp[jv])
+    np.testing.assert_array_equal(pm[pv], jm[jv])
+    np.testing.assert_array_equal(pb[pv & ~pm], jb[jv & ~jm])
+    np.testing.assert_array_equal(pu, ju)
+    if build_rows == "none":
+        assert not pu.any() and not (pv & ~pm).any()
+        assert int(pv.sum()) == (int(pvalid.sum()) if probe_outer else 0)
+
+
+@pytest.mark.parametrize("m,n", [(0, 5), (5, 0), (0, 0)])
+def test_expand_join_outer_zero_length_sides(m, n):
+    """Sides of no rows at all: no pair matches, unmatched probe rows
+    still emit under LEFT/FULL, and nothing indexes into an empty
+    tensor (JAX clamps such gathers; torch raises)."""
+    bkey = torch.arange(m, dtype=torch.int64)
+    pkey = torch.arange(n, dtype=torch.int64)
+    bv = torch.ones(m, dtype=torch.bool)
+    pv = torch.ones(n, dtype=torch.bool)
+    for dense in (None, (0, 8)):
+        b, p, v, miss, unmatched, ov, oob = pjoin.expand_join_outer(
+            [bkey], bv, bv, [pkey], pv, pv, 16, True, True, dense=dense)
+        assert int(v.sum()) == n and bool(miss[v].all())
+        assert int(unmatched.sum()) == m and int(ov) == 0
+        assert sorted(N(p[v]).tolist()) == list(range(n))
 
 
 def test_multi_key_binary_search_join(rng):

@@ -94,7 +94,8 @@ def test_bucketed_paths_match_jax(jax_dir, forced_bucketed, name):
     data_dir, want = jax_dir
     sess = citus_tpu_torch.connect(data_dir, device="cpu",
                                    compute_dtype="float64")
-    plan = sess.plan_select(parse(QUERIES[name])[0])
+    plan, cleanup = sess._plan_select(parse(QUERIES[name])[0])
+    assert cleanup == []
     nodes = list(walk_plan(plan.root))
     if name == "q3":
         assert any(isinstance(n, JoinNode) and n.probe_bucketed
@@ -104,6 +105,36 @@ def test_bucketed_paths_match_jax(jax_dir, forced_bucketed, name):
                    for n in nodes)
     got = sess.execute(QUERIES[name]).rows()
     compare_results(got, want[name], _ordered(QUERIES[name]), TOL)
+
+
+@pytest.mark.parametrize("name,kernel", [("q3", "bucketed_probe"),
+                                         ("high_card_groupby",
+                                          "bucketed_groupby_sums")])
+def test_bucketed_paths_hold_on_warm_runs(jax_dir, forced_bucketed,
+                                          monkeypatch, name, kernel):
+    """Warm runs in one session reuse the cached compiler with the
+    capacities of the new plan: the bucketed path runs on every run,
+    not only the first."""
+    from citus_tpu_torch.ops import hopper_kernels as hk
+
+    calls = []
+    real = getattr(hk, kernel)
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(hk, kernel, spy)
+    data_dir, want = jax_dir
+    sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   compute_dtype="float64")
+    per_run = []
+    for _ in range(3):
+        before = len(calls)
+        got = sess.execute(QUERIES[name]).rows()
+        per_run.append(len(calls) - before)
+        compare_results(got, want[name], _ordered(QUERIES[name]), TOL)
+    assert per_run[0] > 0 and per_run[1] > 0 and per_run[1] == per_run[2]
 
 
 def test_port_float32_policy_close_to_jax(jax_dir):
@@ -258,8 +289,7 @@ def test_unsupported_statement_is_refused(jax_dir):
         sess.execute("delete from lineitem")
 
 
-# shapes the reference plans recursively (or rewrites) before binding,
-# which the port refuses until it has recursive planning
+# shapes the reference plans recursively (or rewrites) before binding
 RECURSIVE_SHAPES = {
     "scalar_subquery": "select count(*) from nt "
                        "where x > (select avg(x) from nt)",
@@ -278,27 +308,24 @@ RECURSIVE_SHAPES = {
 
 
 @pytest.mark.parametrize("shape", sorted(RECURSIVE_SHAPES))
-def test_recursive_shapes_are_refused_where_jax_answers(jax_nullable_dir,
-                                                        shape):
-    """Each shape is refused with the slice's error, naming it, and the
-    JAX package answers it on the same data_dir: the gap is a refusal,
-    not a wrong answer."""
+def test_recursive_shapes_match_jax(jax_nullable_dir, shape):
+    """Each shape the port once refused is answered through recursive
+    planning, with the JAX package's rows on the same data_dir."""
     data_dir, _want = jax_nullable_dir
     sql = RECURSIVE_SHAPES[shape]
     sess = citus_tpu_torch.connect(data_dir, device="cpu",
                                    compute_dtype="float64")
-    with pytest.raises(citus_tpu_torch.UnsupportedQueryError,
-                       match="not in this port yet"):
-        sess.execute(sql)
+    got = sess.execute(sql).rows()
     jsess = citus_tpu.connect(data_dir=data_dir, n_devices=1,
                               exec_cache_enabled=False,
                               compute_dtype="float64",
                               serving_result_cache_bytes=0)
     try:
-        rows = jsess.execute(sql).rows()
+        want = jsess.execute(sql).rows()
     finally:
         jsess.close()
-    assert len(rows) == 1 and all(v is not None for v in rows[0])
+    assert len(want) == 1 and all(v is not None for v in want[0])
+    compare_results(got, want, False, TOL)
 
 
 def test_text_case_is_refused(jax_nullable_dir):
