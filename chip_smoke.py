@@ -46,7 +46,34 @@ Phases, each fatal on failure (no result line is printed then):
    plan recursively, or when an `__intermediate_` temp outlives its
    statement (catalog, data_dir, feed cache) or prefetch bytes stay
    live.  One warm run each of Q4, Q13, Q18 and Q21 is profiled;
-9. print the kernels line, then the device line last.
+9. windows, sketches, prepared statements, EXPLAIN and DDL, on the same
+   data_dir with every launch count at 0, each statement in a fresh
+   cuda session (scan_pipeline=auto, float32), first run then the best
+   of --reps warm runs: W1 rank/row_number over orders by customer, W2
+   running sums and counts and a whole-partition max over a month of
+   lineitem (and of lineitem_nullable, whose sum carries NULLs), W3
+   dense_rank over orders ⋈ customer; S1 approx_count_distinct grouped
+   by l_returnflag, l_linestatus, S2 approx_percentile 0.5 and 0.99 by
+   l_shipmode, S3 approx_count_distinct(o_custkey); P1 a prepared
+   point lookup on o_orderkey for 20 keys with the fast-path router on
+   (answered on the host, by design) and off (on the card), and the
+   literal form through the point index; P2 TPC-H Q1 prepared on
+   l_shipdate and run for 3 dates; E1 EXPLAIN of Q3, of EXECUTE p1 and
+   of W1; D1 (last) a view over Q1, ALTER TABLE supplier ADD COLUMN read
+   in each scan mode, DROP COLUMN, and DROP TABLE of a table of its own.
+   Per statement: rows, first and best warm walls, retries, launches,
+   fast_path and plan-cache hits and misses.  Every answer is held
+   against the port's CPU session on the same data_dir (float32; S2's
+   percentiles within one DDSketch bucket, which a float32 log can flip),
+   W1 against a numpy rank, S1 and S3 within 5% of the exact distinct
+   count, P1 against numpy lookups.  Fails when an answer differs, when
+   P1 is (with the router on) or is not (off) answered by the fast path,
+   when P2's three EXECUTEs build more than one PlanCompiler, when a temp
+   outlives its statement, when the dictionary decode never launches, or
+   when neither the dense-grid sum nor the bucketed group-by sums launch
+   on S1, S2 and P2;
+10. print the kernels line (with each kernel's launches in phases 8
+    and 9), then the device line last.
 
 Exits non-zero without a result when no GPU is visible or the port's
 package is not next to this script.  Imports nothing of JAX.
@@ -931,6 +958,339 @@ def tpch22(ct, hk, data_dir, data, reps, ident) -> dict:
     return {n: sum(first[q][n] for q in names) for n in hk.KERNELS}
 
 
+# -- phase 9: windows, sketches, prepared statements, EXPLAIN, DDL ---------
+
+W1_SQL = ("select o_orderkey, o_custkey, rank() over (partition by "
+          "o_custkey order by o_totalprice desc, o_orderkey) as rk, "
+          "row_number() over (partition by o_custkey order by o_totalprice "
+          "desc, o_orderkey) as rn from orders order by o_orderkey limit 100")
+W2_WHERE = "l_shipdate between date '1995-06-01' and date '1995-06-30'"
+W2_SQL = ("select l_orderkey, l_linenumber, sum(l_extendedprice) over "
+          "(partition by l_orderkey order by l_linenumber), count(*) over "
+          "(partition by l_orderkey order by l_linenumber), "
+          "max(l_quantity) over (partition by l_orderkey) from lineitem "
+          f"where {W2_WHERE}")
+W2N_SQL = ("select l_orderkey, l_linenumber, sum(l_discount) over "
+           "(partition by l_orderkey order by l_linenumber), count(*) over "
+           "(partition by l_orderkey order by l_linenumber), "
+           "max(l_quantity) over (partition by l_orderkey) from "
+           f"lineitem_nullable where {W2_WHERE}")
+W3_SQL = ("select o_orderkey, c_nationkey, dense_rank() over (partition by "
+          "c_nationkey order by o_orderdate) from orders, customer "
+          "where o_custkey = c_custkey order by o_orderkey limit 200")
+S1_SQL = ("select l_returnflag, l_linestatus, "
+          "approx_count_distinct(l_partkey) from lineitem "
+          "group by l_returnflag, l_linestatus order by 1, 2")
+S2_SQL = ("select l_shipmode, approx_percentile(l_extendedprice, 0.5), "
+          "approx_percentile(l_extendedprice, 0.99) from lineitem "
+          "group by l_shipmode order by l_shipmode")
+S3_SQL = "select approx_count_distinct(o_custkey) from orders"
+P1_PREPARE = ("prepare p1 as select o_orderkey, o_custkey, o_totalprice "
+              "from orders where o_orderkey = $1")
+P1_KEYS = 20
+# above one SF1 orders shard (1,500,000 rows over 8 shards): a prepared
+# lookup's $n prunes to one shard, which the router scans on the host
+# below this ceiling (the point index serves literal keys only, in both
+# packages); the default 65,536 would send it to the card
+P1_FAST_PATH_MAX_ROWS = 1 << 18
+P2_DATES = ("1998-09-02", "1998-08-01", "1998-11-01")
+# one DDSketch bucket: the factor γ = 1.02 between neighbouring keys
+ONE_BUCKET = 0.021
+PHASE9_DENSE = ("dense_grid_sum", "bucketed_groupby_sums")
+
+
+def q1_body() -> str:
+    from citus_tpu_torch.ingest import tpch
+
+    return tpch.QUERIES["Q1"].split("order by")[0]
+
+
+def numpy_w1(orders):
+    """rank / row_number over (partition by o_custkey order by
+    o_totalprice desc, o_orderkey) at float32 prices (the card's compute
+    dtype), rows of the 100 smallest order keys."""
+    import numpy as np
+
+    ok, ck = orders["o_orderkey"], orders["o_custkey"]
+    tp = orders["o_totalprice"].astype(np.float32)
+    order = np.lexsort((ok, -tp, ck))
+    sck, stp, sok = ck[order], tp[order], ok[order]
+    idx = np.arange(len(ok))
+    part = np.r_[True, sck[1:] != sck[:-1]]
+    peer = part | np.r_[True, (stp[1:] != stp[:-1]) | (sok[1:] != sok[:-1])]
+    part_start = np.maximum.accumulate(np.where(part, idx, 0))
+    peer_start = np.maximum.accumulate(np.where(peer, idx, 0))
+    rk = np.empty_like(idx)
+    rn = np.empty_like(idx)
+    rk[order] = peer_start - part_start + 1
+    rn[order] = idx - part_start + 1
+    first = np.argsort(ok, kind="stable")[:100]
+    return [(int(ok[i]), int(ck[i]), int(rk[i]), int(rn[i])) for i in first]
+
+
+def normalize_plan(lines) -> list:
+    """EXPLAIN lines without what the session's device decides: the
+    bucketed tags (on for a CUDA plan) and the pipelined scan's mode."""
+    out = []
+    for x in lines:
+        x = str(x).replace(", bucketed probe", "").replace(
+            ", bucketed group-by", "")
+        if x.strip().startswith("pipelined scan:"):
+            x = "  pipelined scan: <mode>"
+        out.append(x)
+    return out
+
+
+def phase9(ct, hk, data_dir, data, reps, ident) -> dict:
+    """Phase 9.  Returns each kernel's launches over the phase."""
+    import numpy as np
+    import torch
+
+    from citus_tpu_torch.executor.hbm import accountant_for
+    from citus_tpu_torch.ops.sketches import dd_bucket, dd_bucket_torch
+
+    t_phase = time.perf_counter()
+    acc = accountant_for(data_dir)
+    li, orders = data["lineitem"], data["orders"]
+    cpu = ct.connect(data_dir, device="cpu", compute_dtype="float32",
+                     fast_path_max_rows=P1_FAST_PATH_MAX_ROWS)
+    first_launches: dict = {}
+    failures: list = []
+    hk.reset_launch_counts()
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def run(name, sql, setup=(), warm=True, **settings):
+        """`sql` in a fresh cuda session (after `setup`): the first run,
+        then the best of `reps` warm runs."""
+        sess = ct.connect(data_dir, **settings)
+        for st in setup:
+            sess.execute(st)
+        pc = sess.executor.plan_cache
+        before = dict(hk.LAUNCHES)
+        t0 = time.perf_counter()
+        res = sess.execute(sql)
+        sync()
+        first = time.perf_counter() - t0
+        check_no_temps(sess, acc, name)
+        launched = {n: hk.LAUNCHES[n] - before[n] for n in hk.KERNELS}
+        first_launches[name] = launched
+        best, retries = None, []
+        for _ in range(reps if warm else 0):
+            t0 = time.perf_counter()
+            again = sess.execute(sql)
+            sync()
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+            retries.append(again.retries)
+            check_no_temps(sess, acc, f"{name} warm")
+        log(f"phase9 {name}: {res.row_count} rows, first run {first!r} s, "
+            f"best of {len(retries)} warm {best!r} s, retries "
+            f"{res.retries} (warm {retries}), launches first {launched}, "
+            f"fast_path {res.fast_path}, plan cache hits {pc.hits} misses "
+            f"{pc.misses} ({ident})")
+        return res, sess
+
+    def against_cpu(name, got, sql, rtol=1e-4, setup=()):
+        for st in setup:
+            cpu.execute(st)
+        t0 = time.perf_counter()
+        want = cpu.execute(sql).rows()
+        check_no_temps(cpu, acc, f"{name} on the CPU")
+        diff = same_rows(got, want, "order by" in sql.lower(), rtol)
+        if diff:
+            failures.append(name)
+            log(f"  {name}: card against CPU: {diff}; card {got[:3]}, "
+                f"CPU {want[:3]}")
+        else:
+            log(f"  {name} matches the CPU session ({time.perf_counter() - t0!r}"
+                " s on the CPU)")
+        return want
+
+    # W1–W3: windows
+    res, _ = run("W1", W1_SQL)
+    got = res.rows()
+    against_cpu("W1", got, W1_SQL)
+    diff = same_rows([tuple(int(x) for x in r) for r in got],
+                     numpy_w1(orders), True)
+    if diff:
+        failures.append("W1 numpy")
+        log(f"  W1 against numpy: {diff}")
+    else:
+        log("  W1 matches numpy's rank")
+    for name, sql in (("W2", W2_SQL), ("W2 nullable", W2N_SQL),
+                      ("W3", W3_SQL)):
+        res, _ = run(name, sql)
+        against_cpu(name, res.rows(), sql)
+
+    # S1–S3: sketches
+    res, _ = run("S1", S1_SQL)
+    against_cpu("S1", res.rows(), S1_SQL, rtol=0.0)
+    for rf, ls, est in res.rows():
+        m = (li["l_returnflag"] == rf) & (li["l_linestatus"] == ls)
+        exact = len(np.unique(li["l_partkey"][m]))
+        log(f"  S1 {rf}{ls}: estimate {est}, exact {exact}, error "
+            f"{(est - exact) / exact!r}")
+        if abs(est - exact) > 0.05 * exact:
+            failures.append("S1 error")
+    res, _ = run("S2", S2_SQL)
+    want = against_cpu("S2", res.rows(), S2_SQL, rtol=ONE_BUCKET)
+    same = sum(1 for g, w in zip(res.rows(), want)
+               for a, b in zip(g[1:], w[1:]) if a == b)
+    log(f"  S2: {same} of {2 * len(want)} percentiles equal to the CPU's "
+        "bit for bit")
+    price = li["l_extendedprice"]
+    host = dd_bucket(price.astype(np.float64))
+    f32 = torch.from_numpy(price.astype(np.float32))
+    card = dd_bucket_torch(f32.cuda()).cpu().numpy()
+    cpu32 = dd_bucket_torch(f32).numpy()
+    log(f"  DDSketch buckets of l_extendedprice at float32: card against "
+        f"float64 {int((card != host).sum())} of {len(host)} differ, card "
+        f"against CPU float32 {int((card != cpu32).sum())} ({ident})")
+    res, _ = run("S3", S3_SQL)
+    against_cpu("S3", res.rows(), S3_SQL, rtol=0.0)
+    exact = len(np.unique(orders["o_custkey"]))
+    est = res.rows()[0][0]
+    log(f"  S3: estimate {est}, exact {exact}, error "
+        f"{(est - exact) / exact!r}")
+    if abs(est - exact) > 0.05 * exact:
+        failures.append("S3 error")
+
+    # P1: the prepared point lookup, fast path on, then off (on the card)
+    rng = np.random.default_rng(9)
+    pick = rng.choice(len(orders["o_orderkey"]), P1_KEYS, replace=False)
+    for mode, on in (("on", True), ("off", False)):
+        sess = ct.connect(data_dir, fast_path_max_rows=P1_FAST_PATH_MAX_ROWS,
+                          enable_fast_path_router=on)
+        sess.execute(P1_PREPARE)
+        walls, fast, before = [], [], dict(hk.LAUNCHES)
+        for i in pick:
+            key = int(orders["o_orderkey"][i])
+            t0 = time.perf_counter()
+            res = sess.execute(f"execute p1({key})")
+            sync()
+            walls.append(time.perf_counter() - t0)
+            fast.append(res.fast_path)
+            want = [(key, int(orders["o_custkey"][i]),
+                     float(orders["o_totalprice"][i]))]
+            diff = same_rows(res.rows(), want, True)
+            if diff:
+                failures.append(f"P1 {mode} {key}")
+                log(f"  P1 {mode} key {key} against numpy: {diff}")
+        launched = {n: hk.LAUNCHES[n] - before[n] for n in hk.KERNELS}
+        first_launches[f"P1 {mode}"] = launched
+        pc = sess.executor.plan_cache
+        log(f"phase9 P1 fast path {mode}: {P1_KEYS} keys match numpy; "
+            f"first {walls[0]!r} s, best {min(walls[1:])!r} s, median "
+            f"{sorted(walls)[len(walls) // 2]!r} s; fast_path {set(fast)}; "
+            f"launches {launched}; plan cache hits {pc.hits} misses "
+            f"{pc.misses} ({ident})")
+        if set(fast) != {on}:
+            failures.append(f"P1 fast path {mode}: {fast}")
+        check_no_temps(sess, acc, f"P1 {mode}")
+    # the literal form rides the point index on the host
+    sess = ct.connect(data_dir)
+    walls = []
+    for i in pick[:5]:
+        key = int(orders["o_orderkey"][i])
+        t0 = time.perf_counter()
+        res = sess.execute("select o_orderkey, o_custkey, o_totalprice "
+                           f"from orders where o_orderkey = {key}")
+        walls.append(time.perf_counter() - t0)
+        if not res.fast_path or len(res.rows()) != 1:
+            failures.append(f"P1 literal {key}")
+    log(f"phase9 P1 literal: point index lookups "
+        f"{sess.executor.point_index_lookups}, walls {walls!r} ({ident})")
+    if sess.executor.point_index_lookups != 5:
+        failures.append("P1 literal: point index unused")
+
+    # P2: prepared Q1, three EXECUTEs through one PlanCompiler
+    p2 = "prepare p2 as " + q1_body().replace(
+        "date '1998-12-01' - interval '90' day", "$1")
+    sess = ct.connect(data_dir)
+    sess.execute(p2)
+    cpu.execute(p2)
+    before = dict(hk.LAUNCHES)
+    pc = sess.executor.plan_cache
+    for d in P2_DATES:
+        t0 = time.perf_counter()
+        res = sess.execute(f"execute p2(date '{d}')")
+        sync()
+        dt = time.perf_counter() - t0
+        log(f"phase9 P2 {d}: {res.row_count} rows, {dt!r} s, retries "
+            f"{res.retries}, plan cache hits {pc.hits} misses {pc.misses}")
+        against_cpu(f"P2 {d}", res.rows(), f"execute p2(date '{d}')")
+        check_no_temps(sess, acc, f"P2 {d}")
+    first_launches["P2"] = {n: hk.LAUNCHES[n] - before[n]
+                            for n in hk.KERNELS}
+    log(f"  P2: launches {first_launches['P2']}, PlanCompilers built "
+        f"{pc.misses} ({ident})")
+    if pc.misses > 1:
+        failures.append(f"P2 built {pc.misses} PlanCompilers")
+
+    # E1: EXPLAIN, against the CPU session's lines
+    sess = ct.connect(data_dir, fast_path_max_rows=P1_FAST_PATH_MAX_ROWS)
+    sess.execute(P1_PREPARE)
+    cpu.execute("deallocate all")
+    cpu.execute(P1_PREPARE)
+    key = int(orders["o_orderkey"][pick[0]])
+    from citus_tpu_torch.ingest import tpch
+
+    plans = {}
+    for name, sql in (("Q3", tpch.QUERIES["Q3"]),
+                      ("P1", f"execute p1({key})"), ("W1", W1_SQL)):
+        lines = [str(r[0]) for r in sess.execute(f"explain {sql}").rows()]
+        want = [str(r[0]) for r in cpu.execute(f"explain {sql}").rows()]
+        plans[name] = lines
+        log(f"phase9 E1 EXPLAIN {name}:")
+        for x in lines:
+            log(f"    {x}")
+        if normalize_plan(lines) != normalize_plan(want):
+            failures.append(f"E1 {name}")
+            log(f"  E1 {name}: CPU session's lines {want}")
+    if not any("WindowAgg" in x for x in plans["W1"]) or not any(
+            "Fast Path Router" in x for x in plans["P1"]) or not any(
+            "Generic Plan: 1 parameter" in x for x in plans["P1"]):
+        failures.append("E1 tags")
+
+    # D1, last: a view over Q1, then ALTER / DROP on supplier and a table
+    # of its own
+    sess = ct.connect(data_dir)
+    sess.execute("create view q1v as " + q1_body())
+    vsql = "select * from q1v order by l_returnflag, l_linestatus"
+    res, _ = run("D1 view", vsql)
+    against_cpu("D1 view", res.rows(), vsql)
+    sess.execute("drop view q1v")
+    sess.execute("alter table supplier add column s_extra bigint")
+    n_supp = len(data["supplier"]["s_suppkey"])
+    for mode in ("off", "host", "device"):
+        res, _ = run(f"D1 {mode}", "select count(s_extra), count(*) "
+                     "from supplier", warm=False, scan_pipeline=mode)
+        if res.rows() != [(0, n_supp)]:
+            failures.append(f"D1 {mode}: {res.rows()}")
+    sess.execute("alter table supplier drop column s_extra")
+    sess.execute("create table phase9_t (a bigint, b double precision)")
+    sess.execute("select create_distributed_table('phase9_t', 'a', 4)")
+    sess.execute("drop table phase9_t")
+    if sess.catalog.has_table("phase9_t") or os.path.exists(
+            os.path.join(data_dir, "tables", "phase9_t")):
+        failures.append("D1 drop table")
+    log(f"phase9 D1: view, ALTER ADD/DROP COLUMN through each scan mode, "
+        f"DROP TABLE done ({ident})")
+
+    launched = dict(hk.LAUNCHES)
+    log(f"phase9: {time.perf_counter() - t_phase!r} s, launches {launched}")
+    if not launched["dict_decode"]:
+        failures.append("dict_decode never launched")
+    if not sum(first_launches[q][n] for q in ("S1", "S2", "P2")
+               for n in PHASE9_DENSE):
+        failures.append("neither K1 nor K3 launched on S1, S2 and P2")
+    if failures:
+        raise AssertionError(f"phase 9: {failures}")
+    return launched
+
+
 # --------------------------------------------------------------------------
 
 def warm_runs(sess, q, sql, rows, reps, ident) -> None:
@@ -1062,8 +1422,13 @@ def main() -> int:
         launched = tpch22(ct, hk, os.path.join(tmp, "data"), data,
                           args.reps, ident)
         log(f"tpch22: {time.perf_counter() - t0:.3f} s, launches {launched}")
+        t0 = time.perf_counter()
+        launched9 = phase9(ct, hk, os.path.join(tmp, "data"), data,
+                           args.reps, ident)
+        log(f"phase 9: {time.perf_counter() - t0:.3f} s")
         for rep in reports:
             rep["launches_tpch22"] = launched[rep["name"]]
+            rep["launches_phase9"] = launched9[rep["name"]]
 
         print(json.dumps({"kernels": reports}), flush=True)
     finally:

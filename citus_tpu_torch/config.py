@@ -96,6 +96,24 @@ _register(ConfigVar(
     ", done the static-shape way).",
     bool))
 _register(ConfigVar(
+    "enable_fast_path_router", True,
+    "Execute single-shard pruned queries host-side, below "
+    "fast_path_max_rows, skipping the device path entirely (ref: "
+    "citus.enable_fast_path_router_planner, "
+    "planner/fast_path_router_planner.c:530).",
+    bool))
+_register(ConfigVar(
+    "enable_point_lookup_index", True,
+    "Answer WHERE distcol = const through the persistent per-shard "
+    "point-lookup index (storage/pkindex.py; ref: columnar btree/hash "
+    "index support, columnar/README.md:176).",
+    bool))
+_register(ConfigVar(
+    "fast_path_max_rows", 65536,
+    "Row ceiling for host-side fast-path execution; bigger single-shard "
+    "scans still use the device path.",
+    int, min_value=0, max_value=1 << 24))
+_register(ConfigVar(
     "max_cached_plans", 256,
     "Plan-cache entries; a structurally repeated query reuses its "
     "PlanCompiler (ref: planner/local_plan_cache.c:1-60).",

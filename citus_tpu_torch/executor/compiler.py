@@ -21,8 +21,12 @@ on the card, reading the columns where they lie, where the JAX executor
 takes its one-hot branch (f32 sums, and counts while n < 2^24, over at
 most DENSE_ONEHOT_MAX_SLOTS slots).
 
-Not in this port yet (raise UnsupportedQueryError): window functions and
-INSERT..SELECT routing.
+Window functions run as the JAX executor's partition-sorted segmented
+scans: one stable multi-key sort per ORDER BY spec, running scans that
+reset at partition starts, results scattered back to the input rows.
+
+Not in this port yet (raises UnsupportedQueryError): INSERT..SELECT
+routing.
 """
 
 from __future__ import annotations
@@ -54,6 +58,56 @@ _TORCH_FLOAT = {np.dtype(np.float32): torch.float32,
 
 def _round_cap(n: int) -> int:
     return max(128, int(math.ceil(n / 128.0)) * 128)
+
+
+def collect_device_params(plan: QueryPlan) -> list:
+    """BParam nodes the device stages evaluate, sorted by index.
+
+    Walks every expression the PlanCompiler evaluates (scan filters,
+    projections, join keys/residuals, window specs, aggregates, and the
+    device-topk ORDER BY keys).  Host-only expressions (host_select,
+    HAVING) evaluate from the bound values.  A cached PlanCompiler is
+    generic over these: each run reads the values from the plan it is
+    given, never from the plan it was built for.  EXPLAIN counts them
+    for its Generic Plan line."""
+    from ..planner import expr as ir
+    from .feed import walk_plan
+
+    found: dict[int, object] = {}
+
+    def visit(e):
+        if e is None:
+            return
+        for n in ir.walk(e):
+            if isinstance(n, ir.BParam):
+                found[n.idx] = n
+
+    for node in walk_plan(plan.root):
+        if isinstance(node, ScanNode):
+            visit(node.filter)
+        elif isinstance(node, ProjectNode):
+            for e, _cid in node.exprs:
+                visit(e)
+        elif isinstance(node, JoinNode):
+            for e in list(node.left_keys) + list(node.right_keys):
+                visit(e)
+            visit(node.residual)
+            visit(node.left_match_filter)
+            visit(node.right_match_filter)
+        elif isinstance(node, WindowNode):
+            for w, _cid in node.functions:
+                visit(w)
+            for p in node.partition_by:
+                visit(p)
+        elif isinstance(node, AggregateNode):
+            for g, _cid in node.group_keys:
+                visit(g)
+            for a, _cid in node.aggs:
+                visit(a)
+    if plan.device_topk is not None:
+        for e, _d, _nf in plan.host_order_by:
+            visit(e)
+    return [found[i] for i in sorted(found)]
 
 
 def _to_bits64(a: torch.Tensor) -> torch.Tensor:
@@ -245,8 +299,7 @@ class PlanCompiler:
         if isinstance(node, JoinNode):
             return self._exec_join(node, feeds)
         if isinstance(node, WindowNode):
-            raise UnsupportedQueryError(
-                "window functions are not in this port yet")
+            return self._exec_window(node, feeds)
         if isinstance(node, AggregateNode):
             return self._exec_aggregate(node, feeds)
         raise ExecutionError(f"unknown plan node {type(node).__name__}")
@@ -619,6 +672,161 @@ class PlanCompiler:
             out_nulls[cid] = torch.cat([pn, seg_null])
         return Block(out_cols, torch.cat([pair_valid, unmatched_b]),
                      out_nulls)
+
+    # -- window functions -----------------------------------------------
+    def _exec_window(self, node: WindowNode, feeds) -> Block:
+        """Partition-sorted segmented scans (the WindowAgg analogue).
+
+        Per distinct ORDER BY spec: one stable lexicographic sort
+        (validity, then the partition keys, then each ORDER BY key with
+        its NULL rank) and running segmented scans over it.  Results
+        scatter back to the pre-sort row positions, so the input block
+        passes through with the window columns appended.  On one device
+        combine='repartition' (the JAX executor's partition-key
+        shuffle) is the identity."""
+        from ..ops.join import lexsort
+
+        blk = self._exec(node.input, feeds)
+        n = blk.valid.shape[0]
+        src = self._src(blk)
+        dev = self.device
+
+        # partition keys (NULLs form their own partition, like GROUP BY):
+        # the value lane is zeroed under NULL, or the garbage it holds
+        # would split the NULL partition
+        pkeys = []
+        for p in node.partition_by:
+            v, nm = evaluate(p, src)
+            v = torch.broadcast_to(v, (n,))
+            if nm is not None:
+                nmb = torch.broadcast_to(nm, (n,))
+                v = torch.where(nmb, torch.zeros_like(v), v)
+                pkeys.append(v)
+                pkeys.append(nmb.to(torch.int32))
+            else:
+                pkeys.append(v)
+
+        # group functions by their ORDER BY spec: one sort per spec
+        by_order: dict[tuple, list] = {}
+        for w, cid in node.functions:
+            by_order.setdefault(w.order_by, []).append((w, cid))
+
+        out_cols = dict(blk.columns)
+        out_nulls = dict(blk.nulls)
+        iota = torch.arange(n, dtype=torch.int64, device=dev)
+        invalid = (~blk.valid).to(torch.int32)
+        for order_spec, fns in by_order.items():
+            okeys = []       # sort operands for the order keys
+            peer_keys = []   # equality keys defining rank peers
+            for e, desc in order_spec:
+                v, nm = evaluate(e, src)
+                v = torch.broadcast_to(v, (n,))
+                nmb = (torch.zeros(n, dtype=torch.bool, device=dev)
+                       if nm is None else torch.broadcast_to(nm, (n,)))
+                null_rank = (nmb if not desc else ~nmb).to(torch.int8)
+                # zero the lane under NULL first: peers compare by
+                # (zeroed value, null flag), so all NULL rows tie
+                v = torch.where(nmb, torch.zeros_like(v), v)
+                peer_keys.append(v)
+                peer_keys.append(nmb.to(torch.int8))
+                if desc:
+                    v = -v if v.dtype.is_floating_point else ~v
+                okeys.append((null_rank, v))
+            operands = []
+            for null_rank, v in reversed(okeys):
+                operands.append(v)
+                operands.append(null_rank)
+            # lexsort, primary last: validity > partition keys > order keys
+            order = lexsort(operands + list(reversed(pkeys)) + [invalid])
+            valid_s = blk.valid[order]
+
+            pb = _starts(n, dev)
+            for k in pkeys:
+                pb = pb | _shift_ne(k[order])
+            part_boundary = pb | _shift_ne(valid_s)  # invalid tail split off
+            peer_boundary = part_boundary
+            for k in peer_keys:
+                peer_boundary = peer_boundary | _shift_ne(k[order])
+
+            zero = torch.zeros_like(iota)
+            part_start = torch.cummax(
+                torch.where(part_boundary, iota, zero), 0).values
+            peer_start = torch.cummax(
+                torch.where(peer_boundary, iota, zero), 0).values
+            # position of the last row of each peer group (running
+            # aggregates include peers)
+            peer_end = _seg_last(peer_boundary, iota)
+
+            for w, cid in fns:
+                res_s, null_s = self._window_value(
+                    w, src, order, valid_s, part_boundary, peer_boundary,
+                    part_start, peer_start, peer_end, iota)
+                wcol = torch.zeros(n, dtype=res_s.dtype, device=dev)
+                wcol[order] = res_s
+                out_cols[cid] = wcol
+                if null_s is not None:
+                    wnull = torch.zeros(n, dtype=torch.bool, device=dev)
+                    wnull[order] = null_s
+                    out_nulls[cid] = wnull
+        return Block(out_cols, blk.valid, out_nulls)
+
+    def _window_value(self, w, src, order, valid_s, part_boundary,
+                      peer_boundary, part_start, peer_start, peer_end,
+                      iota):
+        """One window function over the sorted view → (values, nulls)."""
+        from ..ops.aggregate import _segmented_scan
+
+        n = valid_s.shape[0]
+        if w.kind == "row_number":
+            return iota - part_start + 1, None
+        if w.kind == "rank":
+            return peer_start - part_start + 1, None
+        if w.kind == "dense_rank":
+            c = torch.cumsum(peer_boundary.to(torch.int64), 0)
+            at_start = torch.cummax(
+                torch.where(part_boundary, c, torch.zeros_like(c)), 0).values
+            return c - at_start + 1, None
+
+        # aggregate kinds: running (with ORDER BY, peers included) or
+        # whole-partition (without)
+        whole = not w.order_by
+
+        def finish(scan):
+            if whole:
+                return _partition_total(scan, part_boundary, iota)
+            return scan[peer_end]
+
+        if w.kind == "count_star":
+            contrib = valid_s
+            v = None
+        else:
+            raw, nm = evaluate(w.arg, src)
+            v = torch.broadcast_to(raw, (n,))[order]
+            contrib = valid_s if nm is None else (
+                valid_s & ~torch.broadcast_to(nm, (n,))[order])
+        kind = w.kind
+        cnt = finish(_segmented_scan(contrib.to(torch.int64),
+                                     part_boundary, torch.add))
+        if kind in ("count", "count_star"):
+            return cnt, None
+        if kind in ("sum", "avg"):
+            acc = (self.compute_dtype if v.dtype.is_floating_point
+                   else torch.int64)
+            x = torch.where(contrib, v.to(acc),
+                            torch.zeros((), dtype=acc, device=v.device))
+            total = finish(_segmented_scan(x, part_boundary, torch.add))
+            if kind == "avg":
+                res = total.to(self.compute_dtype) / torch.clamp(
+                    cnt, min=1).to(self.compute_dtype)
+            else:
+                res = total
+            return res, cnt == 0
+        if kind in ("min", "max"):
+            ident = _big(v.dtype) if kind == "min" else _small(v.dtype)
+            x = torch.where(contrib, v, torch.full_like(v, ident))
+            op = torch.minimum if kind == "min" else torch.maximum
+            return finish(_segmented_scan(x, part_boundary, op)), cnt == 0
+        raise ExecutionError(f"bad window kind {w.kind}")
 
     # -- aggregation ----------------------------------------------------
     def _agg_values(self, node: AggregateNode, blk: Block):
@@ -1113,6 +1321,37 @@ class PlanCompiler:
         for (_a, cid), r in zip(node.aggs, res):
             cols[cid] = r
         return Block(cols, gvalid, nulls)
+
+
+def _starts(n: int, device) -> torch.Tensor:
+    """[n] bool, True at row 0 only."""
+    out = torch.zeros(n, dtype=torch.bool, device=device)
+    out[:1] = True
+    return out
+
+
+def _shift_ne(a: torch.Tensor) -> torch.Tensor:
+    """Row i differs from row i - 1 (row 0 always does)."""
+    out = _starts(a.shape[0], a.device)
+    out[1:] = a[1:] != a[:-1]
+    return out
+
+
+def _seg_last(boundary: torch.Tensor, iota: torch.Tensor) -> torch.Tensor:
+    """Per row: position of the last row of its segment (boundary marks
+    segment starts): a reverse running min over next-boundary
+    positions."""
+    n = iota.shape[0]
+    nb = torch.ones_like(boundary)
+    nb[:-1] = boundary[1:]
+    nxt = torch.where(nb, iota, torch.full_like(iota, n - 1))
+    return torch.flip(torch.cummin(torch.flip(nxt, (0,)), 0).values, (0,))
+
+
+def _partition_total(scan: torch.Tensor, part_boundary: torch.Tensor,
+                     iota: torch.Tensor) -> torch.Tensor:
+    """Broadcast each partition's last scan value to all its rows."""
+    return scan[_seg_last(part_boundary, iota)]
 
 
 def _torch_dtype(dt) -> torch.dtype:

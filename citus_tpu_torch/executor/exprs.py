@@ -171,6 +171,31 @@ def evaluate(e: ir.BExpr, src: ColumnSource):
                         if nmask is None else nmask)
             nmask = torch.where(take, new_null, old_null)
         return out, nmask
+    if isinstance(e, ir.BMath):
+        v, nmask = evaluate(e.operand, src)
+        v = v.to(_dt(e.dtype, src))
+        if e.op == "exp2neg":
+            return torch.exp2(-v), nmask
+        if e.op == "ln":
+            return torch.log(v), nmask
+        raise ExecutionError(f"bad math op {e.op}")
+    if isinstance(e, ir.BDDBucket):
+        from ..ops.sketches import dd_bucket_torch
+
+        v, nmask = evaluate(e.operand, src)
+        return dd_bucket_torch(v.to(_dt(DataType.FLOAT64, src))), nmask
+    if isinstance(e, (ir.BHllBucket, ir.BHllRho)):
+        from ..ops.hashing import _words, fmix32
+
+        v, nmask = evaluate(e.operand, src)
+        # the 32-bit murmur-finalizer word of the shard-routing hash, as
+        # int64 in [0, 2^32): torch has no uint32 shifts
+        h = fmix32(_words(v))
+        if isinstance(e, ir.BHllBucket):
+            return (h >> (32 - e.p)).to(torch.int32), nmask
+        w = (h << e.p) & 0xFFFFFFFF
+        rho = _clz32(w) + 1
+        return torch.clamp(rho, max=32 - e.p + 1).to(torch.int32), nmask
     if isinstance(e, ir.BStrRemap):
         v, nmask = evaluate(e.operand, src)
         m = len(e.lut)
@@ -190,6 +215,20 @@ def evaluate(e: ir.BExpr, src: ColumnSource):
             "aggregate reached the scalar evaluator (planner bug)")
     raise ExecutionError(
         f"expression node {type(e).__name__} is not in this port yet")
+
+
+def _clz32(w: torch.Tensor) -> torch.Tensor:
+    """Leading zeros of 32-bit words held in int64 [0, 2^32) (clz(0) =
+    32): a five-step binary search for the bit length, exact in
+    integers (torch has no count-leading-zeros)."""
+    bits = torch.zeros_like(w)
+    x = w
+    for s in (16, 8, 4, 2, 1):
+        big = x >= (1 << s)
+        bits = bits + big.to(w.dtype) * s
+        x = torch.where(big, x >> s, x)
+    bits = bits + (x > 0).to(w.dtype)
+    return 32 - bits
 
 
 def predicate_mask(e: ir.BExpr, src: ColumnSource) -> torch.Tensor:

@@ -164,6 +164,21 @@ def evaluate(e: ir.BExpr, src: ColumnSource, xp=np):
         if e.op == "ln":
             return xp.log(v), nmask
         raise ExecutionError(f"bad math op {e.op}")
+    if isinstance(e, ir.BDDBucket):
+        from ..ops.sketches import dd_bucket
+
+        v, nmask = evaluate(e.operand, src, xp)
+        return dd_bucket(v.astype(_dt(DataType.FLOAT64, xp)), xp), nmask
+    if isinstance(e, (ir.BHllBucket, ir.BHllRho)):
+        v, nmask = evaluate(e.operand, src, xp)
+        h = _hash32(v)
+        if isinstance(e, ir.BHllBucket):
+            out = (h >> np.uint32(32 - e.p)).astype(np.int32)
+            return out, nmask
+        w = (h << np.uint32(e.p)).astype(np.uint32)
+        rho = _clz32(w) + 1
+        cap = 32 - e.p + 1
+        return xp.minimum(rho, cap).astype(np.int32), nmask
     if isinstance(e, ir.BStrRemap):
         v, nmask = evaluate(e.operand, src, xp)
         m = len(e.lut)
@@ -188,6 +203,22 @@ def evaluate(e: ir.BExpr, src: ColumnSource, xp=np):
             "aggregate reached the scalar evaluator (planner bug)")
     raise ExecutionError(
         f"expression node {type(e).__name__} is not in this port yet")
+
+
+def _hash32(v):
+    """32-bit murmur-finalizer hash of an int/code column (the HLL input;
+    the same fmix32 as shard routing, bit-identical to the device's)."""
+    from ..catalog.distribution import hash_token
+
+    return hash_token(np.asarray(v)).view(np.uint32)
+
+
+def _clz32(w):
+    """Count leading zeros of uint32 (clz(0) = 32)."""
+    w64 = w.astype(np.uint64)
+    # bit_length via exact float64 log2 (exact for < 2^53)
+    bitlen = np.ceil(np.log2(w64.astype(np.float64) + 1.0))
+    return (32 - bitlen).astype(np.int32)
 
 
 def predicate_mask(e: ir.BExpr, src: ColumnSource, xp=np):

@@ -8,6 +8,10 @@ tightens over-sized buffers once from the recorded stage actuals
 (`_tighten_caps`), and finishes on the host: HAVING, the select list,
 dictionary decode, ORDER BY, OFFSET/LIMIT (`_host_combine`).
 
+A plan the fast-path router takes (executor/fastpath.py: one shard,
+below fast_path_max_rows) answers host-side instead, as in the
+reference.
+
 Converged capacities are memoized in memory per plan fingerprint; the
 JAX package's on-disk memo, executable cache, streaming, multi-pass and
 OOM ladder are not part of the port yet.
@@ -44,6 +48,7 @@ from .cache import (
     plan_order,
 )
 from .compiler import Capacities, PlanCompiler, _round_cap, unpack_outputs
+from .fastpath import try_execute_fast_path
 from .feed import build_feeds, walk_plan
 from .hbm import accountant_for
 from .host_exprs import ColumnSource, evaluate, predicate_mask
@@ -63,6 +68,8 @@ class ResultSet:
     # result-transfer volume in row slots
     device_rows_scanned: int = 0
     device_rows_in: list[int] | None = None
+    # answered host-side by the fast-path router (executor/fastpath.py)
+    fast_path: bool = False
 
     def rows(self) -> list[tuple]:
         cols = [self.columns[n] for n in self.column_names]
@@ -90,12 +97,19 @@ class Executor:
         # fingerprints already tightened by feedback (at most once each)
         self._tightened_fps: set = set()
         self._caps_lock = threading.Lock()
+        # scans the fast path answered through the point index
+        self.point_index_lookups = 0
 
     # ------------------------------------------------------------------
     def execute_plan(self, plan: QueryPlan) -> ResultSet:
         for node in walk_plan(plan.root):
             if isinstance(node, ScanNode):
                 self.store.refresh_if_stale(node.rel.table)
+        # the reference's single-shard router: below fast_path_max_rows
+        # a pruned plan answers host-side by design (on the card too)
+        fast = try_execute_fast_path(self, plan)
+        if fast is not None:
+            return fast
         compute_dtype = np.dtype(self.settings.get("compute_dtype"))
         feeds = build_feeds(plan, self.catalog, self.store, self.device,
                             compute_dtype, self.feed_cache, self.accountant,
@@ -103,6 +117,9 @@ class Executor:
         topk_sig = (plan.device_topk, tuple(
             (repr(e), d, nf) for e, d, nf in plan.host_order_by)
             if plan.device_topk is not None else ())
+        # a prepared SELECT's $n render as BParam(idx, dtype) in the
+        # expression reprs, never with their values: every EXECUTE of
+        # one shape shares its PlanCompiler and caps memo entry
         fingerprint = (node_fingerprint(plan.root), plan.n_devices,
                        str(compute_dtype), feeds_signature(plan, feeds),
                        topk_sig, str(self.device))

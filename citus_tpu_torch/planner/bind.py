@@ -568,10 +568,11 @@ class Binder:
             if not allow_agg:
                 raise PlanningError("aggregate not allowed here")
             if e.name == "approx_percentile":
-                # the JAX package's session rewrites it into a DDSketch
-                # bucket pre-pass before binding; the port has no sketches
+                # the session rewrites supported shapes into a DDSketch
+                # bucket pre-pass before binding ever sees the call
                 raise UnsupportedQueryError(
-                    "approx_percentile is not in this port yet")
+                    "approx_percentile is supported over plain columns "
+                    "with plain-column GROUP BY keys")
             if e.name == "approx_count_distinct":
                 if len(e.args) != 1 or e.star:
                     raise PlanningError(

@@ -26,7 +26,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from ..catalog import Catalog, DistributionMethod
-from ..errors import PlanningError, UnsupportedQueryError
+from ..errors import PlanningError
 from ..types import DataType
 from . import expr as ir
 from .bind import BoundQuery, BoundRel
@@ -1123,13 +1123,19 @@ class DistributedPlanner:
 
         aggs: list[tuple[ir.BAgg, str]] = []
         agg_map: dict[ir.BAgg, ir.BExpr] = {}
+        approx_args: list[ir.BExpr] = []
 
         def register_agg(a: ir.BAgg) -> ir.BExpr:
             if a in agg_map:
                 return agg_map[a]
             if a.kind == "approx_count_distinct":
-                raise UnsupportedQueryError(
-                    "approx_count_distinct is not in this port yet")
+                # HLL: the registers materialize as groups (level 1),
+                # level 2 folds them to (hcnt, hsum), and the returned
+                # expression computes the estimate from those columns
+                approx_args.append(a.arg)
+                out = _hll_estimate_expr()
+                agg_map[a] = out
+                return out
             if a.distinct and a.kind in ("min", "max"):
                 # DISTINCT is a no-op for min/max
                 return register_agg(ir.BAgg(a.kind, a.arg, False, a.dtype))
@@ -1181,6 +1187,11 @@ class DistributedPlanner:
                         "aggregate function")
             host_order.append((re_, desc, nf))
 
+        if approx_args:
+            node = self._plan_approx_aggregate(
+                input_node, group_keys, aggs, approx_args,
+                q.nullable_rels)
+            return node, host_select, having, host_order
         if not any(a.distinct for a, _ in aggs):
             node = self._finish_aggregate(input_node, group_keys, aggs,
                                           q.nullable_rels)
@@ -1189,6 +1200,88 @@ class DistributedPlanner:
         node = self._plan_distinct_aggregate(input_node, group_keys, aggs,
                                              q.nullable_rels)
         return node, host_select, having, host_order
+
+    def _plan_approx_aggregate(self, input_node: PlanNode, group_keys,
+                               aggs, approx_args,
+                               nullable_rels) -> AggregateNode:
+        """approx_count_distinct via HyperLogLog over the aggregate split
+        (reference rewrite: count(distinct)→hll worker/coordinator pair,
+        planner/multi_logical_optimizer.c:286).  TPU-native shape: the
+        HLL registers ARE groups —
+
+          level 1: GROUP BY (G…, hll_bucket(x))  max(hll_rho(x)) as hr
+                   (a segment max; shuffle/psum combine like any
+                   aggregate — registers merge by max, so distribution
+                   falls out of the existing machinery)
+          level 2: GROUP BY G…  count(hr) as hcnt,
+                   sum(2^-hr) as hsum
+
+        and the host/device estimate expression (register_agg) computes
+        alpha·m²/(empty + hsum) with the linear-counting small-range
+        correction from those two columns.  NULL x rows carry NULL rho,
+        which count()/sum() skip — count-distinct's NULL semantics."""
+        from ..ops.sketches import HLL_P
+
+        dargs = set(approx_args)
+        if len(dargs) > 1:
+            raise PlanningError(
+                "multiple approx_count_distinct over different "
+                "expressions are not supported in one query")
+        if any(a.distinct for a, _ in aggs):
+            raise PlanningError(
+                "approx_count_distinct cannot combine with exact "
+                "DISTINCT aggregates in one query")
+        arg = next(iter(dargs))
+        bucket = ir.BHllBucket(arg, HLL_P)
+        rho = ir.BHllRho(arg, HLL_P)
+        inner_keys = list(group_keys) + [(bucket, "hb")]
+        inner_aggs: list[tuple[ir.BAgg, str]] = [
+            (ir.BAgg("max", rho, False, DataType.INT32), "hr")]
+        hr = ir.BCol("hr", DataType.INT32)
+        outer_aggs: list[tuple[ir.BAgg, str]] = [
+            (ir.BAgg("count", hr, False, DataType.INT64), "hcnt"),
+            (ir.BAgg("sum", ir.BMath("exp2neg", hr), False,
+                     DataType.FLOAT64), "hsum")]
+        for a, cid in aggs:  # plain aggregates: partial + re-aggregate
+            pcid = f"p{len(inner_aggs)}"
+            inner_aggs.append((a, pcid))
+            okind = "sum" if a.kind in ("count", "count_star") else a.kind
+            pdtype = (DataType.INT64
+                      if a.kind in ("count", "count_star") else a.dtype)
+            outer_aggs.append((ir.BAgg(
+                okind, ir.BCol(pcid, pdtype), False, a.dtype), cid))
+
+        inner = self._finish_aggregate(input_node, inner_keys, inner_aggs,
+                                       nullable_rels)
+        g_cids = {g.cid for g, _ in group_keys if isinstance(g, ir.BCol)}
+        if inner.combine == "repartition" and group_keys:
+            inner.repart_keys = tuple(range(len(group_keys)))
+
+        outer_keys = [(ir.BCol(cid, g.dtype), cid)
+                      for g, cid in group_keys]
+        outer = AggregateNode(combine="", input=inner,
+                              group_keys=outer_keys, aggs=outer_aggs)
+        outer.est_groups = self._estimate_groups(group_keys, input_node)
+        if not group_keys:
+            outer.combine = "global"
+        elif inner.combine in ("repartition", "local") and \
+                self.n_devices == 1:
+            outer.combine = "local"
+        elif inner.combine == "repartition" or (
+                input_node.dist.kind in ("hash", "device")
+                and (input_node.dist.cids & g_cids)):
+            outer.combine = "local"
+        else:
+            outer.combine = "repartition"
+        outer.dist = (self.device_dist(frozenset())
+                      if outer.combine == "repartition" else inner.dist)
+        outer.est_rows = inner.est_rows
+        outer.out_columns = {}
+        for g, cid in group_keys:
+            outer.out_columns[cid] = g.dtype
+        for a, cid in outer_aggs:
+            outer.out_columns[cid] = a.dtype
+        return outer
 
     def _plan_distinct_aggregate(self, input_node: PlanNode, group_keys,
                                  aggs, nullable_rels) -> AggregateNode:
@@ -1390,8 +1483,9 @@ class DistributedPlanner:
                     if arg_ndv:
                         ndv = min(ndv, arg_ndv)
             if isinstance(g, ir.BDDBucket):
-                raise UnsupportedQueryError(
-                    "approx_percentile is not in this port yet")
+                from ..ops.sketches import DD_NKEYS
+
+                ndv = DD_NKEYS
                 if isinstance(g.operand, ir.BCol) and g.operand.table:
                     arg_ndv = self.stats.column_ndv(
                         g.operand.table, g.operand.column, g.operand.dtype)
@@ -1488,6 +1582,92 @@ class DistributedPlanner:
         node.est_rows = input_node.est_rows
         node.out_columns = {cid: e.dtype for e, cid in exprs}
         return node, host_select, host_order
+
+
+_STRATEGY_RANK = {"broadcast": 0, "broadcast_left": 0, "local": 1,
+                  "repart_right": 2, "repart_left": 2, "repart_both": 3,
+                  "cartesian_broadcast": 4, "cartesian": 5}
+
+
+def _rebuild(e: ir.BExpr, new_children: list[ir.BExpr]) -> ir.BExpr:
+    if not new_children:
+        return e
+    if isinstance(e, ir.BArith):
+        return ir.BArith(e.op, new_children[0], new_children[1], e.dtype)
+    if isinstance(e, ir.BCmp):
+        return ir.BCmp(e.op, new_children[0], new_children[1])
+    if isinstance(e, ir.BBool):
+        return ir.BBool(e.op, tuple(new_children))
+    if isinstance(e, ir.BIsNull):
+        return ir.BIsNull(new_children[0], e.negated)
+    if isinstance(e, ir.BInConst):
+        return ir.BInConst(new_children[0], e.values, e.negated)
+    if isinstance(e, ir.BCast):
+        return ir.BCast(new_children[0], e.dtype)
+    if isinstance(e, ir.BStrRemap):
+        return ir.BStrRemap(new_children[0], e.lut, e.values, e.label)
+    if isinstance(e, ir.BMath):
+        return ir.BMath(e.op, new_children[0])
+    if isinstance(e, ir.BHllBucket):
+        return ir.BHllBucket(new_children[0], e.p)
+    if isinstance(e, ir.BHllRho):
+        return ir.BHllRho(new_children[0], e.p)
+    if isinstance(e, ir.BDDBucket):
+        return ir.BDDBucket(new_children[0])
+    if isinstance(e, ir.BExtract):
+        return ir.BExtract(e.part, new_children[0])
+    if isinstance(e, ir.BCase):
+        n = len(e.whens)
+        whens = tuple((new_children[2 * i], new_children[2 * i + 1])
+                      for i in range(n))
+        else_r = new_children[2 * n] if len(new_children) > 2 * n else None
+        return ir.BCase(whens, else_r, e.dtype)
+    if isinstance(e, ir.BWindow):
+        i = 0 if e.arg is None else 1
+        arg = None if e.arg is None else new_children[0]
+        np_ = len(e.partition_by)
+        part = tuple(new_children[i:i + np_])
+        order = tuple((c, d) for c, (_, d) in zip(
+            new_children[i + np_:], e.order_by))
+        return ir.BWindow(e.kind, arg, part, order, e.dtype)
+    raise PlanningError(f"cannot rebuild {type(e).__name__}")
+
+
+def _hll_estimate_expr() -> ir.BExpr:
+    """HyperLogLog cardinality estimate over the level-2 outputs
+    (hcnt = non-empty registers, hsum = sum of 2^-rho), as a planner
+    expression evaluable on device (top-k) and host (combine).
+    alpha·m²/(empty + hsum), linear counting below 2.5m (Flajolet et
+    al. 2007); +0.5 then int cast rounds to the nearest count."""
+    from ..ops.sketches import HLL_M, hll_alpha
+
+    F = DataType.FLOAT64
+    m = float(HLL_M)
+
+    def c(v):
+        return ir.BConst(float(v), F)
+
+    def coalesce0(e):
+        # over an EMPTY input the level-2 sum (and, defensively, count)
+        # is NULL; with both coalesced to 0 the linear-counting branch
+        # yields m·ln(m/m) = 0 — matching exact count(distinct) on empty
+        return ir.BCase(((ir.BIsNull(e), c(0.0)),), e, F)
+
+    cnt = coalesce0(ir.BCast(ir.BCol("hcnt", DataType.INT64), F))
+    s = coalesce0(ir.BCol("hsum", F))
+    empty = ir.BArith("-", c(m), cnt, F)
+    raw = ir.BArith("/", c(hll_alpha(HLL_M) * m * m),
+                    ir.BArith("+", empty, s, F), F)
+    # guard the ln argument so the unselected branch stays finite
+    safe_empty = ir.BCase(((ir.BCmp(">", empty, c(0.5)), empty),),
+                          c(1.0), F)
+    linear = ir.BArith("*", c(m),
+                       ir.BMath("ln", ir.BArith("/", c(m), safe_empty,
+                                                F)), F)
+    cond = ir.BBool("AND", (ir.BCmp("<=", raw, c(2.5 * m)),
+                            ir.BCmp(">", empty, c(0.5))))
+    est = ir.BCase(((cond, linear),), raw, F)
+    return ir.BCast(ir.BArith("+", est, c(0.5), F), DataType.INT64)
 
 
 _STRATEGY_RANK = {"broadcast": 0, "broadcast_left": 0, "local": 1,

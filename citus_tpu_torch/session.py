@@ -13,16 +13,24 @@ reference tables; correlated EXISTS / IN / scalar aggregates decorrelate
 into semi / anti joins and grouped derived tables
 (planner/decorrelate.py); uncorrelated scalar, IN and EXISTS subqueries
 run first and fold into literals; set operations (UNION / INTERSECT /
-EXCEPT) run over one combined temp.  Every temp is dropped when its
-statement ends.
+EXCEPT) run over one combined temp; approx_percentile becomes a
+DDSketch bucket pre-pass.  Every temp is dropped when its statement
+ends.
 
-Not in this port yet: DML beyond ingest, transactions, prepared
-statements, EXPLAIN, UDFs, serving, WLM, replication, CDC, tracing,
-streaming and the OOM ladder.
+PREPARE / EXECUTE / DEALLOCATE keep generic plans: a prepared SELECT
+binds its $n as BParam values that the executor reads at run time, so
+every EXECUTE shares one cached PlanCompiler.  EXPLAIN renders the plan
+(planner/explain.py).  DDL: CREATE/DROP VIEW and SEQUENCE, ALTER TABLE
+ADD/DROP/RENAME COLUMN, DROP TABLE; the catalog UDFs of `_try_udf`.
+
+Not in this port yet: DML beyond ingest, transactions, EXPLAIN
+ANALYZE, the UDFs of unported modules (`_UNPORTED_UDFS`), serving, WLM,
+replication, CDC, tracing, streaming and the OOM ladder.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import os
 import tempfile
@@ -31,7 +39,7 @@ from dataclasses import replace as dc_replace
 
 import numpy as np
 
-from .catalog import Catalog
+from .catalog import Catalog, DistributionMethod
 from .config import Settings
 from .errors import (
     CatalogError,
@@ -46,6 +54,7 @@ from .planner.decorrelate import (
     decorrelate_select,
     rewrite_multi_distinct,
 )
+from .planner.explain import format_plan
 from .planner.plan import DistributedPlanner, QueryPlan, StatsProvider
 from .runtime import resolve_device
 from .sql import ast, parse
@@ -57,6 +66,44 @@ from .types import (
     date_to_days,
     sql_type_to_datatype,
 )
+
+
+# the catalog UDFs this port answers (Session._try_udf)
+_UDFS = ("create_distributed_table", "create_reference_table",
+         "citus_add_node", "citus_remove_node", "citus_disable_node",
+         "citus_activate_node", "nextval", "currval",
+         "citus_tables", "citus_shards")
+
+# the JAX package's other UDFs, by the ROADMAP queue A item that brings
+# their module: each raises UnsupportedQueryError naming it
+_UNPORTED_UDFS = {
+    **dict.fromkeys(
+        ("citus_stat_counters", "citus_stat_counters_reset",
+         "citus_stat_statements", "citus_stat_statements_reset",
+         "citus_stat_latency", "citus_stat_latency_reset",
+         "citus_stat_tenants", "citus_stat_activity",
+         "citus_check_cluster_node_health", "citus_promote_node"),
+        "queue A item 8 (stats/ and operations/health.py)"),
+    "citus_stat_memory": "queue A item 5 (the OOM ladder's accountant)",
+    **dict.fromkeys(
+        ("citus_stat_mesh", "citus_rebalance_mesh", "citus_drain_device"),
+        "queue A item 9 (multi-GPU)"),
+    **dict.fromkeys(
+        ("rebalance_table_shards", "citus_move_shard_placement",
+         "get_rebalance_progress", "citus_split_shard_by_split_points",
+         "isolate_tenant_to_node", "citus_cleanup_orphaned_resources",
+         "citus_rebalance_start", "citus_rebalance_wait",
+         "citus_job_wait", "citus_job_cancel", "citus_job_list",
+         "citus_create_restore_point", "citus_check_cluster"),
+        "queue A item 10 (operations/ and background/ jobs)"),
+    **dict.fromkeys(
+        ("citus_change_feed", "citus_get_node_clock"),
+        "queue A item 6 (transaction/ and cdc/)"),
+    **dict.fromkeys(
+        ("citus_stat_wlm", "citus_stat_serving", "citus_stat_replication",
+         "citus_replication_ship", "citus_promote_replica"),
+        "queue A item 11 (serving/, wlm/ and replication/)"),
+}
 
 
 class _StoreStats(StatsProvider):
@@ -121,6 +168,10 @@ class Session:
         # concurrent statements never mint the same temp
         self._temp_counter = itertools.count(1)
         self._view_tls = threading.local()  # view-expansion cycle guard
+        # PREPARE name → statement; EXECUTE args of the statement being
+        # planned (subplans substitute them, the outer plan keeps $n)
+        self._prepared: dict[str, ast.Statement] = {}
+        self._params_tls = threading.local()
 
     # ------------------------------------------------------------------
     def execute(self, sql: str):
@@ -134,20 +185,161 @@ class Session:
 
     def _execute_statement(self, stmt: ast.Statement):
         if isinstance(stmt, ast.Select):
+            udf = self._try_udf(stmt)
+            if udf is not None:
+                return udf
             return self._execute_select(stmt)
         if isinstance(stmt, ast.SetOp):
             return self._execute_setop(stmt)
         if isinstance(stmt, ast.CreateTable):
             return self._execute_create_table(stmt)
+        if isinstance(stmt, ast.CreateSequence):
+            self.catalog.create_sequence(stmt.name, stmt.start,
+                                         stmt.increment)
+            self._save_catalog()
+            return None
+        if isinstance(stmt, ast.DropSequence):
+            self.catalog.drop_sequence(stmt.name, stmt.if_exists)
+            self._save_catalog()
+            return None
+        if isinstance(stmt, ast.CreateView):
+            # validate the body against the current catalog before
+            # persisting (parse already checked syntax)
+            body = parse(stmt.sql)[0]
+            if not isinstance(body, (ast.Select, ast.SetOp)):
+                raise PlanningError("a view body must be a SELECT")
+            if stmt.columns and isinstance(body, ast.Select) and \
+                    len(stmt.columns) != len(body.items):
+                raise PlanningError(
+                    f"view {stmt.name!r} declares {len(stmt.columns)} "
+                    f"columns but its SELECT has {len(body.items)}")
+            self.catalog.create_view(stmt.name, stmt.sql, stmt.columns,
+                                     stmt.or_replace)
+            self._save_catalog()
+            return None
+        if isinstance(stmt, ast.DropView):
+            self.catalog.drop_view(stmt.name, stmt.if_exists)
+            self._save_catalog()
+            return None
+        if isinstance(stmt, ast.AlterTable):
+            return self._execute_alter_table(stmt)
+        if isinstance(stmt, ast.DropTable):
+            return self._execute_drop_table(stmt)
+        if isinstance(stmt, ast.Explain):
+            return self._execute_explain(stmt)
+        if isinstance(stmt, ast.Prepare):
+            if stmt.name in self._prepared:  # PG raises here too
+                raise PlanningError(
+                    f"prepared statement {stmt.name!r} already exists")
+            self._prepared[stmt.name] = stmt.statement
+            return None
+        if isinstance(stmt, ast.ExecutePrepared):
+            return self._execute_prepared(stmt)
+        if isinstance(stmt, ast.Deallocate):
+            if stmt.name == "all":
+                self._prepared.clear()
+            elif self._prepared.pop(stmt.name, None) is None:
+                raise PlanningError(
+                    f"prepared statement {stmt.name!r} does not exist")
+            return None
         if isinstance(stmt, ast.SetVariable):
             self.settings.set(stmt.name, stmt.value)
             return None
-        if isinstance(stmt, ast.ShowVariable) and stmt.name != "all":
+        if isinstance(stmt, ast.ShowVariable):
+            if stmt.name == "all":
+                items = sorted(self.settings.show_all().items())
+                return ResultSet(["name", "setting"],
+                                 {"name": [k for k, _ in items],
+                                  "setting": [str(v) for _, v in items]},
+                                 len(items))
             return ResultSet(["setting"],
                              {"setting": [str(self.settings.get(
                                  stmt.name))]}, 1)
         raise UnsupportedQueryError(
             f"{type(stmt).__name__} is not in this port yet")
+
+    # -- UDF surface -------------------------------------------------------
+    def _try_udf(self, sel: ast.Select):
+        """`SELECT udf(literal, ...)` without FROM → the catalog UDF's
+        ResultSet; None when the statement is no UDF call."""
+        if sel.from_items or len(sel.items) != 1:
+            return None
+        e = sel.items[0].expr
+        if not isinstance(e, ast.FuncCall):
+            return None
+        if e.name in _UNPORTED_UDFS:
+            raise UnsupportedQueryError(
+                f"{e.name}() is not in this port yet: it comes with "
+                f"{_UNPORTED_UDFS[e.name]}")
+        if e.name not in _UDFS:
+            return None
+        args = []
+        for a in e.args:
+            if not isinstance(a, ast.Literal):
+                raise PlanningError(f"{e.name}: arguments must be literals")
+            args.append(a.value)
+        if e.name == "create_distributed_table":
+            shard_count = int(args[2]) if len(args) > 2 else None
+            self.create_distributed_table(str(args[0]), str(args[1]),
+                                          shard_count)
+        elif e.name == "create_reference_table":
+            self.create_reference_table(str(args[0]))
+        elif e.name in ("citus_add_node", "citus_remove_node",
+                        "citus_disable_node", "citus_activate_node"):
+            op = {"citus_add_node": self.catalog.add_node,
+                  "citus_remove_node": self.catalog.remove_node,
+                  "citus_disable_node": self.catalog.disable_node,
+                  "citus_activate_node": self.catalog.activate_node}
+            op[e.name](str(args[0]))
+            self._save_catalog()
+        elif e.name == "nextval":
+            v, _inc = self.catalog.sequence_nextval(str(args[0]))
+            self._save_catalog()
+            return ResultSet(["nextval"], {"nextval": [v]}, 1)
+        elif e.name == "currval":
+            v = self.catalog.sequence_currval(str(args[0]))
+            return ResultSet(["currval"], {"currval": [v]}, 1)
+        elif e.name == "citus_tables":
+            names = sorted(self.catalog.tables)
+            kinds, dcols, colo, sizes, shards = [], [], [], [], []
+            for t in names:
+                m = self.catalog.table(t)
+                kinds.append(m.method.value)
+                dcols.append(m.distribution_column or "")
+                colo.append(m.colocation_id)
+                tshards = self.catalog.table_shards(t)
+                shards.append(len(tshards))
+                sizes.append(sum(
+                    self.store.shard_size_bytes(t, s.shard_id)
+                    for s in tshards))
+            return ResultSet(
+                ["table_name", "citus_table_type", "distribution_column",
+                 "colocation_id", "shard_count", "table_size_bytes"],
+                {"table_name": names, "citus_table_type": kinds,
+                 "distribution_column": dcols, "colocation_id": colo,
+                 "shard_count": shards, "table_size_bytes": sizes},
+                len(names))
+        elif e.name == "citus_shards":
+            rows: list[tuple] = []
+            tables = ([str(args[0])] if args
+                      else sorted(self.catalog.tables))
+            for t in tables:
+                for s in self.catalog.table_shards(t):
+                    p = self.catalog.active_placement(s.shard_id)
+                    rows.append((
+                        t, s.shard_id, s.min_value, s.max_value,
+                        f"device:{p.node_id}" if p else "",
+                        self.store.shard_size_bytes(t, s.shard_id),
+                        self.store.shard_row_count(t, s.shard_id)))
+            cols = list(zip(*rows)) if rows else [[]] * 7
+            return ResultSet(
+                ["table_name", "shard_id", "min_value", "max_value",
+                 "node", "size_bytes", "live_rows"],
+                {"table_name": list(cols[0]), "shard_id": list(cols[1]),
+                 "min_value": list(cols[2]), "max_value": list(cols[3]),
+                 "node": list(cols[4]), "size_bytes": list(cols[5]),
+                 "live_rows": list(cols[6])}, len(rows))
+        return ResultSet(["ok"], {"ok": [True]}, 1)
 
     def create_distributed_table(self, name: str, distribution_column: str,
                                  shard_count: int | None = None,
@@ -194,23 +386,113 @@ class Session:
         self._save_catalog()
         return None
 
-    def _execute_select(self, sel: ast.Select) -> ResultSet:
+    def _execute_alter_table(self, stmt: ast.AlterTable):
+        """ALTER TABLE ADD/DROP/RENAME COLUMN as manifest-level schema
+        evolution, as the JAX package does it (either package reads the
+        other's): stripes are immutable; columns added later read as
+        NULL from older stripes, dropped columns leave the schema and
+        their storage name is retired."""
+        meta = self.catalog.table(stmt.table)
+        schema = meta.schema
+        if stmt.action == "add_column":
+            if schema.has_column(stmt.column.name):
+                if stmt.if_not_exists:
+                    return None
+                raise CatalogError(
+                    f"column {stmt.column.name!r} already exists")
+            new_col = ColumnDef(stmt.column.name,
+                                sql_type_to_datatype(stmt.column.type_name),
+                                nullable=not stmt.column.not_null)
+            if stmt.column.not_null and \
+                    self.store.table_row_count(stmt.table) > 0:
+                raise CatalogError(
+                    "cannot add a NOT NULL column to a non-empty table "
+                    "(existing rows would hold NULL)")
+            # never resurrect a dropped/renamed-away column's on-disk
+            # data under the new name
+            self.store.register_column(stmt.table, new_col.name)
+            new_schema = TableSchema(schema.columns + (new_col,))
+        elif stmt.action == "drop_column":
+            if not schema.has_column(stmt.column_name):
+                if stmt.if_exists:
+                    return None
+                raise CatalogError(
+                    f"column {stmt.column_name!r} does not exist")
+            if meta.method == DistributionMethod.HASH and \
+                    stmt.column_name == meta.distribution_column:
+                raise CatalogError(
+                    "cannot drop the distribution column")
+            new_schema = TableSchema(tuple(
+                c for c in schema.columns if c.name != stmt.column_name))
+            if not new_schema.columns:
+                raise CatalogError("cannot drop the last column")
+            self.store.retire_column(stmt.table, stmt.column_name)
+        elif stmt.action == "rename_column":
+            if not schema.has_column(stmt.column_name):
+                raise CatalogError(
+                    f"column {stmt.column_name!r} does not exist")
+            if schema.has_column(stmt.new_name):
+                raise CatalogError(
+                    f"column {stmt.new_name!r} already exists")
+            if meta.method == DistributionMethod.HASH and \
+                    stmt.column_name == meta.distribution_column:
+                meta.distribution_column = stmt.new_name
+            new_schema = TableSchema(tuple(
+                ColumnDef(stmt.new_name if c.name == stmt.column_name
+                          else c.name, c.dtype, nullable=c.nullable)
+                for c in schema.columns))
+            # stripes keep the old on-disk name; the store records the
+            # mapping so reads translate
+            self.store.rename_column(stmt.table, stmt.column_name,
+                                     stmt.new_name)
+        else:
+            raise UnsupportedQueryError(
+                f"ALTER TABLE {stmt.action} is not supported")
+        meta.schema = new_schema
+        self.catalog._bump()
+        self.store.bump_data_version(stmt.table)
+        self.executor.feed_cache.invalidate_table(stmt.table)
+        self._save_catalog()
+        return None
+
+    def _execute_drop_table(self, stmt: ast.DropTable):
+        if not self.catalog.has_table(stmt.name):
+            if stmt.if_exists:
+                return None
+            raise CatalogError(f"table {stmt.name!r} does not exist")
+        self.catalog.drop_table(stmt.name)
+        self.store.drop_table_storage(stmt.name)
+        self.executor.feed_cache.invalidate_table(stmt.name)
+        self._save_catalog()
+        return None
+
+    def _execute_select(self, sel: ast.Select,
+                        params: tuple = ()) -> ResultSet:
         """A statement or a subplan: plan, run, drop the temps."""
-        plan, cleanup = self._plan_select(sel)
+        plan, cleanup = self._plan_select(sel, params)
         try:
             return self.executor.execute_plan(plan)
         finally:
             for t in cleanup:
                 self._drop_temp(t)
 
-    def _plan_select(self, sel: ast.Select) -> tuple[QueryPlan, list[str]]:
+    def _plan_select(self, sel: ast.Select, params: tuple = ()
+                     ) -> tuple[QueryPlan, list[str]]:
         """Recursive planning, then bind and plan.  Returns the plan and
         the temps it materialised, which the caller drops (_drop_temp)
-        once the plan has run."""
+        once the plan has run.  `params` are a prepared statement's
+        EXECUTE arguments: the outer query binds them as BParam values
+        (generic over them); subplans substitute them (_sub_params)."""
         cleanup: list[str] = []
         try:
-            sel = self._recursive_plan(sel, cleanup)
-            binder = Binder(self.catalog, _StoreDicts(self.store))
+            prev = getattr(self._params_tls, "value", ())
+            self._params_tls.value = params
+            try:
+                sel = self._recursive_plan(sel, cleanup)
+            finally:
+                self._params_tls.value = prev
+            binder = Binder(self.catalog, _StoreDicts(self.store),
+                            params=params)
             bound = binder.bind_select(sel)
             planner = DistributedPlanner(
                 self.catalog, _StoreStats(self.store), self.n_devices,
@@ -222,7 +504,64 @@ class Session:
                 self._drop_temp(t)
             raise
 
+    # -- PREPARE / EXECUTE / EXPLAIN ----------------------------------------
+    def _execute_prepared(self, stmt: ast.ExecutePrepared):
+        """EXECUTE name(args): a SELECT binds args as BParam values, so
+        the cached PlanCompiler and capacities serve every EXECUTE (the
+        reference's cached shard plans, planner/local_plan_cache.c);
+        other statement kinds substitute the literals into the AST."""
+        target = self._prepared.get(stmt.name)
+        if target is None:
+            raise PlanningError(
+                f"prepared statement {stmt.name!r} does not exist")
+        for a in stmt.args:
+            if not isinstance(a, ast.Literal):
+                raise PlanningError("EXECUTE arguments must be literals")
+        if isinstance(target, ast.Select):
+            return self._execute_select(target, params=stmt.args)
+        return self._execute_statement(
+            _substitute_params(target, stmt.args))
+
+    def _execute_explain(self, stmt: ast.Explain):
+        """EXPLAIN [EXECUTE name(args)] SELECT: the plan's lines, as
+        the JAX package renders them at one device."""
+        if stmt.analyze:
+            raise UnsupportedQueryError(
+                "EXPLAIN ANALYZE is not in this port yet: it comes with "
+                "stats/tracing (queue A item 8)")
+        target = stmt.statement
+        params: tuple = ()
+        if isinstance(target, ast.ExecutePrepared):
+            # EXPLAIN EXECUTE name(args): show the generic plan
+            prepared = self._prepared.get(target.name)
+            if prepared is None:
+                raise PlanningError(
+                    f"prepared statement {target.name!r} does not exist")
+            if not isinstance(prepared, ast.Select):
+                raise UnsupportedQueryError(
+                    "EXPLAIN EXECUTE supports prepared SELECTs only")
+            params = target.args
+            target = prepared
+        if not isinstance(target, ast.Select):
+            raise UnsupportedQueryError("EXPLAIN supports SELECT only")
+        plan, cleanup = self._plan_select(target, params)
+        try:
+            lines = format_plan(plan, self.catalog, self.settings,
+                                self.device)
+            return ResultSet(["QUERY PLAN"], {"QUERY PLAN": lines},
+                             len(lines))
+        finally:
+            for t in cleanup:
+                self._drop_temp(t)
+
     # -- recursive planning ------------------------------------------------
+    def _sub_params(self, node):
+        """Substitute EXECUTE args into a subquery before it runs as a
+        subplan (subplans execute ahead of outer binding, so $n must
+        resolve here; the outer query's params stay generic)."""
+        args = getattr(self._params_tls, "value", ())
+        return _substitute_params(node, args) if args else node
+
     def _recursive_plan(self, sel: ast.Select, cleanup: list[str],
                         cte_scope: dict[str, str] | None = None
                         ) -> ast.Select:
@@ -244,6 +583,7 @@ class Session:
                 c.name for c in self.catalog.table(name).schema.columns)
 
         sel = decorrelate_select(sel, columns_of)
+        sel = self._rewrite_approx_percentile(sel, cleanup, cte_scope)
 
         def column_nullable(ref: ast.ColumnRef):
             """Can this plain column ref hold NULLs?  Schema nullability
@@ -336,6 +676,207 @@ class Session:
                             fi.using_cols)
         return fi
 
+    def _rewrite_approx_percentile(self, sel: ast.Select, cleanup,
+                                   cte_scope) -> ast.Select:
+        """approx_percentile(col, q) → DDSketch bucket pre-pass.
+
+        The device runs ``group by (G…, dd_bucket(col)) → count(*)``
+        over the same FROM/WHERE — the log-domain buckets ARE the
+        mergeable quantile sketch (per-shard counts add through the
+        ordinary aggregate split, the way HLL registers merge by max),
+        with a RELATIVE error bound α = (γ-1)/(γ+1) ≈ 1% that one
+        outlier cannot degrade (ops/sketches.py).  The host folds the
+        per-(group, bucket) counts into quantile values:
+
+        * global: the value replaces the call as a constant wrapped in
+          max() — one row, NULL over an empty input.
+        * GROUP BY: per-group values materialize as a temp reference
+          table (g…, pctl) joined back into the query on the group
+          keys; the call becomes max(pctl) over the (unique-per-group)
+          joined column.
+
+        Reference: percentile → worker tdigest + coordinator merge,
+        multi_logical_optimizer.c:2046."""
+        from .ops.sketches import dd_quantile
+
+        calls = [n for it in sel.items for n in ast.walk_expr(it.expr)
+                 if isinstance(n, ast.FuncCall)
+                 and n.name == "approx_percentile"]
+        if not calls:
+            return sel
+        if sel.distinct:
+            raise UnsupportedQueryError(
+                "approx_percentile cannot combine with SELECT DISTINCT")
+        group_keys = list(sel.group_by)
+        for g in group_keys:
+            if not isinstance(g, ast.ColumnRef):
+                raise UnsupportedQueryError(
+                    "approx_percentile with GROUP BY requires plain "
+                    "column group keys")
+        parsed: list[tuple[ast.FuncCall, ast.ColumnRef, float]] = []
+        for call in calls:
+            if call.window is not None or call.distinct or \
+                    len(call.args) != 2:
+                raise UnsupportedQueryError(
+                    "approx_percentile(column, quantile) expects two "
+                    "arguments")
+            col, qlit = call.args
+            if not (isinstance(qlit, ast.Literal)
+                    and isinstance(qlit.value, (int, float))
+                    and 0.0 <= float(qlit.value) <= 1.0):
+                raise UnsupportedQueryError(
+                    "approx_percentile quantile must be a literal in "
+                    "[0, 1]")
+            if not isinstance(col, ast.ColumnRef):
+                raise UnsupportedQueryError(
+                    "approx_percentile argument must be a plain column")
+            parsed.append((call, col, float(qlit.value)))
+
+        repl: dict[ast.FuncCall, ast.Expr] = {}
+        extra_from: list[ast.FromItem] = []
+        extra_where: list[ast.Expr] = []
+        # one pre-pass per distinct sketched column; every quantile over
+        # that column reads the same (group, bucket) counts
+        by_col: dict[ast.ColumnRef, list[tuple[ast.FuncCall, float]]] = {}
+        for call, col, q in parsed:
+            by_col.setdefault(col, []).append((call, q))
+        for col, wants in by_col.items():
+            bucket = ast.FuncCall("__dd_bucket", (col,))
+            g_items = tuple(ast.SelectItem(g, f"g{i}")
+                            for i, g in enumerate(group_keys))
+            hist = ast.Select(
+                items=g_items + (
+                    ast.SelectItem(bucket, "hb"),
+                    ast.SelectItem(
+                        ast.FuncCall("count", (), star=True), "c")),
+                from_items=sel.from_items, where=sel.where,
+                group_by=tuple(group_keys) + (bucket,),
+                # decorrelated EXISTS filters must apply here too
+                semi_joins=sel.semi_joins)
+            inner = self._recursive_plan(hist, cleanup, cte_scope)
+            result = self._execute_select(self._sub_params(inner))
+            nk = len(group_keys)
+            # NULL column values form a NULL bucket group: percentile
+            # ignores NULLs (PG semantics), so drop it
+            rows = [r for r in result.rows() if r[nk] is not None]
+            if not group_keys:
+                keys = np.asarray([r[0] for r in rows], dtype=np.int64)
+                cnts = np.asarray([r[1] for r in rows], dtype=np.int64)
+                for call, q in wants:
+                    repl[call] = ast.FuncCall(
+                        "max", (ast.Literal(dd_quantile(keys, cnts, q)),))
+                continue
+            # grouped: fold per group tuple.  Groups whose sketched
+            # column is ALL NULL appear only in the dropped NULL-bucket
+            # rows — they must still produce an output row (with a NULL
+            # percentile, PG semantics), so collect group tuples from
+            # the UNFILTERED result
+            per_group: dict[tuple, list[tuple[int, int]]] = {}
+            for r in rows:
+                per_group.setdefault(tuple(r[:nk]), []).append(
+                    (int(r[nk]), int(r[nk + 1])))
+            gtuples = []
+            seen_g = set()
+            for r in result.rows():
+                g = tuple(r[:nk])
+                if g not in seen_g:
+                    seen_g.add(g)
+                    gtuples.append(g)
+            pctls: list[list] = []  # per want, per group tuple
+            for call, q in wants:
+                vals = []
+                for g in gtuples:
+                    pairs = per_group.get(g)
+                    if not pairs:
+                        vals.append(None)  # all-NULL group
+                        continue
+                    keys = np.asarray([k for k, _ in pairs],
+                                      dtype=np.int64)
+                    cnts = np.asarray([c for _, c in pairs],
+                                      dtype=np.int64)
+                    vals.append(dd_quantile(keys, cnts, q))
+                pctls.append(vals)
+            key_dts = [_result_dtype(result, i) for i in range(nk)]
+            if DataType.STRING in key_dts:
+                # string group keys can't ride the temp join (cross-
+                # table string equality needs dictionary alignment);
+                # inline a CASE over the observed group values instead
+                if len(gtuples) > 1000:
+                    raise UnsupportedQueryError(
+                        "approx_percentile with string GROUP BY keys "
+                        "supports at most 1000 groups")
+                for j, (call, _q) in enumerate(wants):
+                    whens = []
+                    for gi, g in enumerate(gtuples):
+                        conds = []
+                        for i, gk in enumerate(group_keys):
+                            v = g[i]
+                            conds.append(
+                                ast.IsNull(gk) if v is None
+                                else ast.BinaryOp(
+                                    "=", gk, _value_to_literal(
+                                        v, key_dts[i])))
+                        cond = conds[0]
+                        for c in conds[1:]:
+                            cond = ast.BinaryOp("AND", cond, c)
+                        whens.append((cond,
+                                      ast.Literal(pctls[j][gi])))
+                    repl[call] = ast.FuncCall(
+                        "max", (ast.CaseWhen(tuple(whens), None),))
+                continue
+            # numeric/date keys: materialize a temp reference table and
+            # join it back on the group keys
+            temp_cols: dict[str, object] = {}
+            temp_names: list[str] = []
+            temp_dtypes: dict[str, object] = {}
+            for i in range(nk):
+                nmi = f"__pg{i}"
+                temp_names.append(nmi)
+                temp_cols[nmi] = np.asarray([g[i] for g in gtuples],
+                                            dtype=object)
+                temp_dtypes[nmi] = key_dts[i]
+            for j, (call, q) in enumerate(wants):
+                nmj = f"__pctl{len(extra_from)}_{j}"
+                temp_names.append(nmj)
+                temp_cols[nmj] = np.asarray(pctls[j], dtype=object)
+                temp_dtypes[nmj] = DataType.FLOAT64
+            shim = ResultSet(temp_names, temp_cols, len(gtuples),
+                             dtypes=temp_dtypes)
+            temp = self._store_result(shim, cleanup)
+            alias = f"__pctl_t{len(extra_from)}"
+            extra_from.append(ast.TableRef(temp, alias))
+            for i, g in enumerate(group_keys):
+                tcol = ast.ColumnRef(f"__pg{i}", table=alias)
+                eq = ast.BinaryOp("=", g, tcol)
+                if any(gt[i] is None for gt in gtuples):
+                    # NULL group keys group together (PG semantics) but
+                    # never compare equal — match them explicitly
+                    eq = ast.BinaryOp(
+                        "OR", eq,
+                        ast.BinaryOp("AND", ast.IsNull(g),
+                                     ast.IsNull(tcol)))
+                extra_where.append(eq)
+            for j, (call, _q) in enumerate(wants):
+                repl[call] = ast.FuncCall(
+                    "max",
+                    (ast.ColumnRef(f"__pctl{len(extra_from) - 1}_{j}",
+                                   table=alias),))
+
+        def sub(e: ast.Expr) -> ast.Expr:
+            if isinstance(e, ast.FuncCall) and e in repl:
+                return repl[e]
+            return _map_children(e, sub)
+
+        where = sel.where
+        for c in extra_where:
+            where = c if where is None else ast.BinaryOp("AND", where, c)
+        return dc_replace(
+            sel,
+            items=tuple(ast.SelectItem(sub(it.expr), it.alias)
+                        for it in sel.items),
+            from_items=sel.from_items + tuple(extra_from),
+            where=where)
+
     def _subquery_select(self, q, cleanup, cte_scope) -> ast.Select:
         """Expression-subquery body → plain Select (compound bodies
         materialise to a temp first)."""
@@ -350,7 +891,8 @@ class Session:
             inner = self._recursive_plan(
                 self._subquery_select(q, cleanup, cte_scope), cleanup,
                 cte_scope)
-            return self._execute_select(dc_replace(inner, **changes))
+            return self._execute_select(
+                dc_replace(self._sub_params(inner), **changes))
 
         if isinstance(e, ast.ScalarSubquery):
             result = run(e.query)
@@ -508,10 +1050,10 @@ class Session:
     def _setop_result(self, q, cleanup: list[str], cte_scope) -> ResultSet:
         """One set-operation side → its executed ResultSet."""
         if isinstance(q, ast.SetOp):
-            return self._execute_select(
-                self._setop_select(q, cleanup, cte_scope))
-        return self._execute_select(
-            self._recursive_plan(q, cleanup, cte_scope))
+            inner = self._setop_select(q, cleanup, cte_scope)
+        else:
+            inner = self._recursive_plan(q, cleanup, cte_scope)
+        return self._execute_select(self._sub_params(inner))
 
     def _query_to_temp(self, q, cleanup: list[str], cte_scope,
                        column_names: tuple[str, ...] = ()) -> str:
@@ -522,8 +1064,9 @@ class Session:
             sel = self._setop_select(q, cleanup, cte_scope)
         else:
             sel = self._recursive_plan(q, cleanup, cte_scope)
-        return self._store_result(self._execute_select(sel), cleanup,
-                                  column_names)
+        return self._store_result(
+            self._execute_select(self._sub_params(sel)), cleanup,
+            column_names)
 
     def _drop_temp(self, name: str) -> None:
         """Drop a temp's catalog entry, its storage and its device feeds
@@ -639,3 +1182,30 @@ def _object_to_typed(arr: np.ndarray) -> np.ndarray:
     if arr.dtype != object:
         return arr
     return np.array([0 if x is None else x for x in arr])
+
+
+def _substitute_params(node, args: tuple):
+    """Replace ast.Param nodes with the EXECUTE argument literals across
+    an arbitrary (frozen-dataclass) statement tree: a prepared SELECT's
+    subplans, and prepared statements of other kinds (no compiled plan
+    to keep generic there)."""
+    if isinstance(node, ast.Param):
+        if node.index >= len(args):
+            raise PlanningError(
+                f"parameter ${node.index + 1} has no value")
+        return args[node.index]
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        changes = {}
+        for f in dataclasses.fields(node):
+            old = getattr(node, f.name)
+            new = _substitute_params(old, args)
+            if new is not old:
+                changes[f.name] = new
+        return dataclasses.replace(node, **changes) if changes else node
+    if isinstance(node, tuple):
+        subst = tuple(_substitute_params(x, args) for x in node)
+        return subst if any(a is not b for a, b in zip(subst, node)) \
+            else node
+    if isinstance(node, list):
+        return [_substitute_params(x, args) for x in node]
+    return node

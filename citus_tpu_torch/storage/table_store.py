@@ -193,6 +193,45 @@ class TableStore:
         unless the JAX package's ALTER TABLE RENAME recorded a mapping)."""
         return self.manifest(table).get("renames", {}).get(column, column)
 
+    def rename_column(self, table: str, old: str, new: str) -> None:
+        """ALTER TABLE RENAME COLUMN bookkeeping: stripes keep the old
+        on-disk name and the manifest maps the new name onto it."""
+        with self._write_lock(table), self._lock:
+            man = self.manifest(table)
+            renames = man.setdefault("renames", {})
+            storage = renames.pop(old, old)
+            renames[new] = storage
+            self._save_manifest(table)
+
+    def retire_column(self, table: str, column: str) -> None:
+        """DROP COLUMN bookkeeping: remember the on-disk name as dead so
+        a later ADD COLUMN with the same name can never resurrect the
+        dropped column's stripe data."""
+        with self._write_lock(table), self._lock:
+            man = self.manifest(table)
+            storage = man.setdefault("renames", {}).pop(column, column)
+            retired = man.setdefault("retired", [])
+            if storage not in retired:
+                retired.append(storage)
+            self._save_manifest(table)
+
+    def register_column(self, table: str, column: str) -> None:
+        """ADD COLUMN bookkeeping: if the name collides with a retired
+        storage name or another column's storage target (a rename left
+        the old on-disk name in place), map the new column to a fresh
+        storage name instead."""
+        with self._write_lock(table), self._lock:
+            man = self.manifest(table)
+            renames = man.setdefault("renames", {})
+            used = set(man.get("retired", [])) | set(renames.values())
+            if column in used:
+                i = 2
+                while f"{column}__{i}" in used or \
+                        f"{column}__{i}" in renames.values():
+                    i += 1
+                renames[column] = f"{column}__{i}"
+                self._save_manifest(table)
+
     def dictionary(self, table: str, column: str) -> Dictionary:
         column = self.storage_column_name(table, column)
         with self._lock:
@@ -321,6 +360,17 @@ class TableStore:
                 if s[2] > 0:
                     return True
         return False
+
+    def shard_row_count(self, table: str, shard_id: int) -> int:
+        """Live rows of one shard (the port has no transaction overlay
+        to add or subtract)."""
+        man = self.manifest(table)
+        return sum(r.get("live_rows", r["rows"])
+                   for r in man["shards"].get(str(shard_id), []))
+
+    def shard_size_bytes(self, table: str, shard_id: int) -> int:
+        man = self.manifest(table)
+        return sum(r["bytes"] for r in man["shards"].get(str(shard_id), []))
 
     def table_row_count(self, table: str) -> int:
         man = self.manifest(table)

@@ -6,7 +6,8 @@ intermediate results hold no rows.
 
 The statement shapes are those of tests/test_semi_joins.py,
 test_outer_joins.py, test_setops.py, test_distinct_aggs.py and the
-view-reading cases of test_views.py.  A JAX Session (n_devices=1, exec
+view-reading cases of test_views.py, plus windows and sketches under
+subqueries and CTEs.  A JAX Session (n_devices=1, exec
 cache off, compute_dtype float64, no serving cache) writes the tables
 and views and answers each statement; the port (device="cpu", float64)
 answers it on the same data_dir.  After each statement the port holds no
@@ -232,6 +233,13 @@ CASES = {
                                "on s.lk = ok order by ok",
     "empty_union": "select x from a where x > 100 "
                    "union select x from b where x > 100",
+    # windows and sketches, also under a derived table or a CTE
+    "window": "select ok, row_number() over (order by ok) from o",
+    "window_in_derived_table": "select count(*) from (select ok, rank() "
+                               "over (order by v) as rk from o) s",
+    "approx_count_distinct": "select approx_count_distinct(ck) from o",
+    "approx_percentile_in_cte": "with w as (select approx_percentile(v, "
+                                "0.5) as p from o) select p from w",
 }
 
 # statements both packages refuse, with the same error class
@@ -258,12 +266,6 @@ REFUSED = {
 # shapes the port still refuses (UnsupportedQueryError), also when a
 # subquery or CTE holds them
 NOT_YET = {
-    "window": "select ok, row_number() over (order by ok) from o",
-    "window_in_derived_table": "select count(*) from (select ok, rank() "
-                               "over (order by v) as rk from o) s",
-    "approx_count_distinct": "select approx_count_distinct(ck) from o",
-    "approx_percentile_in_cte": "with w as (select approx_percentile(v, "
-                                "0.5) as p from o) select p from w",
     "text_case_in_subquery": "select count(*) from o where ok in (select "
                              "case when q > 5 then 'big' else 'small' end "
                              "from l)",
