@@ -72,8 +72,27 @@ Phases, each fatal on failure (no result line is printed then):
    outlives its statement, when the dictionary decode never launches, or
    when neither the dense-grid sum nor the bucketed group-by sums launch
    on S1, S2 and P2;
-10. print the kernels line (with each kernel's launches in phases 8
-    and 9), then the device line last.
+10. the write path, last, on tables of its own (dropped at the end),
+    with every launch count at 0, each step in a fresh cuda session
+    (scan_pipeline=device, float32): I1 `INSERT INTO orders_w SELECT *
+    FROM orders` (colocated with orders, 1.5M rows), I2 the
+    high-cardinality GROUP BY inserted into li_agg (K3, and K5 on the
+    cold lineitem scan), I3 orders re-sharded on o_custkey
+    (repartition, every row's shard checked against its token); U1 an
+    UPDATE of 1992's orders, a point UPDATE that must touch one shard,
+    o_totalprice set to NULL for 1,000 seeded customers and a DELETE;
+    T1 a DELETE seen inside its transaction (feed cache and pipeline
+    bypassed) and rolled back, then three INSERTs and an UPDATE
+    committed; M1 a MERGE from a 20,000-row reference table, half of it
+    matching; C1 a 100,000-row CSV copied in; R1 a COMMIT killed at the
+    port's `txn.apply` fault point, recovered by the next session, and
+    the change feed in LSN order.  Every affected count, mode and
+    read-back (count(*), count(o_totalprice) and sum(o_totalprice) by
+    o_orderpriority: K1, and K4 once NULLs exist) is held against numpy
+    replaying the same writes on its own copy.  Fails on any mismatch
+    or when K1, K3, K4 or K5 never launches in the phase;
+11. print the kernels line (with each kernel's launches in phases 8,
+    9 and 10), then the device line last.
 
 Exits non-zero without a result when no GPU is visible or the port's
 package is not next to this script.  Imports nothing of JAX.
@@ -1291,6 +1310,404 @@ def phase9(ct, hk, data_dir, data, reps, ident) -> dict:
     return launched
 
 
+# -- phase 10: the write path --------------------------------------------
+
+PHASE10_KERNELS = ("dense_grid_sum", "bucketed_groupby_sums", "bit_unpack",
+                   "dict_decode")
+NULL_CUSTKEYS = 1000   # U1: o_totalprice set to NULL for these customers
+MERGE_ROWS = 20_000    # M1: half of them match an existing order
+COPY_ROWS = 100_000    # C1
+READ_BACK = ("select o_orderpriority, count(*), count(o_totalprice), "
+             "sum(o_totalprice) from orders_w group by o_orderpriority "
+             "order by o_orderpriority")
+
+
+class OrdersModel:
+    """numpy's own copy of orders_w: the same writes replayed on arrays
+    (float64, as the port's UPDATE computes them on the host)."""
+
+    def __init__(self, orders):
+        import numpy as np
+
+        self.key = orders["o_orderkey"].astype(np.int64)
+        self.cust = orders["o_custkey"].astype(np.int64)
+        self.status = np.asarray(orders["o_orderstatus"], dtype=object)
+        self.price = orders["o_totalprice"].astype(np.float64)
+        self.date = orders["o_orderdate"].astype(np.int64)
+        self.prio = np.asarray(orders["o_orderpriority"], dtype=object)
+        self.valid = np.ones(len(self.key), dtype=bool)
+        self.alive = np.ones(len(self.key), dtype=bool)
+
+    def append(self, key, cust, status, price, date, prio):
+        import numpy as np
+
+        n = len(key)
+        self.key = np.concatenate([self.key, key])
+        self.cust = np.concatenate([self.cust, cust])
+        self.status = np.concatenate([self.status,
+                                      np.asarray(status, dtype=object)])
+        self.price = np.concatenate([self.price, price])
+        self.date = np.concatenate([self.date, date])
+        self.prio = np.concatenate([self.prio,
+                                    np.asarray(prio, dtype=object)])
+        self.valid = np.concatenate([self.valid, np.ones(n, dtype=bool)])
+        self.alive = np.concatenate([self.alive, np.ones(n, dtype=bool)])
+
+    def read_back(self):
+        rows = []
+        for p in sorted(set(self.prio[self.alive])):
+            g = self.alive & (self.prio == p)
+            v = g & self.valid
+            rows.append((p, int(g.sum()), int(v.sum()),
+                         float(self.price[v].sum())))
+        return rows
+
+
+def phase10(ct, hk, data_dir, data, reps, ident) -> dict:
+    """Phase 10.  Returns each kernel's launches over the phase."""
+    import numpy as np
+    import torch
+
+    from citus_tpu_torch.catalog.distribution import (
+        hash_token, shard_index_for_token_ranges)
+    from citus_tpu_torch.executor.insert_select import execute_insert_select
+    from citus_tpu_torch.ingest import tpch
+    from citus_tpu_torch.ingest.copy_from import _ingest_batch
+    from citus_tpu_torch.sql import parse
+    from citus_tpu_torch.utils.faultinjection import InjectedFault, inject
+
+    t_phase = time.perf_counter()
+    orders, li = data["orders"], data["lineitem"]
+    model = OrdersModel(orders)
+    failures: list = []
+    hk.reset_launch_counts()
+
+    def connect():
+        return ct.connect(data_dir, scan_pipeline="device",
+                          compute_dtype="float32")
+
+    def step(name, fn, check=None):
+        """One step in a fresh cuda session, then its check on the same
+        session: the step's wall (the check outside it), rows affected,
+        mode, each kernel's launches in the step and, apart, in its check
+        go to the log."""
+        before = dict(hk.LAUNCHES)
+        sess = connect()
+        t0 = time.perf_counter()
+        affected, mode = fn(sess)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        mid = dict(hk.LAUNCHES)
+        if check is not None:
+            check(sess)
+        launched = {n: mid[n] - before[n] for n in hk.KERNELS}
+        checked = {n: hk.LAUNCHES[n] - mid[n] for n in hk.KERNELS}
+        log(f"phase10 {name}: rows affected {affected}, wall {dt!r} s, "
+            f"mode {mode}, launches in the step {launched}, in its check "
+            f"{checked} ({ident})")
+        return sess
+
+    def expect(name, got, want):
+        if got != want:
+            failures.append(name)
+            log(f"  {name}: got {got}, numpy {want}")
+
+    def check_read_back(name, sess):
+        got = sess.execute(READ_BACK).rows()
+        want = model.read_back()
+        ok = len(got) == len(want) and all(
+            g[0] == w[0] and int(g[1]) == w[1] and int(g[2]) == w[2]
+            and close(g[3], w[3]) for g, w in zip(got, want))
+        if not ok:
+            failures.append(f"{name} read-back")
+            log(f"  {name} read-back: card {got}, numpy {want}")
+        return got
+
+    def changed_shards(sess, table, before):
+        man = sess.store.manifest(table)["shards"]
+        return sorted(s for s in man if man[s] != before.get(s))
+
+    # I1: colocated INSERT … SELECT
+    ddl = tpch.SCHEMAS["orders"]
+    boot = connect()
+    for t in ("orders_w", "orders_by_cust"):
+        boot.execute(ddl.replace("create table orders",
+                                 f"create table {t}"))
+    boot.create_distributed_table("orders_w", "o_orderkey", 8,
+                                  colocate_with="orders")
+    boot.create_distributed_table("orders_by_cust", "o_custkey", 8)
+    boot.execute("create table li_agg (l_orderkey bigint, qty double "
+                 "precision, n bigint)")
+    boot.create_distributed_table("li_agg", "l_orderkey", 8)
+
+    def insert_select(sql, want_mode, want_n):
+        def run(sess):
+            res, mode = execute_insert_select(sess, parse(sql)[0])
+            n = int(res.rows()[0][0])
+            expect(f"{sql[:30]} mode", mode, want_mode)
+            expect(f"{sql[:30]} rows", n, want_n)
+            return n, mode
+        return run
+
+    n_orders = len(model.key)
+    step("I1", insert_select(
+        "insert into orders_w select * from orders", "colocated",
+        n_orders), lambda sess: check_read_back("I1", sess))
+
+    # I2: high-cardinality INSERT … SELECT (K3, K5 on the cold scan)
+    keys, cnt, qty = numpy_high_card(li)
+
+    def check_i2(sess):
+        res = sess.execute("select l_orderkey, n, qty from li_agg")
+        try:
+            check_high_card(res, (keys, cnt, qty))
+        except AssertionError as e:
+            failures.append("I2")
+            log(f"  I2 against numpy: {e}")
+
+    step("I2", insert_select(
+        "insert into li_agg select l_orderkey, sum(l_quantity), count(*) "
+        "from lineitem group by l_orderkey", "repartition", len(keys)),
+        check_i2)
+
+    # I3: host-routed repartition INSERT … SELECT
+    def check_i3(sess):
+        mins = sess.catalog.shard_mins("orders_by_cust")
+        for i, sh in enumerate(sess.catalog.table_shards("orders_by_cust")):
+            vals, _m, n = sess.store.read_shard(
+                "orders_by_cust", sh.shard_id, ["o_custkey"])
+            idx = shard_index_for_token_ranges(
+                hash_token(vals["o_custkey"].astype(np.int64)), mins)
+            if n and not bool((np.asarray(idx) == i).all()):
+                failures.append("I3 routing")
+                log(f"  I3: shard {sh.shard_id} holds rows of other "
+                    "shards")
+
+    step("I3", insert_select(
+        "insert into orders_by_cust select * from orders", "repartition",
+        n_orders), check_i3)
+
+    # U1: UPDATE and DELETE
+    d93, d94 = days("1993-01-01"), days("1994-01-01")
+    point_key = int(model.key[n_orders // 2])
+    rng = np.random.default_rng(10)
+    null_custs = rng.choice(np.unique(model.cust), NULL_CUSTKEYS,
+                            replace=False)
+    u1 = [
+        ("update orders_w set o_totalprice = o_totalprice * 1.1 "
+         f"where o_orderdate < date '1993-01-01'",
+         model.alive & (model.date < d93), "scale"),
+        (f"update orders_w set o_totalprice = o_totalprice + 1 "
+         f"where o_orderkey = {point_key}",
+         model.alive & (model.key == point_key), "plus1"),
+        ("update orders_w set o_totalprice = null where o_custkey in ("
+         + ", ".join(str(int(c)) for c in null_custs) + ")",
+         None, "null"),
+        ("delete from orders_w where o_orderstatus = 'F' "
+         "and o_orderdate >= date '1994-01-01'", None, "delete"),
+    ]
+
+    def run_u1(sess):
+        total = []
+        for sql, _m, kind in u1:
+            if kind == "null":
+                m = model.alive & np.isin(model.cust, null_custs)
+            elif kind == "delete":
+                m = model.alive & (model.status == "F") & \
+                    (model.date >= d94)
+            else:
+                m = _m
+            before = {k: list(v) for k, v in sess.store.manifest(
+                "orders_w")["shards"].items()}
+            got = int(sess.execute(sql).rows()[0][0])
+            expect(f"U1 {kind} count", got, int(m.sum()))
+            total.append(got)
+            if kind == "scale":
+                model.price[m] = model.price[m] * 1.1
+            elif kind == "plus1":
+                model.price[m] = model.price[m] + 1
+                expect("U1 point shards touched",
+                       len(changed_shards(sess, "orders_w", before)), 1)
+            elif kind == "null":
+                model.valid[m] = False
+            else:
+                model.alive[m] = False
+        return total, "host"
+
+    step("U1", run_u1, lambda sess: check_read_back("U1", sess))
+
+    # T1: transactions
+    def run_t1(sess):
+        y95 = model.alive & (model.date >= days("1995-01-01")) & \
+            (model.date < days("1996-01-01"))
+        pipelined = sess.executor.scan_stats.snapshot()["feeds_pipelined"]
+        sess.execute("begin")
+        got = int(sess.execute(
+            "delete from orders_w where o_orderdate >= date '1995-01-01' "
+            "and o_orderdate < date '1996-01-01'").rows()[0][0])
+        expect("T1 delete count", got, int(y95.sum()))
+        inside = int(sess.execute(
+            "select count(*) from orders_w").rows()[0][0])
+        expect("T1 sees its delete", inside,
+               int(model.alive.sum() - y95.sum()))
+        cached = [k for k in sess.executor.feed_cache._entries
+                  if k[0] == "orders_w"]
+        expect("T1 feed cache bypassed", cached, [])
+        expect("T1 pipeline bypassed",
+               sess.executor.scan_stats.snapshot()["feeds_pipelined"],
+               pipelined)
+        sess.execute("rollback")
+        after = int(sess.execute(
+            "select count(*) from orders_w").rows()[0][0])
+        expect("T1 rollback", after, int(model.alive.sum()))
+        new_keys = [4 * n_orders + 10 + 4 * i for i in range(3)]
+        sess.execute("begin")
+        sess.execute(
+            "insert into orders_w values " + ", ".join(
+                f"({k}, 7, 'O', {100.0 + i}, date '1997-01-0{i + 1}', "
+                f"'1-URGENT', 'Clerk#000000007', 0, 'txn')"
+                for i, k in enumerate(new_keys)))
+        sess.execute(f"update orders_w set o_totalprice = 555.5 "
+                     f"where o_orderkey = {new_keys[0]}")
+        sess.execute("commit")
+        model.append(np.asarray(new_keys, dtype=np.int64),
+                     np.full(3, 7, np.int64), ["O"] * 3,
+                     np.asarray([555.5, 101.0, 102.0]),
+                     np.asarray([days(f"1997-01-0{i + 1}")
+                                 for i in range(3)], np.int64),
+                     ["1-URGENT"] * 3)
+        return [got, 3], "transaction"
+
+    step("T1", run_t1)
+    fresh = connect()
+    got = fresh.execute("select o_orderkey, o_totalprice from orders_w "
+                        "where o_comment = 'txn' order by o_orderkey")
+    expect("T1 committed rows", [(int(k), float(v)) for k, v in got.rows()],
+           [(int(k), float(v)) for k, v in zip(model.key[-3:],
+                                               model.price[-3:])])
+
+    # M1: MERGE from a reference table, half of its rows matching
+    alive_keys = model.key[model.alive]
+    matched = rng.choice(alive_keys, MERGE_ROWS // 2, replace=False)
+    fresh_keys = 4 * np.arange(MERGE_ROWS // 2, dtype=np.int64) + 2
+    mkeys = np.concatenate([matched, fresh_keys])
+    mcust = rng.integers(1, 1000, MERGE_ROWS).astype(np.int64)
+    mprice = np.round(rng.random(MERGE_ROWS) * 1000, 2)
+    fresh.execute("create table merge_src (k bigint, cust bigint, "
+                  "price double precision)")
+    fresh.create_reference_table("merge_src")
+    _ingest_batch(fresh, "merge_src", ["k", "cust", "price"],
+                  [mkeys, mcust, mprice], pre_typed=True)
+
+    def run_m1(sess):
+        got = int(sess.execute(
+            "merge into orders_w t using merge_src s on t.o_orderkey = s.k "
+            "when matched then update set o_totalprice = s.price "
+            "when not matched then insert (o_orderkey, o_custkey, "
+            "o_orderstatus, o_totalprice, o_orderdate, o_orderpriority, "
+            "o_clerk, o_shippriority, o_comment) values (s.k, s.cust, 'O', "
+            "s.price, date '1998-01-01', '5-LOW', 'Clerk#000000001', 0, "
+            "'merged')").rows()[0][0])
+        expect("M1 updated + inserted", got, MERGE_ROWS)
+        pos = {int(k): i for i, k in enumerate(model.key)
+               if model.alive[i]}
+        for k, p in zip(matched, mprice[:MERGE_ROWS // 2]):
+            i = pos[int(k)]
+            model.price[i], model.valid[i] = p, True
+        half = MERGE_ROWS // 2
+        model.append(fresh_keys, mcust[half:], ["O"] * half,
+                     mprice[half:], np.full(half, days("1998-01-01")),
+                     ["5-LOW"] * half)
+        inserted = int(sess.execute(
+            "select count(*) from orders_w where o_comment = 'merged'"
+        ).rows()[0][0])
+        expect("M1 inserted", inserted, half)
+        return [got - inserted, inserted], "host"
+
+    step("M1", run_m1, lambda sess: check_read_back("M1", sess))
+    fresh.execute("drop table merge_src")
+
+    # C1: COPY … FROM a CSV file the script writes
+    ckeys = 4 * np.arange(COPY_ROWS, dtype=np.int64) + 3
+    ccust = rng.integers(1, 1000, COPY_ROWS).astype(np.int64)
+    cprice = np.round(rng.random(COPY_ROWS) * 1000, 2)
+    cdate = rng.integers(days("1992-01-01"), days("1998-08-02"), COPY_ROWS)
+    prios = np.asarray(["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                        "5-LOW"], dtype=object)
+    cprio = prios[rng.integers(0, 5, COPY_ROWS)]
+    csv_path = os.path.join(os.path.dirname(data_dir), "phase10_copy.csv")
+    iso = np.datetime_as_string(cdate.astype("datetime64[D]"))
+    with open(csv_path, "w") as f:
+        for i in range(COPY_ROWS):
+            f.write(f"{ckeys[i]},{ccust[i]},F,{float(cprice[i])!r},{iso[i]},"
+                    f"{cprio[i]},Clerk#000000002,0,copied row {i}\n")
+
+    def run_c1(sess):
+        got = int(sess.execute(
+            f"copy orders_w from '{csv_path}' with (format csv)"
+        ).rows()[0][0])
+        expect("C1 copied", got, COPY_ROWS)
+        model.append(ckeys, ccust, ["F"] * COPY_ROWS, cprice, cdate, cprio)
+        return got, "copy"
+
+    sess = step("C1", run_c1, lambda sess: check_read_back("C1", sess))
+    os.unlink(csv_path)
+
+    # R1: a COMMIT that dies after its commit record, recovered at open
+    lsn0 = int(sess.store.change_log.last_lsn())
+
+    def run_r1(sess):
+        m = model.alive & (model.prio == "2-HIGH") & model.valid
+        sess.execute("begin")
+        got = int(sess.execute(
+            "update orders_w set o_totalprice = o_totalprice * 2 "
+            "where o_orderpriority = '2-HIGH' and o_totalprice is not null"
+        ).rows()[0][0])
+        expect("R1 update count", got, int(m.sum()))
+        try:
+            with inject("txn.apply", require_fired=True):
+                sess.execute("commit")
+        except InjectedFault:
+            pass
+        else:
+            failures.append("R1 commit did not raise")
+        model.price[m] = model.price[m] * 2
+        return got, "crash at txn.apply"
+
+    step("R1", run_r1)
+    before = dict(hk.LAUNCHES)
+    t0 = time.perf_counter()
+    recovered = connect()
+    dt = time.perf_counter() - t0
+    check_read_back("R1 after recovery", recovered)
+    log(f"phase10 R1 recovery at open: {dt!r} s, its read-back launches "
+        f"{ {n: hk.LAUNCHES[n] - before[n] for n in hk.KERNELS} } "
+        f"({ident})")
+    events = recovered.execute(
+        f"select citus_change_feed('orders_w', {lsn0})").rows()
+    lsns = [int(r[0]) for r in recovered.execute(
+        "select citus_change_feed('orders_w')").rows()]
+    kinds = {r[1] for r in recovered.execute(
+        "select citus_change_feed('orders_w')").rows()}
+    expect("R1 feed in LSN order", lsns == sorted(lsns) and
+           len(set(lsns)) == len(lsns), True)
+    expect("R1 feed kinds", kinds, {"insert", "delete"})
+    expect("R1 feed has the recovered commit", len(events) > 0, True)
+    log(f"phase10 change feed: {len(lsns)} events on orders_w, "
+        f"{len(events)} from the recovered commit")
+
+    for t in ("orders_w", "orders_by_cust", "li_agg"):
+        recovered.execute(f"drop table {t}")
+    launched = dict(hk.LAUNCHES)
+    log(f"phase10: {time.perf_counter() - t_phase!r} s, launches {launched}")
+    for name in PHASE10_KERNELS:
+        if not launched[name]:
+            failures.append(f"{name} never launched")
+    if failures:
+        raise AssertionError(f"phase 10: {failures}")
+    return launched
+
+
 # --------------------------------------------------------------------------
 
 def warm_runs(sess, q, sql, rows, reps, ident) -> None:
@@ -1426,9 +1843,14 @@ def main() -> int:
         launched9 = phase9(ct, hk, os.path.join(tmp, "data"), data,
                            args.reps, ident)
         log(f"phase 9: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        launched10 = phase10(ct, hk, os.path.join(tmp, "data"), data,
+                             args.reps, ident)
+        log(f"phase 10: {time.perf_counter() - t0:.3f} s")
         for rep in reports:
             rep["launches_tpch22"] = launched[rep["name"]]
             rep["launches_phase9"] = launched9[rep["name"]]
+            rep["launches_phase10"] = launched10[rep["name"]]
 
         print(json.dumps({"kernels": reports}), flush=True)
     finally:

@@ -18,6 +18,7 @@ from .errors import (
     IngestError,
     ParseError,
     PlanningError,
+    QueryCanceled,
     UnsupportedQueryError,
 )
 from .types import ColumnDef, DataType, TableSchema
@@ -27,6 +28,7 @@ __all__ = [
     "TableSchema", "CitusTpuError", "ConfigError", "CatalogError",
     "ParseError", "PlanningError", "UnsupportedQueryError",
     "ExecutionError", "CapacityOverflowError", "IngestError",
+    "QueryCanceled",
 ]
 
 

@@ -60,6 +60,12 @@ class UnsupportedQueryError(PlanningError):
     """Query shape recognized but not supported by any planner stage."""
 
 
+class QueryCanceled(CitusTpuError):
+    """Statement canceled cooperatively (the pg_cancel_backend analogue):
+    Session.cancel() sets a flag the executing thread notices at the next
+    seam (a fault point or a COPY batch boundary)."""
+
+
 class PlacementLostError(CatalogError):
     """A shard has placements, but none on a live node: every copy sits
     on nodes that are disabled or marked dead."""

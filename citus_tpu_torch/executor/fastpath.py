@@ -15,6 +15,9 @@ combine (HAVING / ORDER BY / LIMIT / decode) unchanged.  It is the
 reference's own routing, not a fallback: the same statement with
 enable_fast_path_router off runs on the device.
 
+A table with rows staged by the open transaction never answers through
+the point index (index_probe), as in the JAX package.
+
 Scope: Scan / Project / inner+left Join plans.  Aggregates and
 right/full joins take the device path.  The row ceiling keeps the host
 from scanning big shards a devious filter failed to prune.
@@ -71,6 +74,21 @@ def point_lookup_const(node: ScanNode, catalog, settings=None):
     return None
 
 
+def index_probe(executor, node: ScanNode):
+    """point_lookup_const + this session's transaction state: staged
+    overlay rows are invisible to the index, so report ineligible here
+    and the row-ceiling gate counts the shard instead of assuming an
+    indexed answer."""
+    value = point_lookup_const(node, executor.catalog, executor.settings)
+    if value is None:
+        return None
+    store = executor.store
+    if store.overlay is not None and (
+            any(t == node.rel.table for (t, _s) in store.overlay.records)):
+        return None
+    return value
+
+
 def fast_path_shape(plan: QueryPlan, catalog) -> bool:
     """Structural eligibility: Scan/Project/inner+left-Join plans whose
     hash-distributed scans all prune to at most one shard.  Shared by
@@ -100,8 +118,9 @@ def fast_path_shape(plan: QueryPlan, catalog) -> bool:
     return pruned_any
 
 
-def try_execute_fast_path(executor, plan: QueryPlan):
-    """Host-side execution, or None when the plan doesn't qualify."""
+def try_execute_fast_path(executor, plan: QueryPlan, raw: bool = False):
+    """Host-side execution, or None when the plan doesn't qualify.
+    `raw` keeps the result typed (executor._host_combine)."""
     if not executor.settings.get("enable_fast_path_router"):
         return None
     if not fast_path_shape(plan, executor.catalog):
@@ -111,8 +130,7 @@ def try_execute_fast_path(executor, plan: QueryPlan):
     for node in walk_plan(plan.root):
         if not isinstance(node, ScanNode):
             continue
-        if point_lookup_const(node, executor.catalog,
-                              executor.settings) is not None:
+        if index_probe(executor, node) is not None:
             continue  # answered by the point index: O(matches), not O(shard)
         meta = executor.catalog.table(node.rel.table)
         shards = executor.catalog.table_shards(node.rel.table)
@@ -131,7 +149,7 @@ def try_execute_fast_path(executor, plan: QueryPlan):
     for cid, arr in cols.items():
         if cid not in nulls:
             nulls[cid] = np.zeros(arr.shape[0], dtype=bool)
-    result = executor._host_combine(plan, cols, nulls, valid)
+    result = executor._host_combine(plan, cols, nulls, valid, raw)
     result.fast_path = True
     result.device_rows_scanned = 0
     return result
@@ -169,7 +187,7 @@ def _scan_host(executor, node: ScanNode):
         wanted = [shards[0]]
     colnames = [cid.split(".", 1)[1] for cid in node.columns]
 
-    value = point_lookup_const(node, executor.catalog, executor.settings)
+    value = index_probe(executor, node)
     if value is not None and len(wanted) == 1:
         hits = pkindex.lookup(store, node.rel.table, wanted[0].shard_id,
                               meta.distribution_column, value)

@@ -137,15 +137,26 @@ def make_chunk_filter(filter_expr, storage_name=None):
     return chunk_filter
 
 
+def _overlay_touches(store: TableStore, table: str) -> bool:
+    """Whether the open transaction staged stripes or deletes for
+    `table`: its reads then bypass the feed cache and the pipelined scan
+    (session-private visibility that changes mid-transaction)."""
+    ov = store.overlay
+    if ov is None:
+        return False
+    return (any(t == table for t, _ in ov.records)
+            or any(t == table for t, _, _ in ov.deletes))
+
+
 def _feed_scan_cached(node: ScanNode, catalog: Catalog, store: TableStore,
                       device, n_dev: int, compute_dtype, cache, accountant,
                       stats) -> FeedSpec:
     """Device-feed cache wrapper keyed on (table, data version, columns,
     pruning, placement, skip filter) — see executor/cache.py.  Eager and
     pipelined feeds share the key: both hold the same rows in the same
-    places."""
+    places.  Open-transaction overlays bypass the cache."""
     table = node.rel.table
-    if cache is None:
+    if cache is None or _overlay_touches(store, table):
         return _feed_scan(node, catalog, store, device, n_dev, compute_dtype,
                           accountant, "feed", stats)
     shards = catalog.table_shards(table)

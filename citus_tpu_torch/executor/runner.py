@@ -6,7 +6,9 @@ cached PlanCompiler, retries with grown capacities when a stage
 overflowed (or on the general paths when statistics proved stale),
 tightens over-sized buffers once from the recorded stage actuals
 (`_tighten_caps`), and finishes on the host: HAVING, the select list,
-dictionary decode, ORDER BY, OFFSET/LIMIT (`_host_combine`).
+dictionary decode, ORDER BY, OFFSET/LIMIT (`_host_combine`).  Raw mode
+(`execute_plan(plan, raw=True)`, INSERT..SELECT's source) keeps the
+result typed: a NULL mask per column, dictionary codes, day numbers.
 
 A plan the fast-path router takes (executor/fastpath.py: one shard,
 below fast_path_max_rows) answers host-side instead, as in the
@@ -70,6 +72,11 @@ class ResultSet:
     device_rows_in: list[int] | None = None
     # answered host-side by the fast-path router (executor/fastpath.py)
     fast_path: bool = False
+    # raw mode (execute_plan(raw=True), INSERT..SELECT): per-column NULL
+    # masks, STRING columns as dictionary codes with their source
+    # dictionary (table, column), DATE columns as day numbers
+    null_masks: dict[str, np.ndarray] | None = None
+    decode_map: dict[str, tuple[str, str]] | None = None
 
     def rows(self) -> list[tuple]:
         cols = [self.columns[n] for n in self.column_names]
@@ -101,13 +108,13 @@ class Executor:
         self.point_index_lookups = 0
 
     # ------------------------------------------------------------------
-    def execute_plan(self, plan: QueryPlan) -> ResultSet:
+    def execute_plan(self, plan: QueryPlan, raw: bool = False) -> ResultSet:
         for node in walk_plan(plan.root):
             if isinstance(node, ScanNode):
                 self.store.refresh_if_stale(node.rel.table)
         # the reference's single-shard router: below fast_path_max_rows
         # a pruned plan answers host-side by design (on the card too)
-        fast = try_execute_fast_path(self, plan)
+        fast = try_execute_fast_path(self, plan, raw)
         if fast is not None:
             return fast
         compute_dtype = np.dtype(self.settings.get("compute_dtype"))
@@ -130,7 +137,7 @@ class Executor:
         packed, out_meta, caps, retries = self.run_with_retry(
             plan, feeds, caps, fingerprint, compute_dtype)
         cols, nulls, valid = unpack_outputs(packed, out_meta)
-        result = self._host_combine(plan, cols, nulls, valid)
+        result = self._host_combine(plan, cols, nulls, valid, raw)
         result.retries = retries
         result.device_rows_scanned = int(np.asarray(valid).size)
         rows_in = [sum(f.dev_rows[0] for f in feeds.values()
@@ -416,8 +423,8 @@ class Executor:
                           None, bucket_probe, agg_bucket)
 
     # ------------------------------------------------------------------
-    def _host_combine(self, plan: QueryPlan, cols, nulls,
-                      valid) -> ResultSet:
+    def _host_combine(self, plan: QueryPlan, cols, nulls, valid,
+                      raw: bool = False) -> ResultSet:
         valid_np = np.asarray(valid).reshape(-1)
         flat_cols: dict[str, np.ndarray] = {}
         flat_nulls: dict[str, np.ndarray] = {}
@@ -438,6 +445,7 @@ class Executor:
         out_cols: dict[str, object] = {}
         out_nulls: dict[str, np.ndarray] = {}
         out_dtypes: dict[str, DataType] = {}
+        decode_map: dict[str, tuple[str, str]] = {}
         names: list[str] = []
         for e, name in plan.host_select:
             v, nmask = evaluate(e, src, np)
@@ -449,7 +457,12 @@ class Executor:
             out_cols[out_name] = v
             out_nulls[out_name] = nmask
             out_dtypes[out_name] = e.dtype
-            if isinstance(e, ir.BCol) and e.cid in plan.decode:
+            # raw mode keeps codes / day numbers typed so bulk consumers
+            # (INSERT..SELECT) skip the decode → re-encode round trip
+            if raw:
+                if isinstance(e, ir.BCol) and e.cid in plan.decode:
+                    decode_map[out_name] = plan.decode[e.cid]
+            elif isinstance(e, ir.BCol) and e.cid in plan.decode:
                 d = resolve_decode(self.store, plan.decode[e.cid])
                 out_cols[out_name] = _decode_strings(d, v, nmask)
             elif e.dtype == DataType.DATE:
@@ -491,6 +504,9 @@ class Executor:
                 out_cols[c] = out_cols[c][lo:hi]
                 out_nulls[c] = out_nulls[c][lo:hi]
         final_n = max(0, hi - lo)
+        if raw:
+            return ResultSet(names, out_cols, final_n, dtypes=out_dtypes,
+                             null_masks=out_nulls, decode_map=decode_map)
         # surface NULLs as None in object columns
         for c in names:
             if out_nulls[c].any():

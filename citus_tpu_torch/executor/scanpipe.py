@@ -205,11 +205,16 @@ def maybe_pipelined_feed(node, catalog, store, device, compute_dtype,
                          accountant, category: str, stats):
     """Build `node`'s feed through the pipelined path, or return None
     (caller proceeds on the eager path): scan_pipeline off / too small
-    under 'auto' / the pipeline shed itself after a prefetch OOM."""
+    under 'auto' / open-transaction overlay on the table / the pipeline
+    shed itself after a prefetch OOM."""
+    from .feed import _overlay_touches
+
     settings = store.settings
     mode = resolve_scan_mode(settings, device)
     if mode == "off":
         return None
+    if _overlay_touches(store, node.rel.table):
+        return None  # session-private visibility: eager reads it exactly
     if settings.get("scan_pipeline") == "auto" and \
             store.table_row_count(node.rel.table) < AUTO_MIN_ROWS:
         return None
@@ -305,10 +310,10 @@ class _ScanPipeline:
         sid, rec = self.tasks[ti]
         lay = self.layout[ti]
         storage = self.storage_of[cname]
-        # the stripe's on-disk deletion bitmap: the port has no
-        # transaction overlay to OR in, and reads the primary copy only
+        # the stripe's deletion bitmap (an overlay never reaches here:
+        # such tables take the eager path); reads the primary copy only
         # (a CorruptStripe propagates as a clean error)
-        dmask = (self.store.load_delete_mask(self.table, sid, rec)
+        dmask = (self.store.effective_delete_mask(self.table, sid, rec)
                  if first else None)
 
         reader = self._reader(self._path(ti))
@@ -402,7 +407,8 @@ class _ScanPipeline:
                                                    first=True)
                 pieces.append((v, m, n))
             else:
-                dmask = self.store.load_delete_mask(self.table, sid, rec)
+                dmask = self.store.effective_delete_mask(self.table, sid,
+                                                         rec)
                 n = self._reader(self._path(ti)).row_count
                 if dmask is not None and dmask.any():
                     n = int((~dmask).sum())

@@ -23,13 +23,26 @@ every EXECUTE shares one cached PlanCompiler.  EXPLAIN renders the plan
 (planner/explain.py).  DDL: CREATE/DROP VIEW and SEQUENCE, ALTER TABLE
 ADD/DROP/RENAME COLUMN, DROP TABLE; the catalog UDFs of `_try_udf`.
 
-Not in this port yet: DML beyond ingest, transactions, EXPLAIN
-ANALYZE, the UDFs of unported modules (`_UNPORTED_UDFS`), serving, WLM,
-replication, CDC, tracing, streaming and the OOM ladder.
+Writes: INSERT … VALUES (with nextval), INSERT … SELECT
+(executor/insert_select.py; set operations as the source too), COPY …
+FROM (ingest/copy_from.py), UPDATE / DELETE (WHERE subqueries planned
+recursively first) and MERGE (executor/dml.py).  Each runs in
+autocommit or inside BEGIN … COMMIT/ROLLBACK (transaction/manager.py):
+an open transaction's writes stage into the store's overlay, which this
+session's reads see; COMMIT is the 2PC dance of the JAX package's
+commit log, and opening a data_dir recovers interrupted commits before
+any read.  DML holds (table, shard) locks with deadlock detection
+(transaction/locks.py) and journals to the change feed (cdc/feed.py).
+
+Not in this port yet: the statement retry envelope with its statement
+timeout (`_UNPORTED_SETTINGS`), EXPLAIN ANALYZE, the UDFs of unported
+modules (`_UNPORTED_UDFS`), serving, WLM, replication, tracing and the
+stats counters, streaming and the OOM ladder.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import os
@@ -59,6 +72,8 @@ from .planner.plan import DistributedPlanner, QueryPlan, StatsProvider
 from .runtime import resolve_device
 from .sql import ast, parse
 from .storage import TableStore
+from .transaction.locks import lock_manager_for
+from .transaction.manager import TransactionManager
 from .types import (
     ColumnDef,
     DataType,
@@ -72,7 +87,8 @@ from .types import (
 _UDFS = ("create_distributed_table", "create_reference_table",
          "citus_add_node", "citus_remove_node", "citus_disable_node",
          "citus_activate_node", "nextval", "currval",
-         "citus_tables", "citus_shards")
+         "citus_tables", "citus_shards", "citus_change_feed",
+         "citus_get_node_clock")
 
 # the JAX package's other UDFs, by the ROADMAP queue A item that brings
 # their module: each raises UnsupportedQueryError naming it
@@ -97,13 +113,18 @@ _UNPORTED_UDFS = {
          "citus_create_restore_point", "citus_check_cluster"),
         "queue A item 10 (operations/ and background/ jobs)"),
     **dict.fromkeys(
-        ("citus_change_feed", "citus_get_node_clock"),
-        "queue A item 6 (transaction/ and cdc/)"),
-    **dict.fromkeys(
         ("citus_stat_wlm", "citus_stat_serving", "citus_stat_replication",
          "citus_replication_ship", "citus_promote_replica"),
         "queue A item 11 (serving/, wlm/ and replication/)"),
 }
+
+
+# the JAX package's settings whose module is not ported: SET refuses
+# each, naming the ROADMAP queue A item that brings it
+_UNPORTED_SETTINGS = dict.fromkeys(
+    ("statement_timeout_ms", "max_statement_retries",
+     "retry_backoff_base_ms", "retry_backoff_max_ms"),
+    "queue A item 13 (the statement retry envelope)")
 
 
 class _StoreStats(StatsProvider):
@@ -172,16 +193,49 @@ class Session:
         # planned (subplans substitute them, the outer plan keeps $n)
         self._prepared: dict[str, ast.Statement] = {}
         self._params_tls = threading.local()
+        # transaction coordinator + the data_dir's shared lock table;
+        # interrupted 2PC commits (this package's or the JAX package's)
+        # roll forward/back NOW, before any read
+        # (transaction/transaction_recovery.c)
+        self.txn_manager = TransactionManager(self.store, self.data_dir)
+        self.locks = lock_manager_for(self.data_dir)
+        self.txn_manager.recover()
+        # Session.cancel() → the executing statement's next seam raises
+        self._cancel_evt = threading.Event()
 
     # ------------------------------------------------------------------
     def execute(self, sql: str):
         """Run a SQL script; returns the last statement's ResultSet/None."""
-        self.catalog.maybe_reload(os.path.join(self.data_dir,
-                                               "catalog.json"))
+        from .utils.cancellation import deadline_scope
+
+        # adopt another session's committed DDL; never mid-transaction
+        # (the open transaction pinned its snapshot)
+        if self.txn_manager.current is None:
+            self.catalog.maybe_reload(os.path.join(self.data_dir,
+                                                   "catalog.json"))
+        self._cancel_evt.clear()  # a fresh script clears stale cancels
         result = None
         for stmt in parse(sql):
-            result = self._execute_statement(stmt)
+            with deadline_scope(self._cancel_evt):
+                result = self._execute_statement(stmt)
         return result
+
+    def cancel(self) -> None:
+        """Cancel the statement running on this session (another thread
+        calls this): it raises QueryCanceled at its next seam."""
+        self._cancel_evt.set()
+
+    def change_events(self, table: str | None = None,
+                      from_lsn: int = 0) -> list[dict]:
+        """Committed logical changes with lsn > from_lsn (the change-feed
+        subscription read)."""
+        return self.store.change_log.read(table, from_lsn)
+
+    def change_rows(self, event: dict):
+        """Materialize one event's row payload: (values, validity)."""
+        from .cdc.feed import rows_for
+
+        return rows_for(self.store, event)
 
     def _execute_statement(self, stmt: ast.Statement):
         if isinstance(stmt, ast.Select):
@@ -225,6 +279,18 @@ class Session:
             return self._execute_alter_table(stmt)
         if isinstance(stmt, ast.DropTable):
             return self._execute_drop_table(stmt)
+        if isinstance(stmt, ast.InsertValues):
+            return self._execute_insert_values(stmt)
+        if isinstance(stmt, ast.InsertSelect):
+            return self._execute_insert_select(stmt)
+        if isinstance(stmt, (ast.Update, ast.Delete, ast.Merge)):
+            return self._execute_dml(stmt)
+        if isinstance(stmt, ast.CopyFrom):
+            from .ingest.copy_from import copy_from
+
+            return copy_from(self, stmt)
+        if isinstance(stmt, ast.TransactionStmt):
+            return self._execute_transaction_stmt(stmt)
         if isinstance(stmt, ast.Explain):
             return self._execute_explain(stmt)
         if isinstance(stmt, ast.Prepare):
@@ -243,6 +309,10 @@ class Session:
                     f"prepared statement {stmt.name!r} does not exist")
             return None
         if isinstance(stmt, ast.SetVariable):
+            if stmt.name in _UNPORTED_SETTINGS:
+                raise UnsupportedQueryError(
+                    f"{stmt.name} is not in this port yet: it comes with "
+                    f"{_UNPORTED_SETTINGS[stmt.name]}")
             self.settings.set(stmt.name, stmt.value)
             return None
         if isinstance(stmt, ast.ShowVariable):
@@ -299,6 +369,22 @@ class Session:
         elif e.name == "currval":
             v = self.catalog.sequence_currval(str(args[0]))
             return ResultSet(["currval"], {"currval": [v]}, 1)
+        elif e.name == "citus_get_node_clock":
+            from .transaction.clock import global_clock
+
+            return ResultSet(["clock"], {"clock": [global_clock.now()]}, 1)
+        elif e.name == "citus_change_feed":
+            table = str(args[0]) if args else None
+            from_lsn = int(args[1]) if len(args) > 1 else 0
+            events = self.change_events(table, from_lsn)
+            return ResultSet(
+                ["lsn", "kind", "shard_id", "file", "rows"],
+                {"lsn": [ev["lsn"] for ev in events],
+                 "kind": [ev["kind"] for ev in events],
+                 "shard_id": [ev["shard_id"] for ev in events],
+                 "file": [ev["file"] for ev in events],
+                 "rows": [ev.get("rows", ev.get("count", 0))
+                          for ev in events]}, len(events))
         elif e.name == "citus_tables":
             names = sorted(self.catalog.tables)
             kinds, dcols, colo, sizes, shards = [], [], [], [], []
@@ -465,6 +551,171 @@ class Session:
         self.executor.feed_cache.invalidate_table(stmt.name)
         self._save_catalog()
         return None
+
+    # -- transactions and DML -------------------------------------------
+    def _execute_transaction_stmt(self, stmt: ast.TransactionStmt):
+        if stmt.kind == "begin":
+            self.txn_manager.begin()
+            return None
+        txn = self.txn_manager.current
+        txid = txn.txid if txn is not None else None
+        try:
+            if stmt.kind == "commit":
+                self.txn_manager.commit()
+            else:
+                self.txn_manager.rollback()
+        finally:
+            if txid is not None:
+                self.locks.release_all(txid)
+        return None
+
+    def _apply_dml(self, table: str, deletes, pending) -> None:
+        """Route a DML effect set: stage into the open transaction
+        (visible via the read overlay, durable at COMMIT) or apply
+        immediately in autocommit (one manifest flip, which bumps the
+        table's data version: the feed cache misses from then on)."""
+        txn = self.txn_manager.current
+        if txn is not None:
+            txn.stage_dml(table, deletes, list(pending))
+        else:
+            self.store.apply_dml(table, deletes, list(pending))
+
+    @contextlib.contextmanager
+    def _dml_locks(self, table: str, shards_fn):
+        """Exclusive (table, shard) locks around a DML read-modify-apply
+        window (AcquireExecutorShardLocksForExecution analogue,
+        executor/distributed_execution_locks.c).  Transaction locks are
+        held to COMMIT/ROLLBACK (2PL); autocommit locks release at
+        statement end.  The deadlock victim's transaction rolls back,
+        like the reference canceling the youngest backend.
+
+        `shards_fn` re-derives the target shard list from the current
+        catalog: the loop adopts the on-disk catalog after acquiring and
+        re-derives until stable (a shard split committed while we
+        waited).  Yields the stable shard list."""
+        from .transaction.clock import global_clock
+        from .transaction.locks import DeadlockDetectedError
+
+        txn = self.txn_manager.current
+        txid = txn.txid if txn is not None else global_clock.now()
+        try:
+            while True:
+                version = self.catalog.version
+                shards = shards_fn()
+                for sid in sorted(s.shard_id for s in shards):
+                    self.locks.acquire(txid, (table, sid))
+                self.catalog.maybe_reload(
+                    os.path.join(self.data_dir, "catalog.json"))
+                if self.catalog.version == version:
+                    break
+            # see the latest committed state from sessions sharing this
+            # data_dir (the manifest cache may predate the lock wait)
+            self.store.refresh(table)
+            yield shards
+        except DeadlockDetectedError:
+            if txn is not None and self.txn_manager.current is txn:
+                self.txn_manager.rollback()
+                self.locks.release_all(txid)
+            raise
+        finally:
+            if txn is None:
+                self.locks.release_all(txid)
+
+    def _execute_insert_values(self, stmt: ast.InsertValues):
+        from .ingest.copy_from import insert_rows
+
+        meta = self.catalog.table(stmt.table)
+        columns = stmt.columns or tuple(meta.schema.names)
+
+        def is_nextval(e):
+            return (isinstance(e, ast.FuncCall) and e.name == "nextval"
+                    and len(e.args) == 1
+                    and isinstance(e.args[0], ast.Literal))
+
+        # sequence values: allocate each sequence's whole range in ONE
+        # catalog bump (commands/sequence.c's per-node range allocation)
+        seq_counts: dict[str, int] = {}
+        for row in stmt.rows:
+            for e in row:
+                if is_nextval(e):
+                    name = str(e.args[0].value)
+                    seq_counts[name] = seq_counts.get(name, 0) + 1
+        seq_iters: dict[str, object] = {}
+        if seq_counts:
+            for name, cnt in seq_counts.items():
+                first, step = self.catalog.sequence_nextval(name, cnt)
+                seq_iters[name] = iter(
+                    range(first, first + step * cnt, step))
+            self._save_catalog()
+
+        rows = []
+        for row in stmt.rows:
+            if len(row) != len(columns):
+                raise PlanningError("INSERT row arity mismatch")
+            values = []
+            for e in row:
+                if is_nextval(e):
+                    values.append(next(seq_iters[str(e.args[0].value)]))
+                    continue
+                if not isinstance(e, ast.Literal):
+                    raise PlanningError("INSERT values must be literals")
+                if e.type_hint == "date":
+                    values.append(date_to_days(str(e.value)))
+                else:
+                    values.append(e.value)
+            rows.append(values)
+        return insert_rows(self, stmt.table, list(columns), rows)
+
+    def _execute_insert_select(self, stmt: ast.InsertSelect):
+        """Array-path INSERT..SELECT (colocated / host-routed repartition
+        modes, executor/insert_select.py); falls back to the row-based
+        pull-to-coordinator mode only for shapes the raw path refuses,
+        as the reference does."""
+        from .executor.insert_select import execute_insert_select
+
+        if isinstance(stmt.query, ast.SetOp):
+            # compound source: materialise the set operation, then insert
+            # from the temp (recursive-planning route)
+            cleanup: list[str] = []
+            try:
+                sel = self._setop_select(stmt.query, cleanup, {})
+                return self._execute_insert_select(
+                    dc_replace(stmt, query=sel))
+            finally:
+                for t in cleanup:
+                    self._drop_temp(t)
+        try:
+            result, _mode = execute_insert_select(self, stmt)
+            return result
+        except (PlanningError, UnsupportedQueryError):
+            from .ingest.copy_from import insert_rows
+
+            result = self._execute_select(stmt.query)
+            meta = self.catalog.table(stmt.table)
+            columns = list(stmt.columns or meta.schema.names)
+            rows = [list(r) for r in result.rows()]
+            return insert_rows(self, stmt.table, columns, rows)
+
+    def _execute_dml(self, stmt):
+        """UPDATE / DELETE / MERGE — router-planned modify commands
+        (CreateModifyPlan / merge_planner analogues).  Subqueries in the
+        WHERE clause go through recursive planning first, like SELECT."""
+        from .executor.dml import execute_delete, execute_merge, execute_update
+
+        cleanup: list[str] = []
+        try:
+            if isinstance(stmt, (ast.Update, ast.Delete)) and \
+                    stmt.where is not None:
+                stmt = dc_replace(stmt, where=self._rewrite_expr(
+                    stmt.where, cleanup, {}))
+            if isinstance(stmt, ast.Update):
+                return execute_update(self, stmt)
+            if isinstance(stmt, ast.Delete):
+                return execute_delete(self, stmt)
+            return execute_merge(self, stmt)
+        finally:
+            for t in cleanup:
+                self._drop_temp(t)
 
     def _execute_select(self, sel: ast.Select,
                         params: tuple = ()) -> ResultSet:

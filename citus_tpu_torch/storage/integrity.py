@@ -1,9 +1,10 @@
-"""Deletion-bitmap framing: the reader of the JAX package's masks.
+"""Deletion-bitmap framing: the writer and reader of delete masks.
 
-A copy of the part of citus_tpu/storage/integrity.py the port reads.
-Deletion bitmaps written by the JAX package's DML carry magic + CRC32 in
-front of a serialized ``.npy`` (a rotted byte would silently resurrect
-deleted rows), and the port's scans apply them.
+A copy of the mask part of citus_tpu/storage/integrity.py.  Deletion
+bitmaps (committed ones under the shard dirs, staged ones in the 2PC
+log) carry magic + CRC32 in front of a serialized ``.npy`` (a rotted
+byte would silently resurrect deleted rows), byte for byte as the JAX
+package writes them.
 """
 
 from __future__ import annotations
@@ -16,6 +17,22 @@ import numpy as np
 from ..errors import CorruptStripe
 
 _MASK_MAGIC = b"CMK1"
+
+
+def frame_mask(npy: bytes) -> bytes:
+    """Wrap a serialized ``.npy`` deletion bitmap with magic + CRC32."""
+    return _MASK_MAGIC + zlib.crc32(npy).to_bytes(4, "little") + npy
+
+
+def write_mask(path: str, mask) -> None:
+    """Serialize + frame + atomically persist one deletion bitmap: the
+    single writer of committed (table_store) and staged (2PC log)
+    masks."""
+    from ..utils import io as dio
+
+    buf = pyio.BytesIO()
+    np.save(buf, mask)
+    dio.atomic_write_bytes(path, frame_mask(buf.getvalue()))
 
 
 def read_mask(path: str):

@@ -18,9 +18,12 @@ Layout (``shard_dir/PKIDX_<col>.npz``, atomic-rename writes):
              the index stale and it rebuilds lazily on next use
 
 Deletion bitmaps don't invalidate the index: positions are physical,
-and the lookup re-applies the CURRENT delete mask.  The port has no
-transaction overlay yet, so every lookup may use the index; it reads
-the primary stripe copy (no replica read-repair).
+and the lookup re-applies the CURRENT delete mask, the open
+transaction's staged one included (effective_delete_mask).  Rows staged
+by an open transaction are not in the index, so the fast path never
+asks it while the overlay holds records for the table
+(executor/fastpath.index_probe) and scans the shard instead.  Reads
+come from the primary stripe copy (no replica read-repair).
 """
 
 from __future__ import annotations
@@ -152,7 +155,7 @@ def read_rows(store, table: str, shard_id: int, columns: list[str],
     n = 0
     for fname in sorted(by_stripe,
                         key=lambda f: manifest_order.get(f, 1 << 30)):
-        dmask = store.load_delete_mask(table, shard_id, rec_of[fname])
+        dmask = store.effective_delete_mask(table, shard_id, rec_of[fname])
         live = [p for p in by_stripe[fname]
                 if dmask is None or not bool(dmask[p])]
         if not live:

@@ -357,3 +357,42 @@ def test_device_scan_matches_cpu_session(tmp_path, cuda, rng):
     assert hk.LAUNCHES["bit_unpack"] > 0 and hk.LAUNCHES["dict_decode"] > 0
     assert gpu.executor.scan_stats.snapshot()["feeds_pipelined"] > 0
     assert gpu.executor.accountant.live_bytes("prefetch") == 0
+
+
+def test_gpu_update_matches_cpu_session(tmp_path, cuda):
+    """UPDATEs through a GPU session (a value and a NULL), then the
+    read-back on the card in scan_pipeline=device, equal to the port's
+    CPU session on the same data_dir.  The UPDATE arithmetic runs on the
+    host in float64 in both, so the stored values are the same; the
+    read-back sums are float32 on the card."""
+    import citus_tpu_torch
+    from citus_tpu_torch.ingest import tpch
+
+    data_dir = str(tmp_path / "d")
+    cpu = citus_tpu_torch.connect(data_dir, device="cpu",
+                                  scan_pipeline="off")
+    tpch.load_into_session(cpu, sf=0.01, seed=7, tables={"orders"})
+    want_n = [cpu.execute(q).rows()[0][0] for q in (
+        "select count(*) from orders where o_orderdate < date '1994-01-01'",
+        "select count(*) from orders where o_custkey < 100")]
+    gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device")
+    got_n = [gpu.execute(
+        "update orders set o_totalprice = o_totalprice * 1.1 "
+        "where o_orderdate < date '1994-01-01'").rows()[0][0],
+        gpu.execute("update orders set o_totalprice = null "
+                    "where o_custkey < 100").rows()[0][0]]
+    assert got_n == want_n
+    hk.reset_launch_counts()
+    q = ("select o_orderpriority, count(*), count(o_totalprice), "
+         "sum(o_totalprice) from orders group by o_orderpriority")
+    got = sorted(gpu.execute(q).rows(), key=repr)
+    cpu2 = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   scan_pipeline="off")
+    want = sorted(cpu2.execute(q).rows(), key=repr)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g[:3] == w[:3]
+        assert abs(float(g[3]) - float(w[3])) <= 1e-4 * abs(float(w[3]))
+    assert hk.LAUNCHES["bit_unpack"] > 0
+    assert hk.LAUNCHES["dense_grid_sum"] > 0
+
