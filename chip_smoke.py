@@ -85,14 +85,34 @@ Phases, each fatal on failure (no result line is printed then):
     bypassed) and rolled back, then three INSERTs and an UPDATE
     committed; M1 a MERGE from a 20,000-row reference table, half of it
     matching; C1 a 100,000-row CSV copied in; R1 a COMMIT killed at the
-    port's `txn.apply` fault point, recovered by the next session, and
-    the change feed in LSN order.  Every affected count, mode and
-    read-back (count(*), count(o_totalprice) and sum(o_totalprice) by
-    o_orderpriority: K1, and K4 once NULLs exist) is held against numpy
-    replaying the same writes on its own copy.  Fails on any mismatch
-    or when K1, K3, K4 or K5 never launches in the phase;
-11. print the kernels line (with each kernel's launches in phases 8,
-    9 and 10), then the device line last.
+    port's `txn.apply` fault point in a session without statement
+    retries (max_statement_retries = 0), recovered by the next session,
+    and the change feed in LSN order; R2 the same kill under the default
+    retries, resolved inside the session by its commit record.  Every
+    affected count, mode and read-back (count(*), count(o_totalprice)
+    and sum(o_totalprice) by o_orderpriority: K1, and K4 once NULLs
+    exist) is held against numpy replaying the same writes on its own
+    copy.  Fails on any mismatch or when K1, K3, K4 or K5 never
+    launches in the phase;
+11. statements larger than their budget, with every launch count at 0,
+    each step in a fresh cuda session (scan_pipeline=device, float32):
+    S1–S4 Q1, Q3, the GROUP BY and the nullable query under
+    max_feed_bytes_per_device = 64 MiB, each streamed in at least 4
+    batches through one PlanCompiler (first run and best warm walls,
+    batch_cap, batches, launches, the ledger's peak `stream` bytes,
+    max_memory_allocated; K1 once per batch on S1 and S4, K3 at least
+    once per batch on S3, K2 on S2 where the per-batch plan keeps the
+    bucketed probe); L1 Q3 with the caching allocator capped at 40% of
+    its resident peak, answered by the OOM ladder after a real CUDA
+    OOM; L2 orders ⋈ lineitem under a simulated budget below the orders
+    side, answered in multi-pass (multipass_k ≥ 2); L3 the same with
+    oom_degradation off, a clean ResourceExhausted, then Q1; T1 a
+    statement timeout and T2 a cross-thread cancel at a stream batch
+    boundary.  Every answer against numpy; fails when a step does not
+    stream, a kernel misses its launches, or the ledger's stream, feed,
+    plan or prefetch bytes or a producer thread outlive a step;
+12. print the kernels line (with each kernel's launches in phases 8,
+    9, 10 and 11), then the device line last.
 
 Exits non-zero without a result when no GPU is visible or the port's
 package is not next to this script.  Imports nothing of JAX.
@@ -1657,6 +1677,9 @@ def phase10(ct, hk, data_dir, data, reps, ident) -> dict:
     lsn0 = int(sess.store.change_log.last_lsn())
 
     def run_r1(sess):
+        # crash semantics: no statement retry envelope, so the COMMIT
+        # raises and the next session's recovery at open resolves it
+        sess.execute("set max_statement_retries = 0")
         m = model.alive & (model.prio == "2-HIGH") & model.valid
         sess.execute("begin")
         got = int(sess.execute(
@@ -1696,6 +1719,29 @@ def phase10(ct, hk, data_dir, data, reps, ident) -> dict:
     log(f"phase10 change feed: {len(lsns)} events on orders_w, "
         f"{len(events)} from the recovered commit")
 
+    # R2: the same COMMIT killed at txn.apply under the default statement
+    # retries: the envelope resolves it by its commit record inside the
+    # session, and the COMMIT returns
+    def run_r2(sess):
+        m = model.alive & (model.prio == "3-MEDIUM") & model.valid
+        sess.execute("begin")
+        got = int(sess.execute(
+            "update orders_w set o_totalprice = o_totalprice * 2 "
+            "where o_orderpriority = '3-MEDIUM' and o_totalprice is not null"
+        ).rows()[0][0])
+        expect("R2 update count", got, int(m.sum()))
+        try:
+            with inject("txn.apply", require_fired=True):
+                sess.execute("commit")
+        except InjectedFault:
+            failures.append("R2 commit raised: not resolved in the session")
+        model.price[m] = model.price[m] * 2
+        expect("R2 txnlog empty",
+               os.listdir(os.path.join(data_dir, "txnlog")), [])
+        return got, "killed at txn.apply, resolved in the session"
+
+    step("R2", run_r2, lambda sess: check_read_back("R2", sess))
+
     for t in ("orders_w", "orders_by_cust", "li_agg"):
         recovered.execute(f"drop table {t}")
     launched = dict(hk.LAUNCHES)
@@ -1705,6 +1751,321 @@ def phase10(ct, hk, data_dir, data, reps, ident) -> dict:
             failures.append(f"{name} never launched")
     if failures:
         raise AssertionError(f"phase 10: {failures}")
+    return launched
+
+
+# -- phase 11: statements larger than their budget --------------------------
+
+STREAM_FEED_BYTES = 64 << 20  # S1–S4, T1, T2: max_feed_bytes_per_device
+# S-step → (the phase 4 query it runs, the kernel it must launch per batch)
+STREAM_STEPS = (("S1", "Q1", "dense_grid_sum"),
+                ("S2", "Q3", "bucketed_probe"),
+                ("S3", "high_card_groupby", "bucketed_groupby_sums"),
+                ("S4", "nullable", "dense_grid_sum"))
+L1_FRACTION = 0.4  # L1: allocator cap, share of resident Q3's peak
+L2_SQL = ("select count(*), sum(l_extendedprice) from orders, lineitem "
+          "where o_orderkey = l_orderkey")
+L2_BATCH_ROWS = 1 << 18  # L2's stream_batch_rows (before the ladder's shrink)
+LEDGER_TRANSIENT = ("stream", "feed", "plan", "prefetch")
+
+
+def phase11(ct, hk, data_dir, data, queries, checks, want, reps,
+            ident) -> dict:
+    """Phase 11.  Returns each kernel's launches over the phase."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from citus_tpu_torch.errors import (
+        QueryCanceled, ResourceExhausted, StatementTimeout)
+    from citus_tpu_torch.executor.hbm import accountant_for, oom_budget
+    from citus_tpu_torch.executor.stream import pick_stream_node
+    from citus_tpu_torch.sql import parse
+
+    t_phase = time.perf_counter()
+    failures: list = []
+    acc = accountant_for(data_dir)
+    dev = torch.device("cuda", 0)
+    hk.reset_launch_counts()
+
+    def connect(**kw):
+        return ct.connect(data_dir, scan_pipeline="device",
+                          compute_dtype="float32", **kw)
+
+    def ledger_clean(where):
+        gc.collect()
+        torch.cuda.synchronize()
+        snap = acc.snapshot()
+        left = {c: snap[f"live_{c}_bytes"] for c in LEDGER_TRANSIENT
+                if snap[f"live_{c}_bytes"]}
+        if left:
+            failures.append(f"{where}: ledger not back at 0: {left}")
+        producers = [t.name for t in threading.enumerate()
+                     if t.is_alive() and t.name == "citus-stream-producer"]
+        if producers:
+            failures.append(f"{where}: producer threads alive: {producers}")
+        return not left and not producers
+
+    def launched_since(before):
+        return {n: hk.LAUNCHES[n] - before[n] for n in hk.KERNELS}
+
+    # -- S1–S4: streamed under a 64 MiB feed ceiling -----------------------
+    best_warm = {}
+    for step_name, q, kernel in STREAM_STEPS:
+        sess = connect(max_feed_bytes_per_device=STREAM_FEED_BYTES)
+        plan, _cleanup = sess._plan_select(parse(queries[q])[0])
+        hw = acc.budget_bytes(dev, sess.settings)
+        picked = pick_stream_node(
+            plan, sess.catalog, sess.store, np.dtype("float32"),
+            min(STREAM_FEED_BYTES, hw) if hw else STREAM_FEED_BYTES,
+            prefetch_depth=sess.settings.get("scan_prefetch_depth"))
+        stream_table = picked[0].rel.table if picked else None
+        batch_cap = picked[1] if picked else None
+        acc.reset_peaks()
+        torch.cuda.reset_peak_memory_stats()
+        sess.executor.scan_stats.reset()
+        before = dict(hk.LAUNCHES)
+        t0 = time.perf_counter()
+        res = sess.execute(queries[q])
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        first_launches = launched_since(before)
+        producer = sess.executor.scan_stats.snapshot()
+        checks[q](res, want[q])
+        batches, retries = res.streamed_batches, res.retries
+        compilers = sess.executor.plan_cache.misses
+        warm = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = sess.execute(queries[q])
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+            checks[q](res, want[q])
+        best_warm[step_name] = min(warm)
+        snap = acc.snapshot()
+        path = ("bucketed probe" if first_launches["bucketed_probe"]
+                else "fused lookup / expansion") if q == "Q3" else ""
+        log(f"phase11 {step_name} ({q}): stream {stream_table} batch_cap "
+            f"{batch_cap}, {batches} batches, retries {retries}, "
+            f"PlanCompilers {compilers}, first run {first!r} s, warm "
+            f"{warm!r} s (best {min(warm)!r}), the producer's host decode "
+            f"{producer['stream_decode_seconds']!r} s and copy enqueue "
+            f"{producer['stream_transfer_seconds']!r} s and the host merge "
+            f"{producer['stream_merge_seconds']!r} s in the first run, "
+            f"launches in the first run "
+            f"{first_launches}, peak stream bytes {snap['peak_stream_bytes']}"
+            f", ledger peak {snap['peak_bytes']}, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()}"
+            + (f", probe path: {path}" if path else "") + f" ({ident})")
+        if batches < 4:
+            failures.append(f"{step_name}: {batches} batches, not >= 4")
+        if compilers > 1 + retries:
+            failures.append(f"{step_name}: {compilers} PlanCompilers for "
+                            "one streamed statement")
+        k = first_launches[kernel]
+        if kernel == "dense_grid_sum" and k != batches:
+            failures.append(f"{step_name}: K1 launched {k} times over "
+                            f"{batches} batches")
+        if kernel == "bucketed_groupby_sums" and k < batches:
+            failures.append(f"{step_name}: K3 launched {k} times over "
+                            f"{batches} batches")
+        if kernel == "bucketed_probe" and path == "bucketed probe" \
+                and k < batches:
+            failures.append(f"{step_name}: K2 launched {k} times over "
+                            f"{batches} batches")
+        del sess, plan
+        ledger_clean(step_name)
+
+    # -- L1: a real CUDA allocator OOM through the ladder ------------------
+    acc.evict_evictable()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_alloc = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    sess = connect()
+    t0 = time.perf_counter()
+    res = sess.execute(queries["Q3"])
+    torch.cuda.synchronize()
+    resident_wall = time.perf_counter() - t0
+    checks["Q3"](res, want["Q3"])
+    peak = torch.cuda.max_memory_allocated() - base_alloc
+    sess.executor.feed_cache.clear()
+    del sess, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cap = base_reserved + int(L1_FRACTION * peak)
+    try:
+        torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+        sess = connect()
+        ooms = acc.oom_total
+        t0 = time.perf_counter()
+        before = dict(hk.LAUNCHES)
+        try:
+            res = sess.execute(queries["Q3"])
+            torch.cuda.synchronize()
+        except ResourceExhausted as e:
+            failures.append(f"L1: the ladder did not answer: {e}")
+            res = None
+        wall = time.perf_counter() - t0
+        real_ooms = acc.oom_total - ooms
+        if res is not None:
+            checks["Q3"](res, want["Q3"])
+        log(f"phase11 L1: resident Q3 {resident_wall!r} s peaked "
+            f"{peak} bytes above {base_alloc}; allocator capped at {cap} "
+            f"of {total} bytes (after the run: "
+            f"{acc.device_memory_stats(dev)}); CUDA OOMs classified "
+            f"{real_ooms}, rungs "
+            f"{sess.last_oom_rungs}, answer matches numpy "
+            f"{res is not None}, batches "
+            f"{res.streamed_batches if res is not None else None}, passes "
+            f"{res.spill_passes if res is not None else None}, wall "
+            f"{wall!r} s, launches {launched_since(before)} ({ident})")
+        if real_ooms < 1 or not sess.last_oom_rungs:
+            failures.append("L1: no CUDA allocator OOM was classified")
+        del sess, res
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ledger_clean("L1")
+
+    # -- L2: multi-pass under a simulated budget ---------------------------
+    li = data["lineitem"]
+    l2_want = (len(li["l_orderkey"]),
+               float(li["l_extendedprice"].astype(np.float64).sum()))
+    sess = connect(stream_batch_rows=L2_BATCH_ROWS)
+    plan, _cleanup = sess._plan_select(parse(L2_SQL)[0])
+    from citus_tpu_torch.executor.feed import walk_plan
+    from citus_tpu_torch.executor.stream import (
+        _scan_dev_rows, _scan_width_bytes)
+    from citus_tpu_torch.planner.plan import ScanNode
+
+    scans = {n.rel.table: _scan_dev_rows(n, sess.catalog, sess.store)
+             * _scan_width_bytes(n, sess.catalog, np.dtype("float32"))
+             for n in walk_plan(plan.root) if isinstance(n, ScanNode)}
+    # below the orders side's feed, above half of it plus the batches
+    l2_budget = int(scans["orders"] * 0.75)
+    acc.evict_evictable()
+    gc.collect()
+    t0 = time.perf_counter()
+    before = dict(hk.LAUNCHES)
+    with oom_budget(acc, budget=l2_budget) as sim:
+        try:
+            res = sess.execute(L2_SQL)
+        except ResourceExhausted as e:
+            failures.append(f"L2: the ladder did not answer: {e}")
+            res = None
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (None if res is None else
+           (int(res.rows()[0][0]), float(res.rows()[0][1])))
+    ok = got is not None and got[0] == l2_want[0] and \
+        close(got[1], l2_want[1])
+    k = sess.executor.oom.multipass_k
+    log(f"phase11 L2: feeds {scans}, MemSim budget {l2_budget} bytes, "
+        f"OOMs {sim.oom_raised}, rungs {sess.last_oom_rungs}, multipass_k "
+        f"{k}, passes {res.spill_passes if res is not None else None}, "
+        f"batches {res.streamed_batches if res is not None else None}, "
+        f"answer {got} vs numpy {l2_want}: {'match' if ok else 'DIFFER'}, "
+        f"wall {wall!r} s, launches {launched_since(before)} ({ident})")
+    if not ok:
+        failures.append("L2: answer differs from numpy")
+    if k < 2 or res is None or res.spill_passes < 2:
+        failures.append(f"L2: multipass_k {k}, not >= 2")
+    del res, plan
+    ledger_clean("L2")
+
+    # -- L3: the ungoverned arm (a fresh session: L2's ladder state is
+    # sticky on its executor) ----------------------------------------------
+    del sess
+    sess = connect(stream_batch_rows=L2_BATCH_ROWS, oom_degradation=False)
+    raised = None
+    with oom_budget(acc, budget=l2_budget):
+        try:
+            sess.execute(L2_SQL)
+        except Exception as e:  # noqa: BLE001 — classified just below
+            raised = e
+    ok3 = isinstance(raised, ResourceExhausted)
+    res = sess.execute(queries["Q1"])
+    torch.cuda.synchronize()
+    checks["Q1"](res, want["Q1"])
+    clean = ledger_clean("L3")
+    log(f"phase11 L3: oom_degradation=off raised "
+        f"{type(raised).__name__ if raised else None}, the next Q1 matches "
+        f"numpy, ledger back at 0 {clean} ({ident})")
+    if not ok3:
+        failures.append(f"L3: raised {raised!r}, not ResourceExhausted")
+    del sess, res
+
+    # -- T1, T2: the envelope on the card ----------------------------------
+    sess = connect(max_feed_bytes_per_device=STREAM_FEED_BYTES)
+    timeout_ms = max(1, int(best_warm["S1"] * 1000 / 10))
+    sess.execute(f"set statement_timeout_ms = {timeout_ms}")
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        sess.execute(queries["Q1"])
+    except Exception as e:  # noqa: BLE001 — classified just below
+        raised = e
+    dt = time.perf_counter() - t0
+    sess.execute("set statement_timeout_ms = 0")
+    clean = ledger_clean("T1")
+    res = sess.execute(queries["Q1"])
+    checks["Q1"](res, want["Q1"])
+    log(f"phase11 T1: statement_timeout_ms {timeout_ms} raised "
+        f"{type(raised).__name__ if raised else None} after {dt!r} s; "
+        f"producer joined and ledger at 0 {clean}; the next Q1 matches "
+        f"numpy ({ident})")
+    if not isinstance(raised, StatementTimeout):
+        failures.append(f"T1: raised {raised!r}, not StatementTimeout")
+
+    first_done, cancelled = threading.Event(), threading.Event()
+    real = sess.executor.run_with_retry
+    runs = []
+
+    def run_with_retry(*a, **kw):
+        out = real(*a, **kw)
+        runs.append(1)
+        if len(runs) == 1:
+            first_done.set()
+            cancelled.wait(30)
+        return out
+
+    def canceller():
+        first_done.wait(60)
+        sess.cancel()
+        cancelled.set()
+
+    sess.executor.run_with_retry = run_with_retry
+    t = threading.Thread(target=canceller)
+    t.start()
+    raised = None
+    try:
+        sess.execute(queries["high_card_groupby"])
+    except Exception as e:  # noqa: BLE001 — classified just below
+        raised = e
+    t.join()
+    del sess.executor.run_with_retry
+    clean = ledger_clean("T2")
+    res = sess.execute(queries["Q1"])
+    checks["Q1"](res, want["Q1"])
+    log(f"phase11 T2: Session.cancel() after batch 1 raised "
+        f"{type(raised).__name__ if raised else None} after {len(runs)} "
+        f"batch(es); producer joined and ledger at 0 {clean}; the next Q1 "
+        f"matches numpy ({ident})")
+    if not isinstance(raised, QueryCanceled) or \
+            isinstance(raised, StatementTimeout):
+        failures.append(f"T2: raised {raised!r}, not QueryCanceled")
+    del sess, res
+
+    launched = dict(hk.LAUNCHES)
+    log(f"phase11: {time.perf_counter() - t_phase!r} s, launches {launched}")
+    if failures:
+        raise AssertionError(f"phase 11: {failures}")
     return launched
 
 
@@ -1750,6 +2111,7 @@ def main() -> int:
     from citus_tpu_torch.ingest import tpch
     from citus_tpu_torch.ops import hopper_kernels as hk
 
+    t_start = time.perf_counter()
     ident = card_identity()
     log(ident)
     kind = torch.cuda.get_device_name(0)
@@ -1847,11 +2209,17 @@ def main() -> int:
         launched10 = phase10(ct, hk, os.path.join(tmp, "data"), data,
                              args.reps, ident)
         log(f"phase 10: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        launched11 = phase11(ct, hk, os.path.join(tmp, "data"), data,
+                             queries, checks, want, 2, ident)
+        log(f"phase 11: {time.perf_counter() - t0:.3f} s")
         for rep in reports:
             rep["launches_tpch22"] = launched[rep["name"]]
             rep["launches_phase9"] = launched9[rep["name"]]
             rep["launches_phase10"] = launched10[rep["name"]]
+            rep["launches_phase11"] = launched11[rep["name"]]
 
+        log(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s")
         print(json.dumps({"kernels": reports}), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -125,9 +125,81 @@ _register(ConfigVar(
     int, min_value=0, max_value=1 << 40))
 _register(ConfigVar(
     "max_plan_buffer_bytes", 32 << 30,
-    "Ceiling on a plan's largest static device buffer; a plan over it "
-    "is refused before it allocates. 0 disables the guard.",
+    "Ceiling on a plan's largest static device buffer. Plans over it "
+    "whose shape the OOM degradation ladder can help (streamable / "
+    "multi-pass-splittable) degrade instead of erroring; genuinely "
+    "ineligible shapes (windows, cartesian blowups) keep the clean "
+    "immediate reject. 0 disables the guard.",
     int, min_value=0, max_value=1 << 44))
+_register(ConfigVar(
+    "max_feed_bytes_per_device", 6 << 30,
+    "Per-device feed-byte ceiling before the executor streams the largest "
+    "scan in stripe batches (executor/stream.py; the reference's "
+    "per-stripe reader, columnar/columnar_reader.c:323). 0 disables "
+    "streaming.",
+    int, min_value=0, max_value=1 << 40))
+_register(ConfigVar(
+    "stream_batch_rows", 0,
+    "Fixed per-device rows per stream batch (0 = size from the "
+    "max_feed_bytes_per_device budget). Test/tuning knob.",
+    int, min_value=0, max_value=1 << 30))
+_register(ConfigVar(
+    "scan_prefetch_depth", 2,
+    "Bounded depth of the stream path's batch prefetch queue (batches "
+    "in flight between the producer thread and the executing "
+    "statement); the per-batch budget divides by depth + 5, so a "
+    "deeper queue means smaller batches, never more resident bytes.",
+    int, min_value=1, max_value=64))
+
+# --- device-memory governance (executor/hbm.py accountant + the OOM
+# degradation ladder) -------------------------------------------------------
+_register(ConfigVar(
+    "hbm_budget_bytes", 0,
+    "Explicit device byte budget the accountant enforces the "
+    "capacity-regrow guard against and sizes streams by "
+    "(executor/hbm.py). 0 = an armed MemSim budget, else the card's "
+    "total memory. No direct reference GUC — the analogue is the "
+    "work_mem family bounding per-node memory.",
+    int, min_value=0, max_value=1 << 44))
+_register(ConfigVar(
+    "oom_degradation", True,
+    "Route DeviceMemoryExhausted (a CUDA allocator OOM or a simulated "
+    "one) through the degradation ladder — evict caches, shrink stream "
+    "batches, force streaming, multi-pass execution — retrying after "
+    "each rung (executor.Executor.degrade_for_oom). Off surfaces the "
+    "first OOM as a clean ResourceExhausted immediately.",
+    bool))
+_register(ConfigVar(
+    "oom_max_spill_passes", 16,
+    "Ceiling on multi-pass execution's pass count "
+    "(executor/multipass.py); the ladder surfaces a clean "
+    "ResourceExhausted rather than splitting further.",
+    int, min_value=2, max_value=4096))
+
+# --- resilience -----------------------------------------------------------
+_register(ConfigVar(
+    "max_statement_retries", 2,
+    "Bounded per-statement retry loop for transient failures (injected "
+    "faults, storage IO): classify, mark the failing placement suspect, "
+    "run 2PC recovery, back off, re-execute (the adaptive executor's "
+    "task retry onto replica placements, adaptive_executor.c:95-116). "
+    "0 disables.",
+    int, min_value=0, max_value=32))
+_register(ConfigVar(
+    "retry_backoff_base_ms", 5.0,
+    "First retry backoff; doubles per attempt with ±50% jitter.",
+    float, min_value=0.0, max_value=60_000.0))
+_register(ConfigVar(
+    "retry_backoff_max_ms", 200.0,
+    "Backoff ceiling for the statement retry loop.",
+    float, min_value=0.0, max_value=600_000.0))
+_register(ConfigVar(
+    "statement_timeout_ms", 0,
+    "Cooperative per-statement deadline, checked at fault points, "
+    "stream/COPY batch boundaries, multi-pass passes and retry "
+    "iterations. Raises StatementTimeout (PostgreSQL statement_timeout "
+    "analogue). 0 disables.",
+    int, min_value=0, max_value=86_400_000))
 _register(ConfigVar(
     "scan_pipeline", "auto",
     "Columnar scan feed pipeline (executor/scanpipe.py): 'off' = the "

@@ -24,7 +24,12 @@ class CatalogError(CitusTpuError):
 
 
 class StorageError(CitusTpuError):
-    """Columnar storage format or IO error."""
+    """Columnar storage format or IO error.
+
+    When raised from a shard read, carries `table`/`shard_id` attributes
+    so the statement retry loop can mark the failing placement suspect
+    and route the retry onto a surviving replica (the adaptive-executor
+    placement failover, adaptive_executor.c:95-116)."""
 
 
 class CorruptStripe(StorageError):
@@ -63,7 +68,13 @@ class UnsupportedQueryError(PlanningError):
 class QueryCanceled(CitusTpuError):
     """Statement canceled cooperatively (the pg_cancel_backend analogue):
     Session.cancel() sets a flag the executing thread notices at the next
-    seam (a fault point or a COPY batch boundary)."""
+    seam — fault point, stream/COPY batch boundary, retry iteration."""
+
+
+class StatementTimeout(QueryCanceled):
+    """`statement_timeout_ms` deadline passed (PostgreSQL
+    statement_timeout analogue): the whole statement carries one
+    cooperative deadline."""
 
 
 class PlacementLostError(CatalogError):
@@ -76,15 +87,20 @@ class ExecutionError(CitusTpuError):
 
 
 class ResourceExhausted(ExecutionError):
-    """Device memory could not be made to fit: the clean, client-facing
-    error (the reference fails such a query with 53200 out_of_memory)."""
+    """Device memory could not be made to fit even after the OOM
+    degradation ladder (cache eviction → stream-batch shrink → forced
+    streaming → multi-pass execution) ran out of rungs: the clean,
+    client-facing error (the reference fails such a query with 53200
+    out_of_memory)."""
 
 
 class DeviceMemoryExhausted(ResourceExhausted):
-    """A device allocation failed (torch.cuda.OutOfMemoryError, or the
-    accountant's armed MemSim budget).  Raised at the device-placement
-    seam (executor/hbm.py).  The pipelined scan sheds to the eager path
-    on it; elsewhere it surfaces as a clean ResourceExhausted."""
+    """A device allocation failed (torch.OutOfMemoryError, or the
+    accountant's armed MemSim budget or an `error="oom"` fault).  Raised
+    at the placement seam and around a plan's run (executor/hbm.py,
+    executor/runner.py).  The pipelined scan sheds to the eager path on
+    it; the session's retry envelope applies the next rung of the
+    degradation ladder (Executor.degrade_for_oom) and re-runs."""
 
 
 class CapacityOverflowError(ExecutionError):

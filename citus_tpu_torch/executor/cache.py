@@ -18,6 +18,8 @@ queries (executor/adaptive_executor.c:962).  The port's analogues:
   manifest mutation.
 
 Both caches are LRU-bounded (plans by entry count, feeds by device bytes).
+The feed cache is also an evictable of the data_dir's accountant: the
+OOM ladder's first rung evicts it coldest first (`evict_coldest`).
 """
 
 from __future__ import annotations
@@ -249,6 +251,24 @@ class FeedCache:
             for k in stale:
                 self._pop_locked(k)
             self.invalidations += len(stale)
+
+    def evict_coldest(self, target_bytes: int | None = None) -> int:
+        """Evict entries coldest first (LRU order) until `target_bytes`
+        have been freed — everything when None.  The OOM degradation
+        ladder's first rung (executor/hbm.py `evict_evictable`): an
+        entry's tensors, and their ``cache`` charges, are released as
+        soon as no running statement still holds them.  Returns entries
+        evicted."""
+        with self._lock:
+            evicted = 0
+            freed = 0
+            while self._entries and (target_bytes is None
+                                     or freed < target_bytes):
+                key = next(iter(self._entries))
+                freed += self._entries[key].nbytes
+                self._pop_locked(key)
+                evicted += 1
+            return evicted
 
     def clear(self) -> None:
         with self._lock:

@@ -66,17 +66,19 @@ def walk_plan(node: PlanNode):
 
 def build_feeds(plan: QueryPlan, catalog: Catalog, store: TableStore,
                 device, compute_dtype, cache, accountant,
-                stats) -> dict[int, FeedSpec]:
+                stats, no_cache_nodes=frozenset()) -> dict[int, FeedSpec]:
     """One FeedSpec per scan node, placed through `accountant` (the
     data_dir's DeviceMemoryAccountant); `stats` (a ScanPhaseStats)
-    collects the pipelined scans' phase walls."""
+    collects the pipelined scans' phase walls.  Scans in
+    `no_cache_nodes` (a multi-pass pass's split scan) bypass the feed
+    cache."""
     feeds: dict[int, FeedSpec] = {}
     for node in walk_plan(plan.root):
         if isinstance(node, ScanNode):
-            feeds[id(node)] = _feed_scan_cached(node, catalog, store, device,
-                                                plan.n_devices,
-                                                compute_dtype, cache,
-                                                accountant, stats)
+            feeds[id(node)] = _feed_scan_cached(
+                node, catalog, store, device, plan.n_devices, compute_dtype,
+                None if id(node) in no_cache_nodes else cache, accountant,
+                stats)
     return feeds
 
 

@@ -9,29 +9,37 @@ allocator OOM into the classified `DeviceMemoryExhausted`, and hangs a
 the moment the tensor is garbage.  Attach the finalizer to the tensor
 the feed holds — never to a view or to `untyped_storage()` (a new
 Python object on every call): handing a view past the feed would
-release the charge while the memory is still live.
+release the charge while the memory is still live.  A plan's own
+intermediates (join, grid and compaction buffers the compiler allocates
+as it runs) charge through `lease` for the duration of each run, at the
+same worst-buffer estimate the ``max_plan_buffer_bytes`` guard trusts.
 
 `MemSim` arms a simulated byte budget (or a fail-at-allocation-N
 trigger) at the seam, so tests sweep OOMs on hardware that never runs
-out.
+out.  Releases credit the simulated budget too, so the degradation
+ladder's evictions create real headroom under an armed budget.
+
+The OOM degradation ladder (executor/runner.py `degrade_for_oom`) reads
+this ledger: `evict_evictable` is its first rung (every session's
+`FeedCache` on the data_dir registers here, weakly), `budget_bytes` and
+`pressure_bytes` bound the capacity-regrow guard and size streams.
 
 Charge categories:
 
 * ``feed``     — transient statement-scoped table feeds
-* ``cache``    — feed-cache-resident tensors (released on eviction)
+* ``cache``    — feed-cache-resident tensors (released on eviction; not
+                 admission pressure, since the ladder can reclaim them)
+* ``stream``   — in-flight stream / multi-pass batch tensors
 * ``prefetch`` — pipelined-scan buffers placed ahead of consumption
                  (executor/scanpipe.py); graduate to their final
                  category through `recharge` when adopted
+* ``plan``     — the leased buffer estimate of an executing plan
 * ``other``    — anything else routed through the seam
-
-Not in this slice (ROADMAP queue A item 5): `lease` for plan buffers,
-the eviction registry (`evict_evictable`), `resize_mesh`, the
-degradation ladder, and the multi-slice `place_sharded_slices` seam —
-on one device a sharded buffer is one `place`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import weakref
@@ -40,18 +48,23 @@ import numpy as np
 import torch
 
 from ..errors import DeviceMemoryExhausted
+from ..utils.faultinjection import fault_point
 
-CATEGORIES = ("feed", "cache", "prefetch", "other")
+CATEGORIES = ("feed", "cache", "stream", "prefetch", "plan", "other")
 
 # substring MemSim (deliberately, like the XLA allocator in the JAX
 # package) puts in every simulated OOM message
 _OOM_TOKEN = "RESOURCE_EXHAUSTED"
 
+# the CUDA caching allocator's refusal (torch.cuda.OutOfMemoryError is
+# the same class)
+_TORCH_OOM = getattr(torch, "OutOfMemoryError", torch.cuda.OutOfMemoryError)
+
 
 def is_resource_exhausted(exc: BaseException) -> bool:
-    """Does this exception report a device-allocator OOM?"""
-    return isinstance(exc, torch.cuda.OutOfMemoryError) or \
-        _OOM_TOKEN in str(exc)
+    """Does this exception report a device-allocator OOM: the CUDA
+    allocator's `torch.OutOfMemoryError`, or the simulated token?"""
+    return isinstance(exc, _TORCH_OOM) or _OOM_TOKEN in str(exc)
 
 
 class MemSim:
@@ -91,11 +104,16 @@ class DeviceMemoryAccountant:
         self._live: dict[int, tuple[str, int]] = {}
         self._live_total = 0
         self._live_by_cat: dict[str, int] = {c: 0 for c in CATEGORIES}
+        self._peak_by_cat: dict[str, int] = {c: 0 for c in CATEGORIES}
         self.peak_bytes = 0
         self.charges_total = 0
         self.releases_total = 0
         self.oom_total = 0
         self._sim: MemSim | None = None
+        # weak registry of evictable device caches (each session's
+        # FeedCache): the device is shared, so the ladder's eviction
+        # rung reclaims EVERY session's cache-resident bytes
+        self._evictables: list = []
 
     # -- the seam ----------------------------------------------------------
     def place(self, host, device, category: str = "feed") -> torch.Tensor:
@@ -111,8 +129,9 @@ class DeviceMemoryAccountant:
         """`place` returning ``(tensor, charge_handle)`` — the pipelined
         scan places columns under ``prefetch`` while they sit in its
         queue and graduates the charge via `recharge` on adoption."""
-        # fault seam executor.hbm_exhausted: not in this slice (queue A
-        # item 6), citus_tpu/executor/hbm.py:156
+        # named seam: a host→device transfer that dies here must surface
+        # as a classified statement error, never a partially placed feed
+        fault_point("executor.hbm_exhausted")
         t = _host_tensor(host)
         nbytes = t.numel() * t.element_size()
         handle = self._charge(category, nbytes)
@@ -154,6 +173,19 @@ class DeviceMemoryAccountant:
                               tensor.numel() * tensor.element_size())
         weakref.finalize(tensor, self._release, handle)
 
+    @contextlib.contextmanager
+    def lease(self, category: str, nbytes: int):
+        """Charge `nbytes` for the duration of the block — the plan
+        buffer estimate around each run of a PlanCompiler (its
+        intermediates are allocated inside the run, where `place` does
+        not see them; the lease makes them visible to the ledger and
+        to an armed MemSim)."""
+        handle = self._charge(category, max(0, int(nbytes)))
+        try:
+            yield
+        finally:
+            self._release(handle)
+
     # -- ledger ------------------------------------------------------------
     def _charge(self, category: str, nbytes: int) -> int:
         if category not in CATEGORIES:
@@ -183,6 +215,8 @@ class DeviceMemoryAccountant:
             self._live[handle] = (category, nbytes)
             self._live_total += nbytes
             self._live_by_cat[category] += nbytes
+            if self._live_by_cat[category] > self._peak_by_cat[category]:
+                self._peak_by_cat[category] = self._live_by_cat[category]
             self.charges_total += 1
             if self._live_total > self.peak_bytes:
                 self.peak_bytes = self._live_total
@@ -202,22 +236,64 @@ class DeviceMemoryAccountant:
         with self._mu:
             self.oom_total += 1
 
+    def note_oom(self) -> None:
+        """Fold an allocator OOM observed outside place()/lease() (an
+        allocation inside a plan's run) into the totals."""
+        self._count_oom()
+
     # -- reads -------------------------------------------------------------
     def live_bytes(self, category: str | None = None) -> int:
         with self._mu:
             return (self._live_total if category is None
                     else self._live_by_cat.get(category, 0))
 
-    def budget_bytes(self, device=None) -> int:
-        """The byte ceiling of the device: an armed MemSim budget, else
+    def transient_bytes(self) -> int:
+        """Live bytes that should return to zero between statements —
+        everything but the deliberately resident feed cache.  The OOM
+        tests assert this is 0 after every statement (no leaks)."""
+        with self._mu:
+            return self._live_total - self._live_by_cat["cache"]
+
+    def pressure_bytes(self) -> int:
+        """Live bytes that constrain a new allocation: cache bytes are
+        left out because the ladder's first rung reclaims them."""
+        return self.transient_bytes()
+
+    def budget_bytes(self, device=None, settings=None) -> int:
+        """The device byte ceiling the accountant enforces against: an
+        armed MemSim budget, else the `hbm_budget_bytes` setting, else
         the CUDA device's total memory.  0 = unknown (a CPU device)."""
         with self._mu:
             if self._sim is not None and self._sim.budget is not None:
                 return self._sim.budget
+        if settings is not None:
+            cfg = settings.get("hbm_budget_bytes")
+            if cfg:
+                return int(cfg)
         if device is not None and torch.device(device).type == "cuda":
             return int(torch.cuda.get_device_properties(
                 torch.device(device)).total_memory)
         return 0
+
+    @staticmethod
+    def device_memory_stats(device=None) -> list[dict]:
+        """The CUDA allocator's own view of the device (empty on the
+        CPU): what the ledger is cross-checked against.  The caching
+        allocator's reserve (`bytes_reserved` − `bytes_in_use`) is
+        memory the ledger never sees."""
+        if device is None or torch.device(device).type != "cuda":
+            return []
+        dev = torch.device(device)
+        free, total = torch.cuda.mem_get_info(dev)
+        st = torch.cuda.memory_stats(dev)
+        return [{"device": str(dev),
+                 "bytes_in_use": int(st.get("allocated_bytes.all.current",
+                                            0)),
+                 "peak_bytes_in_use": int(st.get(
+                     "allocated_bytes.all.peak", 0)),
+                 "bytes_reserved": int(st.get("reserved_bytes.all.current",
+                                              0)),
+                 "bytes_free": int(free), "bytes_limit": int(total)}]
 
     def snapshot(self) -> dict:
         with self._mu:
@@ -235,7 +311,48 @@ class DeviceMemoryAccountant:
             }
             for c in CATEGORIES:
                 snap[f"live_{c}_bytes"] = self._live_by_cat[c]
+                snap[f"peak_{c}_bytes"] = self._peak_by_cat[c]
         return snap
+
+    def reset_peaks(self) -> None:
+        """Restart the peak marks at the current live bytes (a caller
+        measuring one statement's peak)."""
+        with self._mu:
+            self.peak_bytes = self._live_total
+            self._peak_by_cat = dict(self._live_by_cat)
+
+    # -- eviction registry -------------------------------------------------
+    def register_evictable(self, cache) -> None:
+        """Register a cache exposing evict_coldest(target_bytes) and
+        total_bytes — once per Executor for its FeedCache; weakly held,
+        so a closed session's cache pins nothing."""
+        with self._mu:
+            self._evictables = [r for r in self._evictables
+                                if r() is not None]
+            self._evictables.append(weakref.ref(cache))
+
+    def evict_evictable(self, target_bytes: int | None = None) -> int:
+        """Evict cache-resident tensors across EVERY registered cache,
+        coldest first within each, until `target_bytes` have been freed
+        (None = everything).  Returns entries evicted.  Runs outside
+        the accountant lock: evicting takes each cache's own lock, and
+        the dropped tensors' finalizers re-enter _release (lock order:
+        cache lock → accountant lock, never the reverse)."""
+        with self._mu:
+            refs = list(self._evictables)
+        evicted = 0
+        remaining = target_bytes
+        for ref in refs:
+            cache = ref()
+            if cache is None:
+                continue
+            before = cache.total_bytes
+            evicted += cache.evict_coldest(remaining)
+            if remaining is not None:
+                remaining -= max(0, before - cache.total_bytes)
+                if remaining <= 0:
+                    break
+        return evicted
 
     # -- simulation --------------------------------------------------------
     def install_sim(self, sim: MemSim | None) -> None:

@@ -10,25 +10,44 @@ dictionary decode, ORDER BY, OFFSET/LIMIT (`_host_combine`).  Raw mode
 (`execute_plan(plan, raw=True)`, INSERT..SELECT's source) keeps the
 result typed: a NULL mask per column, dictionary codes, day numbers.
 
-A plan the fast-path router takes (executor/fastpath.py: one shard,
-below fast_path_max_rows) answers host-side instead, as in the
-reference.
+Dispatch order, as in the reference: a plan the fast-path router takes
+(executor/fastpath.py: one shard, below fast_path_max_rows) answers
+host-side; a statement the OOM ladder sent to multi-pass runs in passes
+over shard groups (executor/multipass.py); a plan whose feeds exceed
+the device budget streams its largest scan in batches
+(executor/stream.py); everything else runs on resident feeds.
+
+Device memory is governed: each PlanCompiler run leases its buffer
+estimate from the data_dir's accountant (executor/hbm.py), a CUDA
+allocator OOM inside the run is classified as DeviceMemoryExhausted, and
+the session's retry envelope walks the degradation ladder
+(`degrade_for_oom`: evict caches → shrink stream batches → force
+streaming → multi-pass) before a clean ResourceExhausted.  An
+over-limit plan (max_plan_buffer_bytes) or a capacity regrow that can no
+longer fit the budget enters the same ladder when its shape can degrade.
 
 Converged capacities are memoized in memory per plan fingerprint; the
-JAX package's on-disk memo, executable cache, streaming, multi-pass and
-OOM ladder are not part of the port yet.
+JAX package's on-disk memo and executable cache are not part of the port
+(ROADMAP queue A item 7).
 """
 
 from __future__ import annotations
 
 import threading
+import traceback
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..catalog import Catalog
 from ..config import Settings
-from ..errors import CapacityOverflowError, ExecutionError, PlanningError
+from ..errors import (
+    CapacityOverflowError,
+    DeviceMemoryExhausted,
+    ExecutionError,
+    PlanningError,
+)
 from ..planner import expr as ir
 from ..planner.plan import (
     AggregateNode,
@@ -41,6 +60,8 @@ from ..planner.plan import (
 from ..storage import TableStore
 from ..storage.dictionary import resolve_decode
 from ..types import DataType
+from ..utils.cancellation import check_cancel
+from ..utils.faultinjection import fault_point
 from .cache import (
     FeedCache,
     PlanCache,
@@ -52,11 +73,32 @@ from .cache import (
 from .compiler import Capacities, PlanCompiler, _round_cap, unpack_outputs
 from .fastpath import try_execute_fast_path
 from .feed import build_feeds, walk_plan
-from .hbm import accountant_for
+from .hbm import _TORCH_OOM, accountant_for
 from .host_exprs import ColumnSource, evaluate, predicate_mask
 from .scanpipe import ScanPhaseStats
 
 MAX_RETRIES = 4
+
+# degradation ladder bound: each batch-shrink rung halves the stream
+# batch; beyond this the rung is spent and the ladder moves on
+MAX_BATCH_SHRINK = 64
+
+
+@dataclass
+class OomState:
+    """Sticky (per-executor) outcome of the OOM degradation ladder —
+    kept so a statement that needed rungs does not re-discover them (and
+    re-pay the OOM) on every execution.
+
+    * ``batch_shrink`` — divisor applied to the stream batch_cap;
+    * ``force_stream`` — stream even when the feeds fit the configured
+      budget (an OOM proved the effective ceiling lower);
+    * ``multipass_k`` — split the build side into K passes
+      (executor/multipass.py)."""
+
+    batch_shrink: int = 1
+    force_stream: bool = False
+    multipass_k: int = 1
 
 
 @dataclass
@@ -72,6 +114,8 @@ class ResultSet:
     device_rows_in: list[int] | None = None
     # answered host-side by the fast-path router (executor/fastpath.py)
     fast_path: bool = False
+    streamed_batches: int = 0  # >0 ⇒ executed via the stream pipeline
+    spill_passes: int = 0      # >0 ⇒ executed via multi-pass passes
     # raw mode (execute_plan(raw=True), INSERT..SELECT): per-column NULL
     # masks, STRING columns as dictionary codes with their source
     # dictionary (table, column), DATE columns as day numbers
@@ -98,7 +142,12 @@ class Executor:
         # the data_dir's device-memory ledger (shared by every session on
         # it) and this executor's pipelined-scan phase walls
         self.accountant = accountant_for(store.data_dir)
+        self.accountant.register_evictable(self.feed_cache)
         self.scan_stats = ScanPhaseStats()
+        self.oom = OomState()
+        # per-thread plan of the in-flight statement: the degradation
+        # ladder peeks at it to skip rungs that cannot help its shape
+        self._oom_tls = threading.local()
         # fingerprint → walk-index-keyed converged capacities
         self._caps_memo: dict = {}
         # fingerprints already tightened by feedback (at most once each)
@@ -112,15 +161,51 @@ class Executor:
         for node in walk_plan(plan.root):
             if isinstance(node, ScanNode):
                 self.store.refresh_if_stale(node.rel.table)
+        self._oom_tls.plan = plan
         # the reference's single-shard router: below fast_path_max_rows
         # a pruned plan answers host-side by design (on the card too)
         fast = try_execute_fast_path(self, plan, raw)
         if fast is not None:
             return fast
+        try:
+            return self._execute_device(plan, raw)
+        except _TORCH_OOM as e:
+            # a CUDA allocator refusal outside the plan's run (a decode
+            # on the card while a feed is built): the same classified
+            # error the ladder degrades on
+            raise self._classify_oom(e, "building the plan's feeds")
+
+    def _execute_device(self, plan: QueryPlan, raw: bool) -> ResultSet:
+        from .stream import try_execute_streamed
+
+        if self.oom.multipass_k > 1:
+            from .multipass import try_execute_multipass
+
+            mp = try_execute_multipass(self, plan, raw,
+                                       self.oom.multipass_k)
+            if mp is not None:
+                return mp
+        streamed = try_execute_streamed(self, plan, raw)
+        if streamed is not None:
+            return streamed
         compute_dtype = np.dtype(self.settings.get("compute_dtype"))
+        packed, out_meta, caps, retries, feeds = self._run_resident(
+            plan, compute_dtype)
+        cols, nulls, valid = unpack_outputs(packed, out_meta)
+        result = self._host_combine(plan, cols, nulls, valid, raw)
+        result.retries = retries
+        result.device_rows_scanned = int(np.asarray(valid).size)
+        result.device_rows_in = feed_device_rows(feeds)
+        return result
+
+    def _run_resident(self, plan: QueryPlan, compute_dtype,
+                      no_cache_nodes=frozenset()):
+        """Resident-feed execution core: build the feeds, resolve the
+        capacity memo, run the overflow-retry loop.  Shared by
+        execute_plan and each multi-pass pass."""
         feeds = build_feeds(plan, self.catalog, self.store, self.device,
                             compute_dtype, self.feed_cache, self.accountant,
-                            self.scan_stats)
+                            self.scan_stats, no_cache_nodes)
         topk_sig = (plan.device_topk, tuple(
             (repr(e), d, nf) for e, d, nf in plan.host_order_by)
             if plan.device_topk is not None else ())
@@ -136,15 +221,43 @@ class Executor:
                 else self._initial_capacities(plan, feeds))
         packed, out_meta, caps, retries = self.run_with_retry(
             plan, feeds, caps, fingerprint, compute_dtype)
+        return packed, out_meta, caps, retries, feeds
+
+    def execute_pass(self, plan: QueryPlan, split_nid: int):
+        """One multi-pass pass (executor/multipass.py): run the pruned
+        plan through the stream pipeline when it still exceeds the
+        budget, else resident, and return its flattened pre-combine
+        parts as (parts, rows_scanned, retries, streamed_batches).  The
+        split scan's per-pass feed bypasses the feed cache — caching
+        every pass's partition would defeat the pass."""
+        from .stream import _flatten_batch, try_execute_streamed
+
+        streamed = try_execute_streamed(self, plan, raw=True,
+                                        return_parts=True,
+                                        no_cache_nodes=frozenset(
+                                            {split_nid}))
+        if streamed is not None:
+            parts, scanned, retries, batches, _caps = streamed
+            return parts, scanned, retries, batches
+        compute_dtype = np.dtype(self.settings.get("compute_dtype"))
+        packed, out_meta, _caps, retries, _feeds = self._run_resident(
+            plan, compute_dtype, no_cache_nodes=frozenset({split_nid}))
         cols, nulls, valid = unpack_outputs(packed, out_meta)
-        result = self._host_combine(plan, cols, nulls, valid, raw)
-        result.retries = retries
-        result.device_rows_scanned = int(np.asarray(valid).size)
-        rows_in = [sum(f.dev_rows[0] for f in feeds.values()
-                       if f.dev_rows is not None)]
-        result.device_rows_in = rows_in if any(
-            f.dev_rows is not None for f in feeds.values()) else None
-        return result
+        scanned = int(np.asarray(valid).size)
+        return [_flatten_batch(cols, nulls, valid)], scanned, retries, 0
+
+    def _classify_oom(self, e: BaseException, what: str,
+                      nbytes: int | None = None) -> DeviceMemoryExhausted:
+        """A CUDA allocator OOM → the classified DeviceMemoryExhausted
+        the session's ladder degrades on.  The finished frames of the
+        failed run hold its tensors: clear them, so the memory returns
+        to the allocator before the ladder retries."""
+        self.accountant.note_oom()
+        traceback.clear_frames(e.__traceback__)
+        err = DeviceMemoryExhausted(f"device allocator OOM {what}: {e}")
+        if nbytes is not None:
+            err.nbytes = nbytes
+        return err
 
     # ------------------------------------------------------------------
     def run_with_retry(self, plan: QueryPlan, feeds, caps: Capacities,
@@ -160,22 +273,43 @@ class Executor:
         retries = 0
         tightened = False
         while True:
-            if limit:
-                est = _plan_buffer_bytes(plan, caps)
-                if est > limit:
-                    raise PlanningError(
-                        f"plan needs ~{est / 1e9:.1f} GB of device "
-                        f"buffers (max_plan_buffer_bytes = "
-                        f"{limit / 1e9:.1f} GB) — usually a cartesian "
-                        "or extreme-fanout join; rewrite the query or "
-                        "raise the limit")
+            check_cancel()  # overflow-retry iterations are cancel seams
+            est = _plan_buffer_bytes(plan, caps)
+            if limit and est > limit:
+                if self._plan_degradable(plan):
+                    # an over-limit plan whose shape the ladder can
+                    # shrink (stream / multi-pass) degrades instead of
+                    # erroring: the guard is a pre-allocation OOM signal
+                    raise DeviceMemoryExhausted(
+                        f"RESOURCE_EXHAUSTED (guard): plan needs "
+                        f"~{est / 1e9:.1f} GB of device buffers "
+                        f"(max_plan_buffer_bytes = "
+                        f"{limit / 1e9:.1f} GB) — degrading")
+                raise PlanningError(
+                    f"plan needs ~{est / 1e9:.1f} GB of device "
+                    f"buffers (max_plan_buffer_bytes = "
+                    f"{limit / 1e9:.1f} GB) — usually a cartesian "
+                    "or extreme-fanout join; rewrite the query or "
+                    "raise the limit")
             key = fingerprint + (caps_signature(plan, caps),)
             compiler = self.plan_cache.get(key)
             if compiler is None:
+                # named seam: a failure while building the compiler must
+                # leave the plan cache without a half-built entry
+                fault_point("executor.plan_cache_fill")
                 compiler = PlanCompiler(plan, compute_dtype, self.device)
                 self.plan_cache.put(key, compiler)
-            packed, counters, out_meta, stage_keys = compiler.run(
-                plan, feeds, caps)
+            # the run allocates its intermediates where the placement
+            # seam cannot see them: the lease makes the estimate visible
+            # to the ledger (and to an armed MemSim) for the run's window
+            try:
+                with self.accountant.lease("plan", est):
+                    packed, counters, out_meta, stage_keys = compiler.run(
+                        plan, feeds, caps)
+            except _TORCH_OOM as e:
+                raise self._classify_oom(
+                    e, f"running the plan (~{est} intermediate bytes)",
+                    est)
             cap_overflow = int(counters[0])
             dense_oob = int(counters[1])
             if cap_overflow == 0 and dense_oob == 0:
@@ -200,6 +334,9 @@ class Executor:
                     self._memoize_caps(fingerprint, plan, caps)
                 return packed, out_meta, caps, retries
             retries += 1
+            # named seam: a failure while growing capacities must leave
+            # the plan cache and capacity memo consistent
+            fault_point("executor.overflow_retry")
             if retries >= MAX_RETRIES:
                 raise CapacityOverflowError(
                     f"buffer overflow persisted after {retries} retries "
@@ -226,6 +363,99 @@ class Executor:
                                 for k, v in fresh.agg_bucket.items()})
             if cap_overflow:
                 caps = caps.grown(cap_overflow)
+            # an overflow regrow whose buffers no longer fit what is
+            # left of the device budget would retry straight into an
+            # OOM — degrade (stream / multi-pass) instead
+            budget = self.accountant.budget_bytes(self.device,
+                                                  self.settings)
+            if budget:
+                need = _plan_buffer_bytes(plan, caps)
+                room = budget - self.accountant.pressure_bytes()
+                if need > room and self._plan_degradable(plan):
+                    raise DeviceMemoryExhausted(
+                        f"RESOURCE_EXHAUSTED (regrow guard): capacity "
+                        f"regrow needs ~{need} bytes but only ~{room} "
+                        f"remain of the {budget}-byte device budget — "
+                        "degrading instead of retrying into an OOM")
+
+    # ------------------------------------------------------------------
+    def _plan_degradable(self, plan: QueryPlan) -> bool:
+        """Can the degradation ladder shrink this plan's footprint?
+        (executor/multipass.py owns the shape rules; windows and
+        cartesian blowups stay clean immediate rejects.)"""
+        from .multipass import ladder_degradable
+
+        return ladder_degradable(
+            plan, self.catalog, self.store,
+            np.dtype(self.settings.get("compute_dtype")))
+
+    def degrade_for_oom(self, step: int, nbytes: int | None = None
+                        ) -> str | None:
+        """Apply the next rung of the OOM degradation ladder; returns the
+        rung's name, or None when no rung can help (the session then
+        raises a clean ResourceExhausted).  `step` is the statement's
+        1-based OOM count — monotone, so repeated OOMs walk DOWN the
+        ladder instead of cycling on one rung; `nbytes` is the failed
+        allocation's size when known (bounds the eviction target).
+
+        Rungs, cheapest first:
+          1. evict feed caches coldest first (frees device memory,
+             nothing recompiles) and empty the CUDA caching allocator;
+          2. halve the stream batch_cap;
+          3. force the stream path even under the resident ceiling;
+          4+. multi-pass execution, K doubling per rung.
+        EVERY rung evicts first — a retry re-fills the cache, and
+        cached feeds riding into a shrunk or streamed re-run would eat
+        exactly the headroom the rung created.  The shrink / force /
+        multi-pass state is sticky on the executor, so later statements
+        start from the converged shape."""
+        evicted = self._evict_for_oom(nbytes)
+        if step <= 1:
+            if evicted:
+                return "evict_caches"
+            step = 2  # nothing to evict: spend the escalation rung now
+        plan = getattr(self._oom_tls, "plan", None)
+        can_stream = can_multipass = False
+        if plan is not None:
+            from .multipass import multipass_candidate
+            from .stream import stream_candidates
+
+            can_stream = bool(stream_candidates(plan, self.catalog))
+            can_multipass = multipass_candidate(
+                plan, self.catalog, self.store,
+                np.dtype(self.settings.get("compute_dtype"))) is not None
+        max_passes = self.settings.get("oom_max_spill_passes")
+        i = step - 2  # escalation ladder position (0-based)
+        while True:
+            if i == 0:
+                if can_stream and self.oom.batch_shrink < MAX_BATCH_SHRINK:
+                    self.oom.batch_shrink *= 2
+                    return "shrink_stream_batch"
+            elif i == 1:
+                if can_stream and not self.oom.force_stream:
+                    self.oom.force_stream = True
+                    return "force_stream"
+            else:
+                if can_multipass and self.oom.multipass_k < max_passes:
+                    self.oom.multipass_k = min(
+                        max_passes, max(2, self.oom.multipass_k * 2))
+                    return "multipass"
+                return None
+            i += 1
+
+    def _evict_for_oom(self, nbytes: int | None = None) -> int:
+        """Rung 1: drop cache-resident feeds coldest first — across
+        EVERY session's FeedCache on this data_dir (the device is
+        shared).  Frees at least 4× the failed allocation when its size
+        is known, everything otherwise.  Then hands the CUDA caching
+        allocator's free blocks back to CUDA: the ledger does not
+        see that reserve, and the retry needs it.  Returns cache entries
+        evicted — only those mark the rung successful."""
+        evicted = self.accountant.evict_evictable(
+            nbytes * 4 if nbytes else None)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return evicted
 
     # ------------------------------------------------------------------
     def _memoize_caps(self, fingerprint, plan: QueryPlan,
@@ -514,6 +744,13 @@ class Executor:
                 col[out_nulls[c]] = None
                 out_cols[c] = col
         return ResultSet(names, out_cols, final_n, dtypes=out_dtypes)
+
+
+def feed_device_rows(feeds) -> list[int] | None:
+    """Rows the device fed into the plan (sharded feeds' rows), or None
+    when no feed is sharded."""
+    rows = [f.dev_rows[0] for f in feeds.values() if f.dev_rows is not None]
+    return [sum(rows)] if rows else None
 
 
 def _unique_name(name: str, taken: list[str]) -> str:

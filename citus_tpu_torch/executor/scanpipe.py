@@ -43,7 +43,6 @@ the named fault points of the reference (ROADMAP queue A items 6 and
 from __future__ import annotations
 
 import contextlib
-import os
 import queue
 import threading
 import time
@@ -53,6 +52,8 @@ import numpy as np
 import torch
 
 from ..errors import DeviceMemoryExhausted
+from ..storage.table_store import tag_failed_read
+from ..utils.faultinjection import fault_point
 
 # below this many table rows 'auto' keeps the eager path: a producer
 # thread + per-column reads cost more than they hide on tiny feeds
@@ -71,14 +72,18 @@ PREFETCH_DEPTH = 2
 
 class ScanPhaseStats:
     """Per-executor accumulator for the scan pipeline's phase walls and
-    wire/decoded byte totals.  The walls are host-clock seconds: on a
+    wire/decoded byte totals, and the stream's (executor/stream.py):
+    the producer's host decode and copy enqueue, the host merge of the
+    per-batch parts.  The walls are host-clock seconds: on a
     CUDA session `transfer_seconds` and `device_decode_seconds` time the
     enqueue of asynchronous copies and kernels, not their run on the
     card."""
 
     FIELDS = ("prefetch_seconds", "decode_seconds", "transfer_seconds",
               "device_decode_seconds", "bytes_on_wire", "bytes_decoded",
-              "prefetch_stalls", "chunks_prefetched", "feeds_pipelined")
+              "prefetch_stalls", "chunks_prefetched", "feeds_pipelined",
+              "stream_decode_seconds", "stream_transfer_seconds",
+              "stream_merge_seconds")
 
     def __init__(self):
         self._mu = threading.Lock()
@@ -289,8 +294,7 @@ class _ScanPipeline:
     # -- producer ----------------------------------------------------------
     def _path(self, ti: int) -> str:
         sid, rec = self.tasks[ti]
-        return os.path.join(self.store.shard_dir(self.table, sid),
-                            rec["file"])
+        return self.store.stripe_read_path(self.table, sid, rec["file"])
 
     def _reader(self, path: str):
         r = self._readers.get(path)
@@ -305,14 +309,24 @@ class _ScanPipeline:
         """One (stripe, column) read.  Returns (values, validity, n)
         AFTER delete-mask filtering; the first column's pass records the
         chunk selection + keep mask the later columns are pinned to."""
-        # fault seam store.read_shard and replica failover tagging: not in
-        # this slice (citus_tpu/executor/scanpipe.py:379-398)
         sid, rec = self.tasks[ti]
+        try:
+            return self._read_stripe_column_at(ti, sid, rec, cname, first)
+        except Exception as e:
+            # the eager path's failover contract: a failed read carries
+            # (table, shard_id), so the statement retry loop routes the
+            # next attempt to a surviving replica
+            tag_failed_read(e, self.table, sid)
+            raise
+
+    def _read_stripe_column_at(self, ti, sid, rec, cname, first):
+        if first:
+            fault_point("store.read_shard")
         lay = self.layout[ti]
         storage = self.storage_of[cname]
         # the stripe's deletion bitmap (an overlay never reaches here:
-        # such tables take the eager path); reads the primary copy only
-        # (a CorruptStripe propagates as a clean error)
+        # such tables take the eager path); reads the routing
+        # placement's copy (a CorruptStripe propagates as a clean error)
         dmask = (self.store.effective_delete_mask(self.table, sid, rec)
                  if first else None)
 

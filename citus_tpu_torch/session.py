@@ -34,10 +34,18 @@ commit log, and opening a data_dir recovers interrupted commits before
 any read.  DML holds (table, shard) locks with deadlock detection
 (transaction/locks.py) and journals to the change feed (cdc/feed.py).
 
-Not in this port yet: the statement retry envelope with its statement
-timeout (`_UNPORTED_SETTINGS`), EXPLAIN ANALYZE, the UDFs of unported
-modules (`_UNPORTED_UDFS`), serving, WLM, replication, tracing and the
-stats counters, streaming and the OOM ladder.
+Every statement runs under the resilience envelope
+(`_execute_resilient`): one cooperative deadline (`statement_timeout_ms`
+and `Session.cancel`) around a bounded retry loop
+(`max_statement_retries`, exponential backoff with jitter) that marks a
+failed shard read's placement suspect so the retry reads a replica,
+finishes interrupted 2PC commits before re-running, resolves a COMMIT
+that died mid-2PC by its commit record, and walks the OOM degradation
+ladder (executor/runner.py `degrade_for_oom`) on DeviceMemoryExhausted.
+
+Not in this port yet: EXPLAIN ANALYZE, the UDFs of unported modules
+(`_UNPORTED_UDFS`), serving, WLM, replication, tracing and the stats
+counters, and the envelope's device-loss failover (multi-GPU).
 """
 
 from __future__ import annotations
@@ -100,7 +108,8 @@ _UNPORTED_UDFS = {
          "citus_stat_tenants", "citus_stat_activity",
          "citus_check_cluster_node_health", "citus_promote_node"),
         "queue A item 8 (stats/ and operations/health.py)"),
-    "citus_stat_memory": "queue A item 5 (the OOM ladder's accountant)",
+    "citus_stat_memory":
+        "queue A item 8 (its columns read stats/counters)",
     **dict.fromkeys(
         ("citus_stat_mesh", "citus_rebalance_mesh", "citus_drain_device"),
         "queue A item 9 (multi-GPU)"),
@@ -119,12 +128,11 @@ _UNPORTED_UDFS = {
 }
 
 
-# the JAX package's settings whose module is not ported: SET refuses
-# each, naming the ROADMAP queue A item that brings it
-_UNPORTED_SETTINGS = dict.fromkeys(
-    ("statement_timeout_ms", "max_statement_retries",
-     "retry_backoff_base_ms", "retry_backoff_max_ms"),
-    "queue A item 13 (the statement retry envelope)")
+# fault points that fire AFTER a write's visibility flip: the effect is
+# already committed, so re-executing the statement would apply it twice —
+# the error propagates instead (the reference likewise never retries a
+# task once its placement reported success)
+_NON_RETRYABLE_POINTS = frozenset({"cdc.append"})
 
 
 class _StoreStats(StatsProvider):
@@ -202,12 +210,12 @@ class Session:
         self.txn_manager.recover()
         # Session.cancel() → the executing statement's next seam raises
         self._cancel_evt = threading.Event()
+        # the OOM ladder's rungs taken by the last statement, in order
+        self.last_oom_rungs: list[str] = []
 
     # ------------------------------------------------------------------
     def execute(self, sql: str):
         """Run a SQL script; returns the last statement's ResultSet/None."""
-        from .utils.cancellation import deadline_scope
-
         # adopt another session's committed DDL; never mid-transaction
         # (the open transaction pinned its snapshot)
         if self.txn_manager.current is None:
@@ -216,14 +224,196 @@ class Session:
         self._cancel_evt.clear()  # a fresh script clears stale cancels
         result = None
         for stmt in parse(sql):
-            with deadline_scope(self._cancel_evt):
-                result = self._execute_statement(stmt)
+            result = self._execute_resilient(stmt)
         return result
 
     def cancel(self) -> None:
-        """Cancel the statement running on this session (another thread
-        calls this): it raises QueryCanceled at its next seam."""
+        """Cooperative cross-thread cancel of the statement running on
+        this session (the pg_cancel_backend analogue): it raises
+        QueryCanceled at its next seam — fault point, stream/COPY batch
+        boundary, multi-pass pass, retry iteration."""
         self._cancel_evt.set()
+
+    # -- the statement envelope --------------------------------------------
+    def _execute_resilient(self, stmt: ast.Statement):
+        """One statement under the resilience envelope: a cooperative
+        deadline (`statement_timeout_ms` + Session.cancel) around a
+        bounded retry loop (`max_statement_retries`, exponential backoff
+        with jitter) that classifies errors, marks failing placements
+        suspect so the retry's routing fails over to surviving replicas,
+        and runs 2PC recovery first so no retry observes half-applied
+        state — the adaptive executor's task-retry/failover loop
+        (adaptive_executor.c:95-116) hoisted to the statement level.
+        DeviceMemoryExhausted walks the OOM degradation ladder instead
+        (its own budget: the ladder's depth is a property of the shape,
+        not a transient-fault allowance).  A returned ResultSet's
+        `retries` adds this loop's retries and rungs to the executor's
+        capacity retries."""
+        import random as _random
+        import traceback as _traceback
+
+        from .errors import (
+            DeviceMemoryExhausted,
+            QueryCanceled,
+            ResourceExhausted,
+            StatementTimeout,
+        )
+        from .utils.cancellation import check_cancel, deadline_scope
+
+        max_retries = self.settings.get("max_statement_retries")
+        timeout_ms = self.settings.get("statement_timeout_ms")
+        attempt = 0
+        oom_steps = 0  # statement-local position on the OOM ladder
+        self.last_oom_rungs = []
+        with deadline_scope(timeout_ms or None,
+                            self._cancel_evt) as deadline:
+            while True:
+                # a COMMIT that dies mid-2PC is resolved through
+                # recovery, never re-execution — remember its txid now
+                # (the manager clears `current` on the way out)
+                commit_txid = None
+                if isinstance(stmt, ast.TransactionStmt) and \
+                        stmt.kind == "commit" and \
+                        self.txn_manager.current is not None:
+                    commit_txid = self.txn_manager.current.txid
+                try:
+                    check_cancel()
+                    result = self._execute_statement(stmt)
+                    if isinstance(result, ResultSet):
+                        result.retries += attempt + oom_steps
+                    return result
+                except (StatementTimeout, QueryCanceled):
+                    if commit_txid is not None and \
+                            self._resolve_failed_commit(commit_txid):
+                        # the deadline/cancel fired inside the 2PC with
+                        # the commit record durable: the transaction IS
+                        # committed (recovery just rolled it forward)
+                        return None
+                    raise
+                except Exception as e:
+                    # device-memory exhaustion is retryable after
+                    # degradation: each OOM applies the next rung of the
+                    # ladder (evict caches → shrink stream batches →
+                    # force streaming → multi-pass), then re-runs —
+                    # ending in a clean ResourceExhausted when no rung
+                    # can help.  A write's device SELECT half runs
+                    # before any visibility flip, so the re-run is safe.
+                    if isinstance(e, DeviceMemoryExhausted) and \
+                            commit_txid is None:
+                        if not self.settings.get("oom_degradation"):
+                            raise
+                        # the failed attempt's finished frames hold its
+                        # feeds: release them before the rung evicts
+                        _traceback.clear_frames(e.__traceback__)
+                        oom_steps += 1
+                        rung = self.executor.degrade_for_oom(
+                            oom_steps, getattr(e, "nbytes", None))
+                        if rung is None:
+                            raise ResourceExhausted(
+                                "statement does not fit device memory "
+                                f"even after {oom_steps - 1} "
+                                f"degradation rung(s): {e}") from e
+                        self.last_oom_rungs.append(rung)
+                        continue  # re-run degraded (deadline intact)
+                    retryable = self._retryable_error(e)
+                    # COPY commits each parsed batch on its own, so
+                    # re-executing a partially ingested file would
+                    # double-load the committed batches
+                    if isinstance(stmt, ast.CopyFrom):
+                        retryable = False
+                    # max_statement_retries=0 switches the envelope off
+                    # (crash semantics: the NEXT session's recovery
+                    # pass resolves)
+                    if commit_txid is not None and retryable and \
+                            max_retries > 0:
+                        if self._resolve_failed_commit(commit_txid):
+                            return None  # recovery rolled it forward
+                        raise  # rolled back: a clean, reported failure
+                    if not retryable or attempt >= max_retries:
+                        raise
+                    attempt += 1
+                    self._mark_failover(e)
+                    # retries must never observe half-applied state:
+                    # finish any interrupted 2PC before re-executing
+                    # (transaction_recovery.c at the retry boundary),
+                    # deadline-free — an expired deadline must not abort
+                    # the roll-forward
+                    if self.txn_manager.current is None:
+                        try:
+                            with deadline_scope(None):
+                                self.txn_manager.recover()
+                        except Exception:  # noqa: BLE001 — recovery retries on the next pass
+                            pass
+                    base_s = self.settings.get(
+                        "retry_backoff_base_ms") / 1000.0
+                    cap_s = self.settings.get(
+                        "retry_backoff_max_ms") / 1000.0
+                    delay = base_s * (2 ** (attempt - 1))
+                    delay *= 0.5 + _random.random()  # ±50% jitter
+                    delay = min(cap_s, delay)  # cap AFTER jitter
+                    rem = deadline.remaining()
+                    if rem is not None:
+                        delay = max(0.0, min(delay, rem))
+                    if delay:
+                        # waiting on the cancel event (not time.sleep)
+                        # keeps Session.cancel() prompt mid-backoff
+                        self._cancel_evt.wait(delay)
+                    # loop: the next check_cancel raises if the wait
+                    # consumed the deadline or a cancel arrived
+
+    def _retryable_error(self, e: BaseException) -> bool:
+        """Transient ⇒ retry: injected faults (the killed-connection
+        analogue), storage IO.  Semantic errors (parse / planning /
+        catalog / capacity), cancellation and post-visibility faults
+        are not."""
+        from .errors import QueryCanceled, StorageError
+        from .utils.faultinjection import InjectedFault
+
+        if isinstance(e, QueryCanceled):
+            return False
+        # post-visibility failures (tagged by the seam itself, or known
+        # by fault-point name): the effect is committed, a rerun would
+        # double-apply
+        if getattr(e, "post_visibility", False):
+            return False
+        if getattr(e, "fault_point", None) in _NON_RETRYABLE_POINTS:
+            return False
+        return isinstance(e, (InjectedFault, StorageError, OSError))
+
+    def _mark_failover(self, e: BaseException) -> None:
+        """A failed shard read carries (table, shard_id): mark the
+        placement it routed to suspect, so `catalog.active_placement`
+        (and with it `store.stripe_read_path`) routes the retry to a
+        surviving replica."""
+        shard_id = getattr(e, "shard_id", None)
+        if shard_id is None:
+            return
+        try:
+            p = self.catalog.active_placement(shard_id)
+        except Exception:  # noqa: BLE001 — no placement: a bare retry
+            return
+        self.catalog.mark_placement_suspect(p.placement_id)
+
+    def _resolve_failed_commit(self, txid: int) -> bool:
+        """COMMIT died mid-2PC: resolve by the recovery rule instead of
+        re-executing (the transaction state is already torn down).
+        Commit record durable → roll the prepared transaction forward
+        (the idempotent apply replays safely over a partial first
+        apply) and the statement SUCCEEDS; no record → recovery
+        discards the prepare and the original error propagates.
+        Returns True when rolled forward (transaction_recovery.c's
+        rule)."""
+        from .utils.cancellation import deadline_scope
+
+        had_commit_record = self.txn_manager.has_commit_record(txid)
+        try:
+            # deadline-free: an expired statement deadline must not
+            # abort the roll-forward mid-apply
+            with deadline_scope(None):
+                self.txn_manager.recover()
+        except Exception:  # noqa: BLE001 — unresolved: the caller re-raises the original error
+            return False
+        return had_commit_record
 
     def change_events(self, table: str | None = None,
                       from_lsn: int = 0) -> list[dict]:
@@ -309,10 +499,6 @@ class Session:
                     f"prepared statement {stmt.name!r} does not exist")
             return None
         if isinstance(stmt, ast.SetVariable):
-            if stmt.name in _UNPORTED_SETTINGS:
-                raise UnsupportedQueryError(
-                    f"{stmt.name} is not in this port yet: it comes with "
-                    f"{_UNPORTED_SETTINGS[stmt.name]}")
             self.settings.set(stmt.name, stmt.value)
             return None
         if isinstance(stmt, ast.ShowVariable):

@@ -40,6 +40,7 @@ import numpy as np
 
 from ..catalog import Catalog
 from ..cdc import ChangeLog
+from ..errors import StorageError
 from ..utils import io as dio
 from ..utils.faultinjection import fault_point
 from . import integrity
@@ -66,6 +67,16 @@ def _column_stats(columns: dict[str, np.ndarray],
         else:
             out[name] = [int(v.min()), int(v.max()), nulls]
     return out
+
+
+def tag_failed_read(e: BaseException, table: str, shard_id: int) -> None:
+    """Stamp (table, shard_id) on a failed shard read — storage and IO
+    errors and injected faults — so the statement retry loop marks the
+    placement it routed to suspect (Session._mark_failover)."""
+    if isinstance(e, (StorageError, OSError)) or \
+            getattr(e, "injected_fault", False):
+        e.table = table
+        e.shard_id = shard_id
 
 
 # Process-wide per-(data_dir, table) manifest write locks: every manifest
@@ -329,6 +340,27 @@ class TableStore:
         ps = self.catalog.all_shard_placements(shard_id)
         return ps[0] if ps else None
 
+    def stripe_read_path(self, table: str, shard_id: int,
+                         fname: str) -> str:
+        """Physical path the CURRENT routing placement reads: the
+        primary copy for the owner placement, the replica-dir copy
+        otherwise (falling back to the primary when no mirror was ever
+        written — shared-storage semantics).  Suspect placements
+        re-route here: once the statement retry loop marks the
+        primary's placement suspect, the next read resolves to a
+        surviving replica's copy."""
+        primary = os.path.join(self.shard_dir(table, shard_id), fname)
+        try:
+            p = self.catalog.active_placement(shard_id, probe=False)
+        except Exception:
+            return primary
+        owner = self._primary_owner(shard_id)
+        if owner is None or p.placement_id == owner.placement_id:
+            return primary
+        alt = os.path.join(self.replica_dir(table, shard_id, p.node_id),
+                           fname)
+        return alt if os.path.exists(alt) else primary
+
     def _mirror_records(self, table: str,
                         pending: list[tuple[int, dict]]) -> None:
         """Copy freshly committed stripe files to every other active
@@ -528,9 +560,8 @@ class TableStore:
         columns = columns or meta.schema.names
         storage_of = {c: self.storage_column_name(table, c)
                       for c in columns}
-        reader = StripeReader(
-            os.path.join(self.shard_dir(table, shard_id), fname),
-            verify=self._verify_enabled())
+        reader = StripeReader(self.stripe_read_path(table, shard_id, fname),
+                              verify=self._verify_enabled())
         present = [c for c in columns
                    if storage_of[c] in reader._by_name]
         v, m, n = reader.read([storage_of[c] for c in present])
@@ -651,7 +682,7 @@ class TableStore:
         verify = self._verify_enabled()
         for rec in records:
             dmask = self.effective_delete_mask(table, shard_id, rec)
-            path = os.path.join(self.shard_dir(table, shard_id), rec["file"])
+            path = self.stripe_read_path(table, shard_id, rec["file"])
             reader = StripeReader(path, verify=verify)
             # columns added after this stripe was written read as NULL
             present = [storage_of[c] for c in columns
@@ -681,7 +712,22 @@ class TableStore:
     def read_shard(self, table: str, shard_id: int,
                    columns: list[str] | None = None, chunk_filter=None,
                    ) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray], int]:
-        """Concatenate all visible stripes of one shard (projected)."""
+        """Concatenate all visible stripes of one shard (projected).
+
+        A failed read carries (table, shard_id) on the exception so the
+        statement retry loop can mark the placement suspect and route
+        the next attempt to a surviving replica — the adaptive
+        executor's read-failover seam."""
+        try:
+            fault_point("store.read_shard")
+            return self._read_shard(table, shard_id, columns, chunk_filter)
+        except Exception as e:
+            tag_failed_read(e, table, shard_id)
+            raise
+
+    def _read_shard(self, table: str, shard_id: int,
+                    columns: list[str] | None = None, chunk_filter=None,
+                    ) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray], int]:
         meta = self.catalog.table(table)
         columns = columns or meta.schema.names
         vals: dict[str, list[np.ndarray]] = {c: [] for c in columns}

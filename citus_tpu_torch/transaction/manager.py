@@ -184,6 +184,12 @@ class TransactionManager:
         # 4. cleanup
         shutil.rmtree(tdir, ignore_errors=True)
 
+    def has_commit_record(self, txid: int) -> bool:
+        """Whether `txid`'s commit record is durable — recovery WILL
+        roll it forward (the statement retry loop uses this to resolve a
+        COMMIT that died mid-2PC without re-executing it)."""
+        return os.path.exists(os.path.join(self._txn_dir(txid), "commit"))
+
     # -- recovery ----------------------------------------------------------
     def recover(self) -> tuple[int, int]:
         """Finish interrupted transactions; → (committed, discarded)."""

@@ -1,19 +1,24 @@
-"""Fault-injection points for the storage and transaction seams.
+"""Fault-injection points for the storage, executor and transaction seams.
 
 Counterpart of citus_tpu/utils/faultinjection.py, carrying the named
-points that the port's write path calls.  The reference injects failures
+points that the port's read, write and memory paths call.  The reference injects failures
 by interposing mitmproxy between coordinator and worker and killing
 traffic at named moments (`citus.mitmproxy('conn.onQuery(query="COMMIT")
 .kill()')`, Citus src/test/regress/mitmscripts/README.md).  Here the
-boundaries to break are the storage writes and the 2PC steps, so named
+boundaries to break are the storage reads and writes, the device
+placement and execute steps, and the 2PC steps, so named
 fault points sit at those seams and tests arm them:
 
     with inject("txn.commit_record"):
         session.execute("COMMIT")      # dies right before the record
 
-An armed point fires once: ``error="injected"`` (the default) raises
-InjectedFault; ``error=None`` with ``sleep`` is a delay only.  (The JAX package's multi-shot, delayed-start
-and probabilistic faults serve its chaos soak, which is not ported.)
+An armed point fires once, or ``times=N`` times: ``error="injected"``
+(the default) raises InjectedFault, ``error="storage"`` StorageError and
+``error="oom"`` DeviceMemoryExhausted — the "connection lost" vs "disk
+error" vs "allocator OOM" distinctions the statement retry envelope
+classifies by; ``error=None`` with ``sleep`` is a delay only.  (The JAX
+package's delayed-start and probabilistic faults serve its chaos soak,
+which is not ported.)
 
 The unarmed cost is a dict emptiness check.  Every `fault_point()` call
 is also a cooperative cancellation seam (utils/cancellation).
@@ -29,7 +34,7 @@ import contextlib
 import threading
 import time
 
-from ..errors import ExecutionError
+from ..errors import DeviceMemoryExhausted, ExecutionError, StorageError
 from .cancellation import check_cancel
 
 
@@ -43,10 +48,17 @@ class InjectedFault(ExecutionError):
 FAULT_POINTS: dict[str, str] = {
     "store.append_stripe": "storage/table_store.py — shard stripe write",
     "store.apply_dml": "storage/table_store.py — DML manifest flip",
+    "store.read_shard": "storage/table_store.py — shard stripe read",
     "storage.manifest_flip":
         "storage/table_store.py — manifest visibility flip",
+    "executor.overflow_retry": "executor/runner.py — capacity regrow",
+    "executor.plan_cache_fill": "executor/runner.py — compiled-plan insert",
+    "executor.hbm_exhausted":
+        "executor/hbm.py — accounted placement seam (arm with "
+        "error='oom' for a synthetic allocator OOM)",
     "executor.repartition_shuffle":
         "executor/insert_select.py — INSERT..SELECT repartition write",
+    "stream.prefetch": "executor/stream.py — batch prefetch thread",
     "txn.prepare": "transaction/manager.py — before PREPARE",
     "txn.commit_record": "transaction/manager.py — prepared, no record",
     "txn.apply": "transaction/manager.py — record durable, not applied",
@@ -75,15 +87,27 @@ def fault_point(name: str) -> None:
     if not _armed:
         return
     with _lock:
-        spec = _armed.pop(name, None)
+        spec = _armed.get(name)
         if spec is None:
             return
+        spec["times"] -= 1
+        if spec["times"] <= 0:
+            del _armed[name]
         _fired[name] = _fired.get(name, 0) + 1
     if spec["sleep"]:
         time.sleep(spec["sleep"])  # delay fault (outside the lock)
-    if spec["error"] is None:
+    kind = spec["error"]
+    if kind is None:
         return  # delay-only
-    exc = InjectedFault(f"injected fault at {name!r}")
+    if kind == "storage":
+        exc: Exception = StorageError(f"injected storage fault at {name!r}")
+    elif kind == "oom":
+        # classified by the session's retry envelope as retryable after
+        # degradation: an armed memory fault walks the OOM ladder
+        exc = DeviceMemoryExhausted(
+            f"injected device OOM (RESOURCE_EXHAUSTED) at {name!r}")
+    else:
+        exc = InjectedFault(f"injected fault at {name!r}")
     exc.fault_point = name
     exc.injected_fault = True
     raise exc
@@ -91,14 +115,17 @@ def fault_point(name: str) -> None:
 
 @contextlib.contextmanager
 def inject(name: str, sleep: float = 0.0, error: str | None = "injected",
-           require_fired: bool = False):
-    """Arm `name` for the duration of the block.  ``require_fired=True``
-    asserts on clean exit that the point triggered inside the block."""
-    if error not in (None, "injected"):
+           require_fired: bool = False, times: int = 1):
+    """Arm `name` for the duration of the block, to fire `times` times
+    ('injected' | 'storage' | 'oom', or None for a delay only).
+    ``require_fired=True`` asserts on clean exit that the point
+    triggered inside the block."""
+    if error not in (None, "injected", "storage", "oom"):
         raise ValueError(f"unknown fault error kind {error!r}")
     base = fired_count(name)
     with _lock:
-        _armed[name] = {"sleep": sleep, "error": error}
+        _armed[name] = {"sleep": sleep, "error": error,
+                        "times": max(1, int(times))}
     try:
         yield
     finally:

@@ -396,3 +396,84 @@ def test_gpu_update_matches_cpu_session(tmp_path, cuda):
     assert hk.LAUNCHES["bit_unpack"] > 0
     assert hk.LAUNCHES["dense_grid_sum"] > 0
 
+
+
+def _close_rows(got, want, rtol=1e-4):
+    got, want = sorted(got, key=repr), sorted(want, key=repr)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            if isinstance(y, (float, np.floating)):
+                assert abs(float(x) - float(y)) <= \
+                    rtol * max(1.0, abs(float(y)))
+            else:
+                assert x == y
+
+
+def test_streamed_q1_launches_k1_once_per_batch(tmp_path, cuda):
+    """Q1 streamed on the card in fixed 8,192-row batches: the dense-grid
+    sum (K1) runs once per batch on the batch's padded rows, one
+    PlanCompiler serves every batch, the answer equals the CPU session's
+    and the `stream` ledger is back at 0."""
+    import citus_tpu_torch
+    from citus_tpu_torch.ingest import tpch
+
+    data_dir = str(tmp_path / "d")
+    cpu = citus_tpu_torch.connect(data_dir, device="cpu")
+    tpch.load_into_session(cpu, sf=0.01, seed=7, tables={"lineitem"})
+    want = cpu.execute(tpch.QUERIES["Q1"]).rows()
+    gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device")
+    gpu.execute("set max_feed_bytes_per_device = 1; "
+                "set stream_batch_rows = 8192")
+    hk.reset_launch_counts()
+    r = gpu.execute(tpch.QUERIES["Q1"])
+    assert r.streamed_batches >= 4
+    assert hk.LAUNCHES["dense_grid_sum"] == r.streamed_batches
+    assert gpu.executor.plan_cache.misses == 1 + r.retries
+    _close_rows(r.rows(), want)
+    torch.cuda.synchronize()
+    assert gpu.executor.accountant.live_bytes("stream") == 0
+
+
+def test_real_allocator_oom_answers_through_the_ladder(tmp_path, cuda):
+    """With the caching allocator capped below Q3's resident peak, the
+    card itself refuses an allocation: the torch.OutOfMemoryError is
+    classified and the ladder answers, equal to the CPU session."""
+    import gc
+
+    import citus_tpu_torch
+    from citus_tpu_torch.ingest import tpch
+
+    data_dir = str(tmp_path / "d")
+    cpu = citus_tpu_torch.connect(data_dir, device="cpu")
+    # large enough that the plan's fixed-size buffers (tens of MiB) sit
+    # well under the cap
+    tpch.load_into_session(cpu, sf=0.2, seed=7,
+                           tables={"customer", "orders", "lineitem"})
+    q3 = tpch.QUERIES["Q3"]
+    want = cpu.execute(q3).rows()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    base_alloc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device")
+    gpu.execute(q3)
+    peak = torch.cuda.max_memory_allocated() - base_alloc
+    gpu.executor.feed_cache.clear()
+    del gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    try:
+        torch.cuda.set_per_process_memory_fraction(
+            (base + 0.5 * peak) / total)
+        gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device")
+        acc = gpu.executor.accountant
+        ooms = acc.oom_total
+        r = gpu.execute(q3)
+        assert acc.oom_total > ooms
+        assert gpu.last_oom_rungs
+        _close_rows(r.rows(), want)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)

@@ -279,7 +279,8 @@ def test_producer_failure_drains_cleanly(directed_dir, monkeypatch, where):
     column assembles with earlier ones placed and queued."""
     data_dir, want = directed_dir
     monkeypatch.setattr(scanpipe, "PREFETCH_DEPTH", 4)
-    sess = _port(data_dir, "device")
+    # no statement retry: the read failure must reach the caller
+    sess = _port(data_dir, "device", max_statement_retries=0)
     n_tasks = sum(len(sess.store.shard_stripe_records("kv", s.shard_id))
                   for s in sess.catalog.table_shards("kv"))
     fail_on = 1 if where == "first_pass" else n_tasks + 2

@@ -285,10 +285,10 @@ def test_connect_without_device_needs_a_gpu(tmp_path):
 def test_unsupported_statement_is_refused(jax_dir):
     data_dir, _want = jax_dir
     sess = citus_tpu_torch.connect(data_dir, device="cpu")
-    # DML is answered since the write-path slice; the statement retry
-    # envelope's settings are still refused
+    # DML and the statement retry envelope's settings are answered since
+    # the write-path and memory-pressure slices; multi-GPU is refused
     with pytest.raises(citus_tpu_torch.UnsupportedQueryError):
-        sess.execute("set statement_timeout_ms = 100")
+        sess.execute("select citus_stat_mesh()")
 
 
 # shapes the reference plans recursively (or rewrites) before binding

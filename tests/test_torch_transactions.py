@@ -20,9 +20,10 @@ seams and change feed, against the JAX package.
 * the round trip: each package opens what the other wrote after DML and
   answers a fixed list of SELECTs alike.
 
-JAX sessions run without their statement retry envelope
-(max_statement_retries=0) and background daemons, so a failure is the
-statement's own, as in the port.  Rows, manifests and feeds are held
+Both packages' sessions run without their statement retry envelope
+(max_statement_retries=0), and the JAX ones without background daemons,
+so a failure is the statement's own and the next session recovers it
+(tests/test_torch_resilience.py holds the envelope's outcomes).  Rows, manifests and feeds are held
 exact; sums at rtol 1e-9.
 """
 
@@ -73,8 +74,11 @@ def _jax(data_dir, **kw):
 
 
 def _port(data_dir, **settings):
+    # crash semantics, as the JAX sessions: no statement retry envelope
     return citus_tpu_torch.connect(str(data_dir), device="cpu",
-                                   compute_dtype="float64", **settings)
+                                   **{"compute_dtype": "float64",
+                                      "max_statement_retries": 0,
+                                      **settings})
 
 
 @pytest.fixture(scope="module")
