@@ -111,8 +111,26 @@ Phases, each fatal on failure (no result line is printed then):
     boundary.  Every answer against numpy; fails when a step does not
     stream, a kernel misses its launches, or the ledger's stream, feed,
     plan or prefetch bytes or a producer thread outlive a step;
-12. print the kernels line (with each kernel's launches in phases 8,
-    9, 10 and 11), then the device line last.
+12. observability, with every launch count at 0, each step in a fresh
+    cuda session (scan_pipeline=device, float32, every statement
+    traced): EXPLAIN ANALYZE of Q1, Q3, the GROUP BY and the nullable
+    query, first (cold scan) and warm, each answer still checked
+    against numpy by a plain run between them; per query its Timing
+    lines, the warm traced run's split (plan, feed, dispatch, fetch,
+    combine, other), the summed device_ms of its dispatch event pairs,
+    the profiler's device busy time, and (Q1, Q3) the synchronizing
+    calls its warm run makes, by call site (CUDA sync debug mode).  Then
+    S1's streamed Q1, L1's capped Q3 (its oom.degrade spans and
+    attempts), the cost of tracing (Q1 warm, on and off interleaved,
+    best of OVERHEAD_REPS each) and citus_check_cluster_node_health()
+    on the card.  Fails when a dispatch's summed device_ms is not in
+    (0, its device phase wall + 0.1 ms], when top-level spans cover
+    less than 95% of a root, when a span stays open, the ledger's
+    transient bytes or a producer thread outlive a step, when a kernel
+    never launches under EXPLAIN ANALYZE, when tracing costs more than
+    5% + 0.2 ms of Q1's best warm wall, or when a node probes unhealthy;
+13. print the kernels line (with each kernel's launches in phases 8,
+    9, 10, 11 and 12), then the device line last.
 
 Exits non-zero without a result when no GPU is visible or the port's
 package is not next to this script.  Imports nothing of JAX.
@@ -1239,9 +1257,10 @@ def phase9(ct, hk, data_dir, data, reps, ident) -> dict:
         walls.append(time.perf_counter() - t0)
         if not res.fast_path or len(res.rows()) != 1:
             failures.append(f"P1 literal {key}")
+    lookups = sess.stats.counters.snapshot()["point_index_lookups"]
     log(f"phase9 P1 literal: point index lookups "
-        f"{sess.executor.point_index_lookups}, walls {walls!r} ({ident})")
-    if sess.executor.point_index_lookups != 5:
+        f"{lookups}, walls {walls!r} ({ident})")
+    if lookups != 5:
         failures.append("P1 literal: point index unused")
 
     # P2: prepared Q1, three EXECUTEs through one PlanCompiler
@@ -2071,6 +2090,263 @@ def phase11(ct, hk, data_dir, data, queries, checks, want, reps,
 
 # --------------------------------------------------------------------------
 
+# -- phase 12: observability ----------------------------------------------
+
+OVERHEAD_REPS = 12    # Q1 warm runs per arm (tracing on / off), interleaved
+OVERHEAD_SHARE = 0.05  # tracing may cost this share of Q1's best warm wall
+OVERHEAD_ABS_S = 0.0002  # ... plus this much
+LEG_SLACK_MS = 0.1    # summed dispatch device_ms ≤ the device phase + this
+TILE_SHARE = 0.95     # top-level spans cover at least this share of a root
+
+
+def trace_figures(doc) -> dict:
+    """The warm-wall split of one statement trace, in ms: each phase of
+    the Timing line, dispatch and fetch apart, the summed device_ms of
+    the dispatch pairs and of the transfers' pairs, and the share of the
+    root the top-level spans cover."""
+    from citus_tpu_torch.stats import tracing
+
+    root = doc["root"]
+    ph = tracing.phase_breakdown(root)
+    out = {k: v * 1e3 for k, v in ph.items() if v}
+    out["dispatch"] = tracing.span_seconds(root, "mesh.dispatch") * 1e3
+    out["fetch"] = tracing.span_seconds(root, "mesh.fetch") * 1e3
+    out["device_ms"] = tracing.device_ms(root, "mesh.dispatch")
+    out["transfer_device_ms"] = (tracing.device_ms(root, "scan.transfer")
+                                 + tracing.device_ms(root,
+                                                     "stream.transfer"))
+    top = sum(c["dur_ms"] for c in root.get("children", ()))
+    out["tiled"] = top / root["dur_ms"] if root["dur_ms"] else 1.0
+    out["spans"] = doc["spans"]
+    return out
+
+
+def host_syncs(sess, sql) -> dict:
+    """Run `sql` warm with CUDA's sync debug mode on: each synchronizing
+    call the statement made, by the innermost call site in the port's
+    package, with counts."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    pkg = os.path.join(HERE, "citus_tpu_torch")
+    sites = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if f.filename.startswith(pkg)]
+        f = frames[-1] if frames else None
+        where = (f"{os.path.relpath(f.filename, HERE)}:{f.lineno}" if f
+                 else f"{os.path.basename(filename)}:{lineno}")
+        sites[where] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sess.execute(sql)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return dict(sites)
+
+
+def phase12(ct, hk, data_dir, queries, checks, want, ident) -> dict:
+    """Phase 12 (observability).  Returns each kernel's launches under
+    the phase's EXPLAIN ANALYZE statements."""
+    import gc
+    import threading
+
+    import torch
+
+    from citus_tpu_torch.stats import tracing
+    from citus_tpu_torch.executor.hbm import accountant_for
+
+    t_phase = time.perf_counter()
+    failures: list = []
+    acc = accountant_for(data_dir)
+    dev = torch.device("cuda", 0)
+    hk.reset_launch_counts()
+    explain_launches = dict.fromkeys(hk.KERNELS, 0)
+
+    def connect(**kw):
+        return ct.connect(data_dir, scan_pipeline="device",
+                          compute_dtype="float32",
+                          trace_fast_statement_ms=0, **kw)
+
+    def clean(where):
+        gc.collect()
+        torch.cuda.synchronize()
+        open_spans = tracing.open_span_count()
+        transient = acc.transient_bytes()
+        threads = [t.name for t in threading.enumerate() if t.is_alive()
+                   and t.name in ("citus-stream-producer", "scan-prefetch")]
+        if open_spans or transient or threads:
+            failures.append(f"{where}: open spans {open_spans}, transient "
+                            f"ledger bytes {transient}, threads {threads}")
+
+    def check_legs(where, fig):
+        if not 0.0 < fig["device_ms"] <= fig.get("device", 0.0) \
+                + LEG_SLACK_MS:
+            failures.append(f"{where}: dispatch device_ms "
+                            f"{fig['device_ms']!r} not in (0, device phase "
+                            f"{fig.get('device', 0.0)!r} + {LEG_SLACK_MS}]")
+        if fig["tiled"] < TILE_SHARE:
+            failures.append(f"{where}: top-level spans tile only "
+                            f"{fig['tiled']!r} of the root")
+
+    def explain(sess, sql):
+        before = dict(hk.LAUNCHES)
+        lines = sess.execute("explain analyze " + sql).columns["QUERY PLAN"]
+        torch.cuda.synchronize()
+        for n in hk.KERNELS:
+            explain_launches[n] += hk.LAUNCHES[n] - before[n]
+        return lines, sess.stats.tracing.last_trace()
+
+    # -- the four main-path queries: EXPLAIN ANALYZE first and warm --------
+    for q in ("Q1", "Q3", "high_card_groupby", "nullable"):
+        sess = connect()
+        sql = queries[q]
+        first_lines, first_doc = explain(sess, sql)
+        res = sess.execute(sql)
+        torch.cuda.synchronize()
+        checks[q](res, want[q])
+        warm = trace_figures(sess.stats.tracing.last_trace())
+        lines, doc = explain(sess, sql)
+        timing = next(x for x in lines if x.startswith("Timing: "))
+        fig_first = trace_figures(first_doc)
+        fig_explain = trace_figures(doc)
+        prof = profile_query(sess, sql)
+        syncs = host_syncs(sess, sql) if q in ("Q1", "Q3") else None
+        log(f"phase12 {q}: first EXPLAIN ANALYZE "
+            f"{next(x for x in first_lines if x.startswith('Timing: '))!r}"
+            f", device_ms {fig_first['device_ms']!r}; warm "
+            f"{timing!r}; warm traced run split (ms) "
+            f"{warm}; profiler device busy "
+            f"{prof['device_busy_ms']!r} ms of wall {prof['wall_ms']!r} ms"
+            + (f"; host syncs by call site {syncs}" if syncs is not None
+               else "") + f" ({ident})")
+        for where, fig in ((f"{q} first", fig_first),
+                           (f"{q} warm", warm),
+                           (f"{q} warm EXPLAIN", fig_explain)):
+            check_legs(where, fig)
+        del sess, res
+        clean(q)
+    for name in hk.KERNELS:
+        if explain_launches[name] <= 0:
+            failures.append(f"{name} never launched under EXPLAIN ANALYZE")
+
+    # -- S1: streamed Q1 under the 64 MiB ceiling --------------------------
+    sess = connect(max_feed_bytes_per_device=STREAM_FEED_BYTES)
+    res = sess.execute(queries["Q1"])
+    torch.cuda.synchronize()
+    checks["Q1"](res, want["Q1"])
+    doc = sess.stats.tracing.last_trace()
+    fig = trace_figures(doc)
+    batches = len([1 for _ in _spans_named(doc["root"], "stream.batch")])
+    log(f"phase12 S1 streamed Q1: {res.streamed_batches} batches, "
+        f"{fig['spans']} spans (truncated {doc['truncated']}), split (ms) "
+        f"{fig}, stream.batch spans {batches} ({ident})")
+    if res.streamed_batches < 4 or batches != res.streamed_batches:
+        failures.append(f"S1: {res.streamed_batches} batches, "
+                        f"{batches} stream.batch spans")
+    if fig["transfer_device_ms"] <= 0:
+        failures.append("S1: no stream.transfer device_ms")
+    check_legs("S1", fig)
+    del sess, res
+    clean("S1")
+
+    # -- L1: Q3 under an allocator cap, answered by the ladder -------------
+    acc.evict_evictable()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_alloc = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    sess = connect()
+    sess.execute(queries["Q3"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base_alloc
+    sess.executor.feed_cache.clear()
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cap = base_reserved + int(L1_FRACTION * peak)
+    try:
+        torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+        sess = connect()
+        res = sess.execute(queries["Q3"])
+        torch.cuda.synchronize()
+        checks["Q3"](res, want["Q3"])
+        doc = sess.stats.tracing.last_trace()
+        rungs = [s.get("meta", {}).get("rung")
+                 for s in _spans_named(doc["root"], "oom.degrade")]
+        attempts = [s for s in doc["root"]["children"]
+                    if s["name"] == "execute"]
+        fig = trace_figures(doc)
+        log(f"phase12 L1 capped Q3: rungs {sess.last_oom_rungs}, "
+            f"oom.degrade spans {rungs}, execute attempts {len(attempts)}, "
+            f"split (ms) {fig} ({ident})")
+        if not rungs or len(attempts) != len(rungs) + 1:
+            failures.append(f"L1: rung spans {rungs}, attempts "
+                            f"{len(attempts)}")
+        if fig["tiled"] < TILE_SHARE:
+            failures.append(f"L1: top-level spans tile {fig['tiled']!r}")
+        del sess, res
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    clean("L1")
+
+    # -- what tracing costs Q1's warm wall ---------------------------------
+    sess = connect()
+    sess.execute(queries["Q1"])
+    walls = {True: [], False: []}
+    for _ in range(OVERHEAD_REPS):
+        for on in (True, False):
+            sess.settings.set("trace_enabled", on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sess.execute(queries["Q1"])
+            torch.cuda.synchronize()
+            walls[on].append(time.perf_counter() - t0)
+    sess.settings.set("trace_enabled", True)
+    checks["Q1"](res, want["Q1"])
+    on, off = min(walls[True]), min(walls[False])
+    log(f"phase12 tracing overhead on Q1: best of {OVERHEAD_REPS} warm "
+        f"walls, tracing on {on!r} s, off {off!r} s, difference "
+        f"{(on - off) * 1e3!r} ms ({(on / off - 1) * 100:.2f}%) ({ident})")
+    if on > off * (1 + OVERHEAD_SHARE) + OVERHEAD_ABS_S:
+        failures.append(f"tracing costs {(on - off) * 1e3!r} ms of Q1's "
+                        f"{off * 1e3!r} ms best warm wall")
+
+    health = sess.execute("select citus_check_cluster_node_health()").rows()
+    log(f"phase12 citus_check_cluster_node_health(): {health}")
+    if not health or not all(h for _n, _a, h in health):
+        failures.append(f"health probe on the card: {health}")
+    del sess, res
+    clean("health")
+
+    log(f"phase12: {time.perf_counter() - t_phase!r} s, launches under "
+        f"EXPLAIN ANALYZE {explain_launches}")
+    if failures:
+        raise AssertionError(f"phase 12: {failures}")
+    return explain_launches
+
+
+def _spans_named(span, name):
+    if span["name"] == name:
+        yield span
+    for c in span.get("children", ()):
+        yield from _spans_named(c, name)
+
+
 def warm_runs(sess, q, sql, rows, reps, ident) -> None:
     """Phase 7 for one query: best of `reps` warm runs, then one more
     under the profiler."""
@@ -2213,11 +2489,16 @@ def main() -> int:
         launched11 = phase11(ct, hk, os.path.join(tmp, "data"), data,
                              queries, checks, want, 2, ident)
         log(f"phase 11: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        launched12 = phase12(ct, hk, os.path.join(tmp, "data"), queries,
+                             checks, want, ident)
+        log(f"phase 12: {time.perf_counter() - t0:.3f} s")
         for rep in reports:
             rep["launches_tpch22"] = launched[rep["name"]]
             rep["launches_phase9"] = launched9[rep["name"]]
             rep["launches_phase10"] = launched10[rep["name"]]
             rep["launches_phase11"] = launched11[rep["name"]]
+            rep["launches_phase12"] = launched12[rep["name"]]
 
         log(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s")
         print(json.dumps({"kernels": reports}), flush=True)

@@ -236,6 +236,47 @@ _register(ConfigVar(
     "CorruptStripe (ref: PostgreSQL data_checksums).",
     bool))
 
+# --- tracing (stats/tracing.py span flight recorder; the JAX package's
+# knobs and defaults) -------------------------------------------------------
+_register(ConfigVar(
+    "trace_enabled", True,
+    "Always-on span flight recorder: every statement records a span "
+    "tree (parse/plan/feed/device/combine/retry phases, carried across "
+    "producer threads; CUDA-event device legs on a cuda session), folds "
+    "its wall time into per-statement-class DDSketch latency histograms "
+    "(citus_stat_latency()), and keeps recent traces in a bounded ring.  "
+    "Off disables all recording.",
+    bool))
+_register(ConfigVar(
+    "trace_ring_statements", 128,
+    "Completed statement traces kept in the in-memory ring (oldest "
+    "dropped; spans per trace are capped too).",
+    int, min_value=1, max_value=100_000))
+_register(ConfigVar(
+    "trace_slow_statement_ms", 5000,
+    "Statements slower than this persist their span tree as JSON under "
+    "<data_dir>/slow_traces/ (newest 32 kept; python -m "
+    "citus_tpu_torch.stats.trace_export renders one for "
+    "chrome://tracing).  0 disables the slow-query log.",
+    int, min_value=0, max_value=86_400_000))
+_register(ConfigVar(
+    "trace_sample_every", 1,
+    "Record a full span tree for 1 in N statements (histograms always "
+    "update).  1 = every statement.",
+    int, min_value=1, max_value=1_000_000))
+_register(ConfigVar(
+    "trace_fast_statement_ms", 5.0,
+    "Auto-degrade threshold: statement classes whose observed mean wall "
+    "(≥8 calls) is below this record span trees only 1 in "
+    "trace_fast_sample_every statements.  Cold and slower classes and "
+    "every histogram update stay always-on.  0 disables the degrade.",
+    float, min_value=0.0, max_value=60_000.0))
+_register(ConfigVar(
+    "trace_fast_sample_every", 16,
+    "Tree-recording sample rate for sub-threshold statement classes "
+    "(see trace_fast_statement_ms).",
+    int, min_value=1, max_value=1_000_000))
+
 
 class Settings:
     """Session-scoped mutable settings over the global registry."""

@@ -218,10 +218,37 @@ class PlanCompiler:
         int64 numpy, out_meta, stage_keys): counters are [capacity
         overflow, dense_oob, *stage actuals] and stage_keys entries are
         (walk_index, kind, width)."""
-        from .cache import plan_order
+        from ..stats.tracing import (
+            device_timeline,
+            resolve_device_legs,
+            trace_span,
+        )
 
         self.plan = plan
         self.caps = caps
+        try:
+            # the eager program's launches, timed on the card by a CUDA
+            # event pair (the span's device_ms), then the two blocking
+            # copies back to the host
+            with trace_span("mesh.dispatch") as sp, \
+                    device_timeline(sp, self.device):
+                packed, counters, meta, stage_keys = self._dispatch(
+                    plan, feeds)
+            with trace_span("mesh.fetch"):
+                packed = packed.cpu().numpy()
+                counters = counters.cpu().numpy()
+        finally:
+            self.plan = self.caps = None
+        # the fetch returned: every launch before it has completed
+        resolve_device_legs()
+        self.out_meta, self.stage_keys = meta, stage_keys
+        return packed[:, None, :], counters, meta, stage_keys
+
+    def _dispatch(self, plan: QueryPlan, feeds) -> tuple:
+        """Enqueue the plan's launches; returns the packed outputs and
+        counters still on the device, with out_meta and stage_keys."""
+        from .cache import plan_order
+
         self._walk_order = plan_order(plan)
         self._stage_actual = {}
         self._stage_width = {}
@@ -230,39 +257,33 @@ class PlanCompiler:
         self._dense_oob = zero
         blocks = {nid: Block(dict(f.arrays), f.valid, dict(f.nulls))
                   for nid, f in feeds.items()}
-        try:
-            out = self._exec(plan.root, blocks)
-            topk = plan.device_topk
-            if topk is not None and out.valid.shape[0] > topk:
-                out = self._device_topk(out, topk)
-            out_cids = sorted(plan.root.out_columns)
-            shape = out.valid.shape
-            rows, meta = [], []
-            for cid in out_cids:
-                col = torch.broadcast_to(out.columns[cid], shape)
-                rows.append(_to_bits64(col))
-                meta.append(("col", cid, _np_dtype(col.dtype)))
-            for cid in out_cids:
-                rows.append(torch.broadcast_to(out.null_mask(cid),
-                                               shape).to(torch.int64))
-                meta.append(("null", cid, np.dtype(np.bool_)))
-            rows.append(out.valid.to(torch.int64))
-            meta.append(("valid", "", np.dtype(np.bool_)))
-            skeys = sorted(self._stage_actual,
-                           key=lambda k: (self._walk_order.get(
-                               k[0], 1 << 30), k[1]))
-            stage_keys = [(self._walk_order.get(nid, -1), kind,
-                           self._stage_width[(nid, kind)])
-                          for nid, kind in skeys]
-            counters = torch.stack(
-                [self._overflow, self._dense_oob]
-                + [self._stage_actual[k] for k in skeys])
-            packed = torch.stack(rows).cpu().numpy()
-            counters = counters.cpu().numpy()
-        finally:
-            self.plan = self.caps = None
-        self.out_meta, self.stage_keys = meta, stage_keys
-        return packed[:, None, :], counters, meta, stage_keys
+        out = self._exec(plan.root, blocks)
+        topk = plan.device_topk
+        if topk is not None and out.valid.shape[0] > topk:
+            out = self._device_topk(out, topk)
+        out_cids = sorted(plan.root.out_columns)
+        shape = out.valid.shape
+        rows, meta = [], []
+        for cid in out_cids:
+            col = torch.broadcast_to(out.columns[cid], shape)
+            rows.append(_to_bits64(col))
+            meta.append(("col", cid, _np_dtype(col.dtype)))
+        for cid in out_cids:
+            rows.append(torch.broadcast_to(out.null_mask(cid),
+                                           shape).to(torch.int64))
+            meta.append(("null", cid, np.dtype(np.bool_)))
+        rows.append(out.valid.to(torch.int64))
+        meta.append(("valid", "", np.dtype(np.bool_)))
+        skeys = sorted(self._stage_actual,
+                       key=lambda k: (self._walk_order.get(
+                           k[0], 1 << 30), k[1]))
+        stage_keys = [(self._walk_order.get(nid, -1), kind,
+                       self._stage_width[(nid, kind)])
+                      for nid, kind in skeys]
+        counters = torch.stack(
+            [self._overflow, self._dense_oob]
+            + [self._stage_actual[k] for k in skeys])
+        return torch.stack(rows), counters, meta, stage_keys
 
     # ------------------------------------------------------------------
     def _src(self, blk: Block) -> ColumnSource:

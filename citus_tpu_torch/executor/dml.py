@@ -157,9 +157,10 @@ def _split_assignments(session, table: str, meta, assignments):
                     is_null_lit or isinstance(a.value.value, str)):
                 raise UnsupportedQueryError(
                     "string column assignment must be a literal")
-            code = (None if is_null_lit else
-                    int(session.store.dictionary(table, a.column)
-                        .intern_array([a.value.value])[0]))
+            code = None
+            if not is_null_lit:
+                with session.store.interning(table, a.column) as d:
+                    code = int(d.intern_array([a.value.value])[0])
             direct.append((a.column, code))
         elif is_null_lit:
             direct.append((a.column, None))
@@ -320,7 +321,7 @@ def _merge_source(session, source: ast.FromItem):
                                merged_v, merged_m)
         return source.alias or source.name, cols, total
     if isinstance(source, ast.SubqueryRef):
-        res = session._execute_select(source.query)
+        res = session._execute_subselect(source.query)
         cols = {}
         for name in res.column_names:
             data = res.columns[name]
@@ -622,10 +623,10 @@ def _merge_shards(session, stmt, meta, shards, src_shard, src_cols,
                 cdef = meta.schema.column(c)
                 nulls = np.array([r[c][1] for r in upd_rows], dtype=bool)
                 if cdef.dtype == DataType.STRING:
-                    d = session.store.dictionary(stmt.target, c)
-                    codes = d.intern_array(
-                        [None if isnull else str(v)
-                         for (v, isnull) in (r[c] for r in upd_rows)])
+                    with session.store.interning(stmt.target, c) as d:
+                        codes = d.intern_array(
+                            [None if isnull else str(v)
+                             for (v, isnull) in (r[c] for r in upd_rows)])
                     cols_arr[c] = codes
                 else:
                     cols_arr[c] = np.array(

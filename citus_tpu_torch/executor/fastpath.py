@@ -30,6 +30,8 @@ import numpy as np
 from ..catalog import DistributionMethod
 from ..planner import expr as ir
 from ..planner.plan import JoinNode, ProjectNode, QueryPlan, ScanNode
+from ..stats import counters as sc
+from ..stats.tracing import trace_span
 from ..types import DataType
 from .feed import make_chunk_filter, walk_plan
 from .host_exprs import ColumnSource, evaluate, predicate_mask
@@ -143,13 +145,14 @@ def try_execute_fast_path(executor, plan: QueryPlan, raw: bool = False):
                 node.rel.table, shards[0].shard_id)
         if total > max_rows:
             return None
-    cols, nulls, valid = _exec_host(executor, plan.root)
-    # the host combine expects a null mask per column (the device path
-    # always materializes them)
-    for cid, arr in cols.items():
-        if cid not in nulls:
-            nulls[cid] = np.zeros(arr.shape[0], dtype=bool)
-    result = executor._host_combine(plan, cols, nulls, valid, raw)
+    with trace_span("fastpath"):
+        cols, nulls, valid = _exec_host(executor, plan.root)
+        # the host combine expects a null mask per column (the device
+        # path always materializes them)
+        for cid, arr in cols.items():
+            if cid not in nulls:
+                nulls[cid] = np.zeros(arr.shape[0], dtype=bool)
+        result = executor._host_combine(plan, cols, nulls, valid, raw)
     result.fast_path = True
     result.device_rows_scanned = 0
     return result
@@ -191,7 +194,8 @@ def _scan_host(executor, node: ScanNode):
     if value is not None and len(wanted) == 1:
         hits = pkindex.lookup(store, node.rel.table, wanted[0].shard_id,
                               meta.distribution_column, value)
-        executor.point_index_lookups += 1
+        if executor.counters is not None:
+            executor.counters.increment(sc.POINT_INDEX_LOOKUPS)
         vals, mask, n = pkindex.read_rows(store, node.rel.table,
                                           wanted[0].shard_id, colnames,
                                           hits)
@@ -210,7 +214,8 @@ def _scan_host(executor, node: ScanNode):
         name_map = {c.name: store.storage_column_name(node.rel.table,
                                                       c.name)
                     for c in meta.schema.columns}
-        chunk_filter = make_chunk_filter(node.filter, name_map)
+        chunk_filter = make_chunk_filter(node.filter, name_map,
+                                         executor.counters)
     parts_v = {c: [] for c in colnames}
     parts_m = {c: [] for c in colnames}
     n = 0

@@ -36,6 +36,7 @@ from ..planner.plan import (
     WindowNode,
     table_placement,
 )
+from ..stats.counters import CHUNKS_SKIPPED
 from ..storage import TableStore
 from .compiler import _round_cap
 from .scanpipe import maybe_pipelined_feed
@@ -66,10 +67,12 @@ def walk_plan(node: PlanNode):
 
 def build_feeds(plan: QueryPlan, catalog: Catalog, store: TableStore,
                 device, compute_dtype, cache, accountant,
-                stats, no_cache_nodes=frozenset()) -> dict[int, FeedSpec]:
+                stats, no_cache_nodes=frozenset(),
+                counters=None) -> dict[int, FeedSpec]:
     """One FeedSpec per scan node, placed through `accountant` (the
     data_dir's DeviceMemoryAccountant); `stats` (a ScanPhaseStats)
-    collects the pipelined scans' phase walls.  Scans in
+    collects the pipelined scans' phase walls, `counters` (the session's
+    StatCounters) the skipped and prefetched chunks.  Scans in
     `no_cache_nodes` (a multi-pass pass's split scan) bypass the feed
     cache."""
     feeds: dict[int, FeedSpec] = {}
@@ -78,7 +81,7 @@ def build_feeds(plan: QueryPlan, catalog: Catalog, store: TableStore,
             feeds[id(node)] = _feed_scan_cached(
                 node, catalog, store, device, plan.n_devices, compute_dtype,
                 None if id(node) in no_cache_nodes else cache, accountant,
-                stats)
+                stats, counters)
     return feeds
 
 
@@ -109,10 +112,11 @@ def skippable_tests(filter_expr) -> tuple:
     return tuple(sorted(tests, key=repr))
 
 
-def make_chunk_filter(filter_expr, storage_name=None):
+def make_chunk_filter(filter_expr, storage_name=None, counters=None):
     """ScanNode filter → per-chunk min/max skip predicate (None when the
     filter has no skippable shape).  `storage_name` maps current →
-    on-disk column names."""
+    on-disk column names; each skipped chunk bumps `counters`'
+    chunks_skipped."""
     tests = skippable_tests(filter_expr)
     if not tests:
         return None
@@ -133,6 +137,8 @@ def make_chunk_filter(filter_expr, storage_name=None):
                   or (op == "=" and mn <= val <= mx)
                   or (op == "in" and any(mn <= v <= mx for v in val)))
             if not ok:
+                if counters is not None:
+                    counters.increment(CHUNKS_SKIPPED)
                 return False
         return True
 
@@ -152,7 +158,7 @@ def _overlay_touches(store: TableStore, table: str) -> bool:
 
 def _feed_scan_cached(node: ScanNode, catalog: Catalog, store: TableStore,
                       device, n_dev: int, compute_dtype, cache, accountant,
-                      stats) -> FeedSpec:
+                      stats, counters=None) -> FeedSpec:
     """Device-feed cache wrapper keyed on (table, data version, columns,
     pruning, placement, skip filter) — see executor/cache.py.  Eager and
     pipelined feeds share the key: both hold the same rows in the same
@@ -160,7 +166,7 @@ def _feed_scan_cached(node: ScanNode, catalog: Catalog, store: TableStore,
     table = node.rel.table
     if cache is None or _overlay_touches(store, table):
         return _feed_scan(node, catalog, store, device, n_dev, compute_dtype,
-                          accountant, "feed", stats)
+                          accountant, "feed", stats, counters)
     shards = catalog.table_shards(table)
     placement_sig = tuple(
         (s.shard_id, catalog.active_placement(s.shard_id).node_id)
@@ -178,7 +184,7 @@ def _feed_scan_cached(node: ScanNode, catalog: Catalog, store: TableStore,
         # charged as "cache" from the start: the tensors become
         # cache-resident below and release when the entry is evicted
         spec = _feed_scan(node, catalog, store, device, n_dev, compute_dtype,
-                          accountant, "cache", stats)
+                          accountant, "cache", stats, counters)
         from .cache import CachedFeed
 
         nbytes = sum(t.numel() * t.element_size()
@@ -196,12 +202,12 @@ def _feed_scan_cached(node: ScanNode, catalog: Catalog, store: TableStore,
 
 def _feed_scan(node: ScanNode, catalog: Catalog, store: TableStore,
                device, n_dev: int, compute_dtype, accountant,
-               category: str, stats) -> FeedSpec:
+               category: str, stats, counters=None) -> FeedSpec:
     if n_dev != 1:
         raise ExecutionError("the port executes on one device")
     pipelined = maybe_pipelined_feed(node, catalog, store, device,
                                      compute_dtype, accountant, category,
-                                     stats)
+                                     stats, counters)
     if pipelined is not None:
         return pipelined
     rel = node.rel
@@ -212,7 +218,7 @@ def _feed_scan(node: ScanNode, catalog: Catalog, store: TableStore,
     if node.filter is not None:
         name_map = {c.name: store.storage_column_name(rel.table, c.name)
                     for c in meta.schema.columns}
-        chunk_filter = make_chunk_filter(node.filter, name_map)
+        chunk_filter = make_chunk_filter(node.filter, name_map, counters)
 
     sharded = meta.method == DistributionMethod.HASH
     if not sharded and len(shards) != 1:

@@ -103,6 +103,12 @@ def execute_insert_select(session, stmt):
         mode = choose_mode(session, plan, meta, columns)
         result = session.executor.execute_plan(plan, raw=True)
         n = _write_result(session, meta, columns, result)
+        from ..stats import counters as sc
+
+        session.stats.counters.increment(
+            sc.INSERT_SELECT_PUSHDOWN if mode == "colocated"
+            else sc.INSERT_SELECT_REPARTITION)
+        session.stats.counters.increment(sc.ROWS_INGESTED, n)
         return ResultSet(["inserted"], {"inserted": [n]}, 1), mode
     finally:
         for t in cleanup:
@@ -129,10 +135,11 @@ def _target_arrays(session, meta, columns, result):
             if src is None:
                 if arr.dtype == object or arr.dtype.kind in ("U", "S"):
                     # string values materialized host-side (e.g. literals)
-                    d = session.store.dictionary(meta.name, tgt_col)
-                    codes = d.intern_array(
-                        [None if nm else str(v)
-                         for v, nm in zip(arr, nmask)])
+                    with session.store.interning(meta.name,
+                                                 tgt_col) as d:
+                        codes = d.intern_array(
+                            [None if nm else str(v)
+                             for v, nm in zip(arr, nmask)])
                     typed[tgt_col] = codes
                 else:
                     raise PlanningError(
@@ -142,7 +149,6 @@ def _target_arrays(session, meta, columns, result):
                 from ..storage.dictionary import resolve_decode
 
                 src_d = resolve_decode(session.store, src)
-                tgt_d = session.store.dictionary(meta.name, tgt_col)
                 if src == (meta.name, tgt_col):
                     codes = arr.astype(np.int32)
                 elif len(src_d) == 0:
@@ -150,14 +156,16 @@ def _target_arrays(session, meta, columns, result):
                 else:
                     # translate only the codes actually present — interning
                     # the whole source dictionary would permanently bloat
-                    # the target's (dictionaries persist at commit)
+                    # the target's (dictionaries are durable)
                     safe = np.clip(arr.astype(np.int64), 0, len(src_d) - 1)
                     present = np.unique(safe[~nmask]) if (~nmask).any() \
                         else np.empty(0, dtype=np.int64)
                     lut = np.zeros(len(src_d), dtype=np.int32)
                     src_vals = src_d.values
-                    for c in present:
-                        lut[c] = tgt_d.intern(src_vals[int(c)])
+                    with session.store.interning(meta.name,
+                                                 tgt_col) as tgt_d:
+                        for c in present:
+                            lut[c] = tgt_d.intern(src_vals[int(c)])
                     codes = lut[safe]
                 codes = np.where(nmask, np.int32(NULL_CODE),
                                  codes.astype(np.int32))

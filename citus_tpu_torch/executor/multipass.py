@@ -43,6 +43,7 @@ from ..planner.plan import (
     ScanNode,
     WindowNode,
 )
+from ..stats import counters as sc
 from ..utils.cancellation import check_cancel
 from .feed import walk_plan
 from .stream import (
@@ -52,6 +53,7 @@ from .stream import (
     _scan_dev_rows,
     _scan_width_bytes,
     merge_parts,
+    partial_plan,
     stream_candidates,
 )
 
@@ -160,13 +162,16 @@ def try_execute_multipass(executor, plan: QueryPlan, raw: bool, k: int):
     split_widx = next(i for i, n in enumerate(walk_plan(plan.root))
                       if n is split)
     n_eff = sum(len(g) for g in groups)
+    # each pass runs without a device top-k that could cut a partial
+    # aggregate (stream.partial_plan); the host combine keeps `plan`
+    pass_plan = partial_plan(plan)
 
     parts: list = []
     rows_scanned = retries_total = batches_total = 0
     for group in groups:
         # pass boundaries are cancellation seams, like stream batches
         check_cancel()
-        p = copy.deepcopy(plan)
+        p = copy.deepcopy(pass_plan)
         node = next(n for i, n in enumerate(walk_plan(p.root))
                     if i == split_widx)
         node.pruned_shards = sorted(group)
@@ -178,6 +183,8 @@ def try_execute_multipass(executor, plan: QueryPlan, raw: bool, k: int):
         rows_scanned += scanned
         retries_total += retries
         batches_total += batches
+    if executor.counters is not None:
+        executor.counters.increment(sc.SPILL_PASSES_TOTAL, len(groups))
 
     cols, nulls, valid = merge_parts(plan, parts)
     result = executor._host_combine(plan, cols, nulls, valid, raw)

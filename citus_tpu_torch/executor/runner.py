@@ -29,6 +29,11 @@ longer fit the budget enters the same ladder when its shape can degrade.
 Converged capacities are memoized in memory per plan fingerprint; the
 JAX package's on-disk memo and executable cache are not part of the port
 (ROADMAP queue A item 7).
+
+Observability: the feed build, the host combine and (in PlanCompiler.run)
+the device program's dispatch and fetch are trace spans; the session's
+StatCounters (`counters`) count bucketed group-bys, the ladder's cache
+evictions and batch shrinks, and the feed path's chunk skips.
 """
 
 from __future__ import annotations
@@ -57,6 +62,8 @@ from ..planner.plan import (
     ScanNode,
     WindowNode,
 )
+from ..stats import counters as sc
+from ..stats.tracing import trace_span
 from ..storage import TableStore
 from ..storage.dictionary import resolve_decode
 from ..types import DataType
@@ -109,6 +116,10 @@ class ResultSet:
     # output SQL types by column name
     dtypes: dict[str, DataType] | None = None
     retries: int = 0
+    # the part of `retries` the session's retry envelope added (its
+    # retries and OOM rungs); the rest are the executor's capacity
+    # retries
+    envelope_retries: int = 0
     # result-transfer volume in row slots
     device_rows_scanned: int = 0
     device_rows_in: list[int] | None = None
@@ -132,11 +143,13 @@ class ResultSet:
 
 class Executor:
     def __init__(self, catalog: Catalog, store: TableStore,
-                 settings: Settings, device):
+                 settings: Settings, device, counters=None):
         self.catalog = catalog
         self.store = store
         self.settings = settings
         self.device = device
+        # the owning session's StatCounters (None: nothing counted)
+        self.counters = counters
         self.plan_cache = PlanCache(settings.get("max_cached_plans"))
         self.feed_cache = FeedCache(settings.get("max_cached_feed_bytes"))
         # the data_dir's device-memory ledger (shared by every session on
@@ -153,8 +166,6 @@ class Executor:
         # fingerprints already tightened by feedback (at most once each)
         self._tightened_fps: set = set()
         self._caps_lock = threading.Lock()
-        # scans the fast path answered through the point index
-        self.point_index_lookups = 0
 
     # ------------------------------------------------------------------
     def execute_plan(self, plan: QueryPlan, raw: bool = False) -> ResultSet:
@@ -191,8 +202,10 @@ class Executor:
         compute_dtype = np.dtype(self.settings.get("compute_dtype"))
         packed, out_meta, caps, retries, feeds = self._run_resident(
             plan, compute_dtype)
-        cols, nulls, valid = unpack_outputs(packed, out_meta)
-        result = self._host_combine(plan, cols, nulls, valid, raw)
+        self.count_groupby_bucketed(plan, caps)
+        with trace_span("combine"):
+            cols, nulls, valid = unpack_outputs(packed, out_meta)
+            result = self._host_combine(plan, cols, nulls, valid, raw)
         result.retries = retries
         result.device_rows_scanned = int(np.asarray(valid).size)
         result.device_rows_in = feed_device_rows(feeds)
@@ -203,9 +216,11 @@ class Executor:
         """Resident-feed execution core: build the feeds, resolve the
         capacity memo, run the overflow-retry loop.  Shared by
         execute_plan and each multi-pass pass."""
-        feeds = build_feeds(plan, self.catalog, self.store, self.device,
-                            compute_dtype, self.feed_cache, self.accountant,
-                            self.scan_stats, no_cache_nodes)
+        with trace_span("feed"):
+            feeds = build_feeds(plan, self.catalog, self.store,
+                                self.device, compute_dtype, self.feed_cache,
+                                self.accountant, self.scan_stats,
+                                no_cache_nodes, self.counters)
         topk_sig = (plan.device_topk, tuple(
             (repr(e), d, nf) for e, d, nf in plan.host_order_by)
             if plan.device_topk is not None else ())
@@ -430,6 +445,9 @@ class Executor:
             if i == 0:
                 if can_stream and self.oom.batch_shrink < MAX_BATCH_SHRINK:
                     self.oom.batch_shrink *= 2
+                    if self.counters is not None:
+                        self.counters.increment(
+                            sc.STREAM_BATCH_SHRINKS_TOTAL)
                     return "shrink_stream_batch"
             elif i == 1:
                 if can_stream and not self.oom.force_stream:
@@ -453,9 +471,25 @@ class Executor:
         evicted — only those mark the rung successful."""
         evicted = self.accountant.evict_evictable(
             nbytes * 4 if nbytes else None)
+        if evicted and self.counters is not None:
+            self.counters.increment(sc.CACHE_EVICTIONS_TOTAL, evicted)
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         return evicted
+
+    def count_groupby_bucketed(self, plan: QueryPlan,
+                               caps: Capacities) -> None:
+        """groupby_bucketed_total: once per executed statement whose
+        converged plan ran the bucketed group-by (the streamed path
+        calls this once after its batch loop; a dense_oob fallback onto
+        the sort path, caps.dense_off, counts nothing)."""
+        if self.counters is None:
+            return
+        nbk = sum(1 for nd in walk_plan(plan.root)
+                  if isinstance(nd, AggregateNode)
+                  and PlanCompiler.agg_bucket_shape(nd, caps.dense_off))
+        if nbk:
+            self.counters.increment(sc.GROUPBY_BUCKETED_TOTAL, nbk)
 
     # ------------------------------------------------------------------
     def _memoize_caps(self, fingerprint, plan: QueryPlan,

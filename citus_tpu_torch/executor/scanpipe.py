@@ -35,9 +35,15 @@ in shard order, exactly where the eager path puts each row, so the
 `host` mode uses `torch.from_numpy` (no pinning) and `device` mode runs
 the same encodings through the kernels' plain versions.
 
-Not in this slice: tracing spans, StatCounters, cancellation checks and
-the named fault points of the reference (ROADMAP queue A items 6 and
-8); each is marked below with its reference line.
+Observability, as in the reference: the producer adopts the statement's
+trace context, so its `scan.prefetch` / `scan.wire_encode` /
+`scan.transfer` spans nest under the feed span on their own track (a
+transfer carries a CUDA event pair on the side stream: its device_ms);
+the consumer records `scan.device_decode`.  Chunk tallies fold into the
+session's counters on the statement thread; the consumer's queue pops
+are cancellation seams; `executor.scan_prefetch` (a producer column
+read) and `executor.device_decode` (a wire payload's expansion) are
+named fault points.
 """
 
 from __future__ import annotations
@@ -52,7 +58,15 @@ import numpy as np
 import torch
 
 from ..errors import DeviceMemoryExhausted
+from ..stats import counters as sc
+from ..stats.tracing import (
+    adopt_context,
+    capture_context,
+    device_timeline,
+    trace_span,
+)
 from ..storage.table_store import tag_failed_read
+from ..utils.cancellation import check_cancel
 from ..utils.faultinjection import fault_point
 
 # below this many table rows 'auto' keeps the eager path: a producer
@@ -207,7 +221,7 @@ def _valid_expand(rows: torch.Tensor, cap: int) -> torch.Tensor:
 # the pipeline
 
 def maybe_pipelined_feed(node, catalog, store, device, compute_dtype,
-                         accountant, category: str, stats):
+                         accountant, category: str, stats, counters=None):
     """Build `node`'s feed through the pipelined path, or return None
     (caller proceeds on the eager path): scan_pipeline off / too small
     under 'auto' / open-transaction overlay on the table / the pipeline
@@ -224,7 +238,8 @@ def maybe_pipelined_feed(node, catalog, store, device, compute_dtype,
             store.table_row_count(node.rel.table) < AUTO_MIN_ROWS:
         return None
     pipe = _ScanPipeline(node, catalog, store, torch.device(device),
-                         compute_dtype, mode, accountant, category, stats)
+                         compute_dtype, mode, accountant, category, stats,
+                         counters)
     try:
         return pipe.run()
     except _Shed:
@@ -235,7 +250,7 @@ def maybe_pipelined_feed(node, catalog, store, device, compute_dtype,
 
 class _ScanPipeline:
     def __init__(self, node, catalog, store, device, compute_dtype, mode,
-                 accountant, category, stats):
+                 accountant, category, stats, counters=None):
         from ..catalog import DistributionMethod
         from ..errors import ExecutionError
         from .feed import make_chunk_filter
@@ -252,6 +267,12 @@ class _ScanPipeline:
         # build's phase walls must not skew the published stats
         self.stats_out = stats
         self.stats = ScanPhaseStats()
+        # the session's StatCounters; the producer's chunk tallies fold
+        # into it on the statement thread (a producer-thread increment
+        # would leak a counter slot per feed)
+        self.counters = counters
+        self.chunks_prefetched = 0
+        self.chunks_skipped = 0
         self.table = node.rel.table
         meta = catalog.table(self.table)
         self.sharded = meta.method == DistributionMethod.HASH
@@ -266,6 +287,8 @@ class _ScanPipeline:
                            for c in self.colnames}
         name_map = {c.name: store.storage_column_name(self.table, c.name)
                     for c in meta.schema.columns}
+        # no counters: the filter runs on the producer thread; skips
+        # are tallied from the selection result and folded later
         self.chunk_filter = (make_chunk_filter(node.filter, name_map)
                              if node.filter is not None else None)
         # read units: (shard_id, record) in shard order — the order the
@@ -355,8 +378,10 @@ class _ScanPipeline:
             v = np.zeros(n, dtype=self.dtypes[self.colnames.index(cname)])
             m = np.zeros(n, dtype=np.bool_)
         if first:
-            self._stat(chunks_prefetched=(len(lay[1]) if lay[1] is not None
-                                          else lay[3]))
+            n_ch = len(lay[1]) if lay[1] is not None else lay[3]
+            self.chunks_prefetched += n_ch
+            self.chunks_skipped += lay[3] - n_ch
+            self._stat(chunks_prefetched=n_ch)
         keep = lay[2]
         if keep is not None:
             v, m = v[keep], m[keep]
@@ -396,8 +421,7 @@ class _ScanPipeline:
             if pieces is not None:
                 v, m, n = pieces[ti]
             else:
-                # fault seam executor.scan_prefetch: not in this slice
-                # (citus_tpu/executor/scanpipe.py:481)
+                fault_point("executor.scan_prefetch")
                 v, m, n = self._read_stripe_column(ti, cname, first=False)
             off = self.layout[ti][0]
             if n == 0:
@@ -453,13 +477,20 @@ class _ScanPipeline:
             payload["event"] = self.side.record_event()
         return payload
 
+    def _transfer(self):
+        """The scan.transfer span of one placement, with its CUDA event
+        pair on the producer's stream (entered inside _copies())."""
+        sp = trace_span("scan.transfer")
+        return sp, device_timeline(sp, self.device)
+
     def _encode_and_place(self, ci: int, buf, nulls) -> dict:
         """Wire-encode (device mode) + place one column; returns the
         queue payload the consumer finishes."""
         buf_t, buf_a = buf
         t0 = time.perf_counter()
         if self.mode != "device":
-            with self._copies():
+            sp, leg = self._transfer()
+            with self._copies(), sp, leg:
                 arr, h = self._place(buf_t)
                 payload = {"kind": "plain", "arr": arr, "handle": h,
                            "wire": buf_a.nbytes, "decoded": buf_a.nbytes}
@@ -471,15 +502,17 @@ class _ScanPipeline:
                         decoded=payload["decoded"] + nulls[1].nbytes)
             self._stat(transfer_seconds=time.perf_counter() - t0)
             return self._done_copying(payload)
-        # span scan.wire_encode: not in this slice (scanpipe.py:569)
-        kind, wire, extra = encode_column(buf_a)
-        packed = (np.packbits(nulls[1], axis=-1)
-                  if nulls is not None else None)
-        wire_t = buf_t if wire is buf_a else self._staged(wire)
-        lut_t = self._staged(extra) if kind == "dict" else None
-        packed_t = self._staged(packed) if packed is not None else None
+        with trace_span("scan.wire_encode"):
+            kind, wire, extra = encode_column(buf_a)
+            packed = (np.packbits(nulls[1], axis=-1)
+                      if nulls is not None else None)
+            wire_t = buf_t if wire is buf_a else self._staged(wire)
+            lut_t = self._staged(extra) if kind == "dict" else None
+            packed_t = (self._staged(packed) if packed is not None
+                        else None)
         t1 = time.perf_counter()
-        with self._copies():
+        sp, leg = self._transfer()
+        with self._copies(), sp, leg:
             arr, h = self._place(wire_t)
             payload = {"kind": kind, "arr": arr, "handle": h,
                        "wire": wire.nbytes, "decoded": buf_a.nbytes}
@@ -501,7 +534,8 @@ class _ScanPipeline:
 
     def _valid_payload(self) -> dict:
         t0 = time.perf_counter()
-        with self._copies():
+        sp, leg = self._transfer()
+        with self._copies(), sp, leg:
             if self.mode == "device" and self.sharded:
                 rows = np.asarray([self.rows], dtype=np.int32)
                 arr, h = self._place(self._staged(rows))
@@ -530,14 +564,21 @@ class _ScanPipeline:
         return False
 
     def _produce(self):
-        # span adoption of the statement's trace context: not in this
-        # slice (citus_tpu/executor/scanpipe.py:640-645)
+        # the producer adopts the statement's trace context: its
+        # prefetch/encode/transfer spans nest under the span open when
+        # run() captured the token (the feed build), on the producer's
+        # own track; anything it leaves open is force-closed and counted
+        with adopt_context(self._trace_ctx):
+            self._produce_columns()
+
+    def _produce_columns(self):
         try:
             if self.cuda:
                 torch.cuda.set_device(self.device)
                 self.side = torch.cuda.Stream(device=self.device)
             t0 = time.perf_counter()
-            pieces = self._first_pass()
+            with trace_span("scan.prefetch"):
+                pieces = self._first_pass()
             self._stat(prefetch_seconds=time.perf_counter() - t0)
             if self.colnames:
                 buf, nulls = self._assemble(0, pieces)
@@ -548,7 +589,8 @@ class _ScanPipeline:
                 del buf, nulls
             for ci in range(1, len(self.colnames)):
                 t0 = time.perf_counter()
-                buf, nulls = self._assemble(ci)
+                with trace_span("scan.prefetch"):
+                    buf, nulls = self._assemble(ci)
                 self._stat(prefetch_seconds=time.perf_counter() - t0)
                 if not self._put(("col", self.node.columns[ci],
                                   self._encode_and_place(ci, buf, nulls))):
@@ -595,32 +637,47 @@ class _ScanPipeline:
         decoded_nulls = None
         if payload.get("nulls") is not None:
             if payload.get("nulls_packed"):
+                fault_point("executor.device_decode")
                 t0 = time.perf_counter()
-                decoded_nulls = hk.bit_unpack(payload["nulls"], self.cap)
-                self.acc.adopt(decoded_nulls, cat)
+                with trace_span("scan.device_decode"):
+                    decoded_nulls = hk.bit_unpack(payload["nulls"],
+                                                  self.cap)
+                    self.acc.adopt(decoded_nulls, cat)
                 self._stat(device_decode_seconds=time.perf_counter() - t0)
+                self._count_decoded(decoded_nulls)
             else:
                 self.acc.recharge(payload["nulls_handle"], cat)
                 decoded_nulls = payload["nulls"]
         if kind == "plain":
             self.acc.recharge(payload["handle"], cat)
             return payload["arr"], decoded_nulls
-        # fault seam executor.device_decode: not in this slice
-        # (citus_tpu/executor/scanpipe.py:717)
+        # named seam: a failure while expanding a wire payload must
+        # surface as a clean statement error with the charge released
+        fault_point("executor.device_decode")
         t0 = time.perf_counter()
-        if kind == "for":
-            decoded = for_expand(payload["arr"], payload["base"])
-        elif kind == "dict":
-            decoded = hk.dict_decode(payload["arr"], payload["lut"])
-        else:  # rows → valid prefix
-            decoded = _valid_expand(payload["arr"], self.cap)
-        self.acc.adopt(decoded, cat)
+        with trace_span("scan.device_decode"):
+            if kind == "for":
+                decoded = for_expand(payload["arr"], payload["base"])
+            elif kind == "dict":
+                decoded = hk.dict_decode(payload["arr"], payload["lut"])
+            else:  # rows → valid prefix
+                decoded = _valid_expand(payload["arr"], self.cap)
+            self.acc.adopt(decoded, cat)
         self._stat(device_decode_seconds=time.perf_counter() - t0)
+        self._count_decoded(decoded)
         return decoded, decoded_nulls
+
+    def _count_decoded(self, arr: torch.Tensor) -> None:
+        if self.counters is not None:
+            self.counters.increment(sc.DEVICE_DECODED_BYTES_TOTAL,
+                                    arr.numel() * arr.element_size())
 
     def run(self):
         from .feed import FeedSpec
 
+        # hand the statement's trace context to the producer thread
+        # (None when nothing is traced — adoption then no-ops)
+        self._trace_ctx = capture_context()
         t = threading.Thread(target=self._produce, daemon=True,
                              name="scan-prefetch")
         t.start()
@@ -632,8 +689,9 @@ class _ScanPipeline:
         got_first = False
         try:
             while True:
-                # cancellation check: not in this slice
-                # (citus_tpu/executor/scanpipe.py:759)
+                # queue pops are the consumer's cancellation seams (the
+                # finally below unwinds the producer cleanly)
+                check_cancel()
                 try:
                     kind, cid, payload = self.q.get(timeout=0.25)
                 except queue.Empty:
@@ -643,12 +701,19 @@ class _ScanPipeline:
                     if not waiting and got_first:
                         waiting = True
                         self._stat(prefetch_stalls=1)
+                        if self.counters is not None:
+                            self.counters.increment(
+                                sc.PREFETCH_STALLS_TOTAL)
                     continue
                 waiting = False
                 got_first = True
                 if kind == "err":
                     raise payload
                 if kind == "shed":
+                    # the same attempt redoes this feed eagerly (its
+                    # chunk filter counts skips afresh): this build's
+                    # tallies must not fold too
+                    self.chunks_prefetched = self.chunks_skipped = 0
                     raise _Shed()
                 if kind == "done":
                     break
@@ -675,6 +740,14 @@ class _ScanPipeline:
             # that won the race with the drain is dropped after the join
             t.join()
             self._drain()
+            # producer tallies fold on THIS (statement) thread
+            if self.counters is not None:
+                if self.chunks_prefetched:
+                    self.counters.increment(sc.CHUNKS_PREFETCHED_TOTAL,
+                                            self.chunks_prefetched)
+                if self.chunks_skipped:
+                    self.counters.increment(sc.CHUNKS_SKIPPED,
+                                            self.chunks_skipped)
         self._stat(feeds_pipelined=1)
         self.stats_out.merge(self.stats)
         return FeedSpec(node=self.node, sharded=self.sharded,

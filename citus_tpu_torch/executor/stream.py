@@ -28,6 +28,18 @@ the stream scan and the root must see the full other side per batch and
 emit each output row in exactly one batch — inner joins anywhere, outer
 joins only when the streamed side is the preserved side.  Aggregates are
 allowed only at the root (distributive merge); windows never.
+
+Device top-k (`plan.device_topk`) is kept per batch only where a batch's
+top k is a superset of its share of the global top k: a row output, or
+an aggregate ordered by group keys alone.  Ordered by an aggregate, a
+batch's partial sums say nothing about the group's total, so the batch
+plans run without it and the host sorts and limits after the merge
+(`partial_plan`; executor/multipass.py applies it per pass).
+
+Observability: the producer adopts the statement's trace context, so its
+`stream.decode` / `stream.transfer` spans (a transfer carries a CUDA
+event pair on the producer's stream) land in the statement's tree; each
+batch's run is a `stream.batch` span.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import queue
 import threading
 import time
 import traceback
+from dataclasses import replace as dc_replace
 
 import numpy as np
 import torch
@@ -49,6 +62,14 @@ from ..planner.plan import (
     QueryPlan,
     ScanNode,
     WindowNode,
+)
+from ..planner import expr as ir
+from ..stats import counters as sc
+from ..stats.tracing import (
+    adopt_context,
+    capture_context,
+    device_timeline,
+    trace_span,
 )
 from ..utils.cancellation import check_cancel
 from ..utils.faultinjection import fault_point
@@ -318,35 +339,41 @@ class StreamBatcher:
         always materializes (an empty table still runs once)."""
         node, rel = self.node, self.node.rel
         t0 = time.perf_counter()
-        pieces, rows = self._pull(self.batch_cap)
-        if batch_index > 0 and rows == 0:
-            return None
-        host_arrays, host_nulls = {}, {}
-        for cid, cname in zip(node.columns, self.colnames):
-            dtype = rel.schema.column(cname).dtype.numpy_dtype
-            if dtype == np.float64 and self.compute_dtype is not None:
-                dtype = np.dtype(self.compute_dtype)
-            t, buf = self._host(dtype)
-            with_nulls = cname in self._null_cols
-            nt, nbuf = self._host(np.bool_) if with_nulls else (None, None)
-            pos = 0
-            for v, m, take in pieces:
-                buf[pos:pos + take] = v[cname].astype(dtype, copy=False)
+        with trace_span("stream.decode"):
+            pieces, rows = self._pull(self.batch_cap)
+            if batch_index > 0 and rows == 0:
+                return None
+            host_arrays, host_nulls = {}, {}
+            for cid, cname in zip(node.columns, self.colnames):
+                dtype = rel.schema.column(cname).dtype.numpy_dtype
+                if dtype == np.float64 and self.compute_dtype is not None:
+                    dtype = np.dtype(self.compute_dtype)
+                t, buf = self._host(dtype)
+                with_nulls = cname in self._null_cols
+                nt, nbuf = (self._host(np.bool_) if with_nulls
+                            else (None, None))
+                pos = 0
+                for v, m, take in pieces:
+                    buf[pos:pos + take] = v[cname].astype(dtype,
+                                                          copy=False)
+                    if with_nulls:
+                        nbuf[pos:pos + take] = ~m[cname]
+                    pos += take
+                host_arrays[cid] = t
                 if with_nulls:
-                    nbuf[pos:pos + take] = ~m[cname]
-                pos += take
-            host_arrays[cid] = t
-            if with_nulls:
-                host_nulls[cid] = nt
-        vt, vbuf = self._host(np.bool_)
-        vbuf[:rows] = True
+                    host_nulls[cid] = nt
+            vt, vbuf = self._host(np.bool_)
+            vbuf[:rows] = True
         t1 = time.perf_counter()
         acc, dev = self.accountant, self.device
-        arrays = {c: acc.place(t, dev, "stream")
-                  for c, t in host_arrays.items()}
-        nulls = {c: acc.place(t, dev, "stream")
-                 for c, t in host_nulls.items()}
-        valid = acc.place(vt, dev, "stream")
+        # on the producer's CUDA stream (the caller's context): the
+        # event pair times the copies there
+        with trace_span("stream.transfer") as sp, device_timeline(sp, dev):
+            arrays = {c: acc.place(t, dev, "stream")
+                      for c, t in host_arrays.items()}
+            nulls = {c: acc.place(t, dev, "stream")
+                     for c, t in host_nulls.items()}
+            valid = acc.place(vt, dev, "stream")
         if self.stats is not None:
             self.stats.add(stream_decode_seconds=t1 - t0,
                            stream_transfer_seconds=time.perf_counter() - t1)
@@ -468,6 +495,8 @@ class _BatchProducer:
 
     def __init__(self, batcher: StreamBatcher, depth: int):
         self.batcher = batcher
+        # the statement's trace context, adopted by the thread
+        self.trace_ctx = capture_context()
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self.slots = threading.Semaphore(depth + 1)
         self.stop_evt = threading.Event()
@@ -494,6 +523,12 @@ class _BatchProducer:
         return self._wait(attempt)
 
     def _run(self):
+        # stream.decode / stream.transfer land in the statement's trace
+        # (leak-proof: adopt_context force-closes anything left open)
+        with adopt_context(self.trace_ctx):
+            self._produce()
+
+    def _produce(self):
         b = self.batcher
         try:
             if b.cuda:
@@ -556,6 +591,23 @@ def _adopt(payload, device) -> FeedSpec:
     return feed
 
 
+def partial_plan(plan: QueryPlan) -> QueryPlan:
+    """`plan` as one stream batch or multi-pass pass runs it: without
+    device top-k when its root aggregates and some ORDER BY key is not a
+    group key (a partial aggregate's top k can drop a group whose total
+    is in the global top k).  Row outputs, and aggregates ordered by
+    group keys only, keep the pushdown: a key in the global top k is in
+    the top k of every part that holds it."""
+    if plan.device_topk is None or not isinstance(plan.root, AggregateNode):
+        return plan
+    group_cids = {cid for _e, cid in plan.root.group_keys}
+    for e, _desc, _nf in plan.host_order_by:
+        for n in ir.walk(e):
+            if isinstance(n, ir.BCol) and n.cid not in group_cids:
+                return dc_replace(plan, device_topk=None)
+    return plan
+
+
 def try_execute_streamed(executor, plan: QueryPlan, raw: bool,
                          return_parts: bool = False,
                          no_cache_nodes=frozenset()):
@@ -599,22 +651,27 @@ def try_execute_streamed(executor, plan: QueryPlan, raw: bool,
                             executor.accountant, executor.scan_stats)
 
     feeds: dict[int, FeedSpec] = {}
-    for node in walk_plan(plan.root):
-        if isinstance(node, ScanNode) and node is not stream_node:
-            cache = (None if id(node) in no_cache_nodes
-                     else executor.feed_cache)
-            feeds[id(node)] = _feed_scan_cached(
-                node, executor.catalog, executor.store, executor.device,
-                plan.n_devices, compute_dtype, cache, executor.accountant,
-                executor.scan_stats)
+    with trace_span("feed"):
+        for node in walk_plan(plan.root):
+            if isinstance(node, ScanNode) and node is not stream_node:
+                cache = (None if id(node) in no_cache_nodes
+                         else executor.feed_cache)
+                feeds[id(node)] = _feed_scan_cached(
+                    node, executor.catalog, executor.store,
+                    executor.device, plan.n_devices, compute_dtype, cache,
+                    executor.accountant, executor.scan_stats,
+                    executor.counters)
     rows_in = sum(f.dev_rows[0] for f in feeds.values()
                   if f.dev_rows is not None)
 
+    # the plan each batch runs; the host combine below keeps `plan`
+    # (its sort and limit give the answer after the merge)
+    batch_plan = partial_plan(plan)
     producer = _BatchProducer(batcher, depth)
     producer.thread.start()
-    topk_sig = (plan.device_topk, tuple(
+    topk_sig = (batch_plan.device_topk, tuple(
         (repr(e), d, nf) for e, d, nf in plan.host_order_by)
-        if plan.device_topk is not None else ())
+        if batch_plan.device_topk is not None else ())
     caps = fingerprint = None
     parts = []
     rows_scanned = retries_total = n_consumed = 0
@@ -655,29 +712,37 @@ def try_execute_streamed(executor, plan: QueryPlan, raw: bool,
             # and tightening on batch 1 would risk an overflow-regrow
             # cycle on a later, fuller batch.  An overflow grows the
             # capacities once, for every later batch.
-            packed, out_meta, caps, r = executor.run_with_retry(
-                plan, feeds, caps, fingerprint, compute_dtype,
-                allow_tighten=False)
-            del feeds[sid]
-            producer.slots.release()
-            retries_total += r
-            cols, nulls, valid = unpack_outputs(packed, out_meta)
-            rows_scanned += int(np.asarray(valid).size)
-            parts.append(_flatten_batch(cols, nulls, valid))
+            with trace_span("stream.batch", batch=n_consumed - 1):
+                packed, out_meta, caps, r = executor.run_with_retry(
+                    batch_plan, feeds, caps, fingerprint, compute_dtype,
+                    allow_tighten=False)
+                del feeds[sid]
+                producer.slots.release()
+                retries_total += r
+                cols, nulls, valid = unpack_outputs(packed, out_meta)
+                rows_scanned += int(np.asarray(valid).size)
+                parts.append(_flatten_batch(cols, nulls, valid))
     finally:
         feeds.pop(sid, None)
         producer.stop()
 
     if return_parts:
         return parts, rows_scanned, retries_total, n_consumed, caps
-    t0 = time.perf_counter()
-    cols, nulls, valid = merge_parts(plan, parts)
-    executor.scan_stats.add(stream_merge_seconds=time.perf_counter() - t0)
-    result = executor._host_combine(plan, cols, nulls, valid, raw)
+    with trace_span("combine"):
+        t0 = time.perf_counter()
+        cols, nulls, valid = merge_parts(plan, parts)
+        executor.scan_stats.add(
+            stream_merge_seconds=time.perf_counter() - t0)
+        result = executor._host_combine(plan, cols, nulls, valid, raw)
     result.retries = retries_total
     result.device_rows_scanned = rows_scanned
     result.streamed_batches = n_consumed
     result.device_rows_in = [rows_in + batcher.total_rows]
+    if executor.counters is not None:
+        executor.counters.increment(sc.QUERIES_STREAMED)
+    if caps is not None:
+        # once per statement, after the batch loop
+        executor.count_groupby_bucketed(plan, caps)
     return result
 
 

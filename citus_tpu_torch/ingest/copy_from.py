@@ -325,6 +325,11 @@ def _ingest_batch(session, table: str, columns: list[str],
     if stage_txn:
         session.txn_manager.current.stage_dml(table, {}, pending)
         pending = []
+    stats = getattr(session, "stats", None)
+    if stats is not None:
+        from ..stats.counters import ROWS_INGESTED
+
+        stats.counters.increment(ROWS_INGESTED, n)
     return n, pending
 
 
@@ -359,12 +364,12 @@ def _convert_column(session, table, name, dtype: DataType, cells,
              if not pre_typed else c is not None
              for c in cells], dtype=bool)
     if dtype == DataType.STRING:
-        d = session.store.dictionary(table, name)
-        if valid.all():
-            codes = d.intern_array(cells)
-        else:
-            codes = d.intern_array([c if v else None
-                                    for c, v in zip(cells, valid)])
+        with session.store.interning(table, name) as d:
+            if valid.all():
+                codes = d.intern_array(cells)
+            else:
+                codes = d.intern_array([c if v else None
+                                        for c, v in zip(cells, valid)])
         return codes, valid
     np_dtype = dtype.numpy_dtype
     out = np.zeros(n, dtype=np_dtype)

@@ -1,0 +1,110 @@
+"""Cluster health checks + node promotion.
+
+Counterpart of citus_tpu/operations/health.py.  Reference analogues:
+
+* operations/health_check.c — `citus_check_cluster_node_health()` opens
+  a connection to every node from every node and reports the NxN
+  connectivity matrix.  Single-controller mapping: "connectivity" is
+  (a) the device backing a node answering a tiny round trip and (b)
+  the shared store answering a directory read — probed from the one
+  controller, so the matrix collapses to one row per node.  The device
+  leg places a 4-byte tensor on the session's device (cuda:0 in a cuda
+  session, the CPU in a CPU one) and reads it back.  The JAX package's
+  simulated-mesh check before the placement comes with the multi-GPU
+  slice (ROADMAP queue A item 9).
+* operations/node_promotion.c — `citus_promote_clone_and_rebalance`
+  turns a standby into a primary.  Replica placements already serve
+  reads when a node dies (catalog.active_placement failover); promotion
+  makes that durable: the dead node's placements demote to `to_delete`
+  and each shard's surviving replica becomes the primary.
+
+The JAX package's `health_sweep` (disable every node that fails its
+probe) comes with its only caller, the maintenance daemon (ROADMAP
+queue A item 10).  Promotion stays an explicit operator action.
+"""
+
+from __future__ import annotations
+
+import os
+
+from ..errors import CatalogError
+
+
+def probe_node(session, node) -> bool:
+    """One node's health: its device answers (device-backed nodes) and
+    the storage it hosts answers a directory read.  Non-device nodes
+    (spares, logical replicas) probe storage only."""
+    try:
+        if node.name.startswith("device:"):
+            idx = int(node.name.split(":", 1)[1])
+            if idx >= session.n_devices:
+                return False
+            import torch
+
+            # a 4-byte round trip, outside the accountant: charging it
+            # would make the probe depend on the ledger it may be
+            # diagnosing
+            out = torch.ones((), dtype=torch.int32, device=session.device)
+            if int(out.cpu()) != 1:
+                return False
+        # storage probe: an actual disk read of a shard directory this
+        # node hosts (an in-memory catalog read can never fail)
+        probed = False
+        for p in session.catalog.placements.values():
+            if p.node_id != node.node_id or p.shard_state != "active":
+                continue
+            shard = session.catalog.shards.get(p.shard_id)
+            if shard is None:
+                continue
+            sdir = session.store.shard_dir(shard.table_name, p.shard_id)
+            if os.path.isdir(sdir):  # shard dirs materialize lazily
+                os.listdir(sdir)     # raises on unreadable storage
+                probed = True
+                break
+        if not probed:
+            # the node hosts no materialized shards (a spare): the store
+            # root itself must exist and answer a directory read
+            os.listdir(session.store.data_dir)
+        return True
+    except Exception:  # noqa: BLE001 — any failure is an unhealthy probe
+        return False
+
+
+def check_cluster_health(session) -> list[tuple[str, bool, bool]]:
+    """[(node_name, is_active, healthy)] for every catalog node."""
+    return [(node.name, node.is_active, probe_node(session, node))
+            for node in sorted(session.catalog.nodes.values(),
+                               key=lambda n: n.node_id)]
+
+
+def promote_node_replicas(session, dead_node_name: str) -> int:
+    """Durably promote replicas: every shard whose placement on
+    `dead_node_name` is active gets that placement demoted to
+    `to_delete` — the surviving replica placement becomes the shard's
+    primary.  Fails if any shard would lose its last placement.
+    Returns the number of placements demoted."""
+    catalog = session.catalog
+    node = catalog.node_by_name(dead_node_name)
+    with catalog._lock:
+        doomed = [p for p in catalog.placements.values()
+                  if p.node_id == node.node_id
+                  and p.shard_state == "active"]
+        for p in doomed:
+            survivors = [
+                q for q in catalog.placements.values()
+                if q.shard_id == p.shard_id and q.shard_state == "active"
+                and q.node_id != node.node_id
+                and (n := catalog.nodes.get(q.node_id)) is not None
+                and n.is_active]
+            if not survivors:
+                raise CatalogError(
+                    f"shard {p.shard_id} has no replica outside "
+                    f"{dead_node_name!r} — cannot promote (add replicas "
+                    "or restore the node)")
+        for p in doomed:
+            p.shard_state = "to_delete"
+        if doomed:
+            catalog._bump()
+    if doomed:
+        session._save_catalog()
+    return len(doomed)

@@ -5,8 +5,8 @@ settings the port renders the JAX package's lines, one device.  The
 analogue of the reference's distributed EXPLAIN (planner/
 multi_explain.c:215 RemoteExplain) — but there are no remote per-task
 plans to fetch: the strategy annotations ARE the execution plan.
-EXPLAIN ANALYZE (wall-clock and trace lines from stats/tracing) is not
-in this port yet.
+EXPLAIN ANALYZE's run lines (Session._explain_analyze) register their
+tags here too.
 """
 
 from __future__ import annotations
@@ -34,8 +34,9 @@ _JOIN_LABEL = {
 # EXPLAIN tag registry: every strategy tag a plan renders in this port.
 # Render sites call explain_tag("…") instead of inlining the literal
 # (tests grep these strings — a silently renamed tag is a silently
-# broken assertion).  The JAX package's EXPLAIN ANALYZE tags come with
-# the port's stats/tracing.
+# broken assertion).  The JAX package's Integrity, Workload, Serving and
+# Replication tags come with their modules (ROADMAP queue A items 10
+# and 11).
 EXPLAIN_TAGS: dict[str, str] = {
     "Fast Path Router": "single-shard host execution, device skipped",
     "point index lookup": "scan answered by the persistent PK index",
@@ -43,9 +44,19 @@ EXPLAIN_TAGS: dict[str, str] = {
     "fused lookup": "PK-lookup join fused into the probe gather",
     "bucketed probe": "tile-resident bucketed probe path",
     "bucketed group-by": "dense-grid bucketed aggregation path",
+    "Chunks Skipped": "chunk groups pruned by min/max skip nodes",
     "pipelined scan":
         "feed built by the prefetch/decode/transfer pipeline "
         "(executor/scanpipe.py; scan_pipeline=host|device)",
+    "Streamed Execution": "scan ran via the batched stream pipeline",
+    "Device Rows Scanned": "result-transfer volume in row slots",
+    "Mesh": "device count, rows in/out, all_to_all bytes for this "
+            "statement",
+    "Timing": "per-phase wall-clock breakdown from this statement's "
+              "span trace (stats/tracing.py)",
+    "Memory": "device-memory ledger + OOM degradation for this statement",
+    "Resilience": "retry/failover totals for this statement",
+    "Caches": "plan/feed cache traffic for this statement",
 }
 
 

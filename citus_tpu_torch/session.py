@@ -43,9 +43,17 @@ finishes interrupted 2PC commits before re-running, resolves a COMMIT
 that died mid-2PC by its commit record, and walks the OOM degradation
 ladder (executor/runner.py `degrade_for_oom`) on DeviceMemoryExhausted.
 
-Not in this port yet: EXPLAIN ANALYZE, the UDFs of unported modules
-(`_UNPORTED_UDFS`), serving, WLM, replication, tracing and the stats
-counters, and the envelope's device-loss failover (multi-GPU).
+Observability (stats/): each Session owns `stats` (a SessionStats) —
+the counters behind citus_stat_counters, per-statement and per-tenant
+statistics, the live activity registry and the span flight recorder.
+`execute` traces every statement (parse → execute attempts → plan →
+feed → mesh.dispatch / mesh.fetch → combine, with CUDA-event device
+legs on a cuda session); EXPLAIN ANALYZE prints its Timing line from
+that trace.
+
+Not in this port yet: the UDFs of unported modules (`_UNPORTED_UDFS`),
+serving, WLM, replication, and the envelope's device-loss failover
+(multi-GPU).
 """
 
 from __future__ import annotations
@@ -79,6 +87,9 @@ from .planner.explain import format_plan
 from .planner.plan import DistributedPlanner, QueryPlan, StatsProvider
 from .runtime import resolve_device
 from .sql import ast, parse
+from .stats import SessionStats, extract_tenants
+from .stats import counters as sc
+from .stats.tracing import trace_span
 from .storage import TableStore
 from .transaction.locks import lock_manager_for
 from .transaction.manager import TransactionManager
@@ -91,25 +102,22 @@ from .types import (
 )
 
 
-# the catalog UDFs this port answers (Session._try_udf)
+# the UDFs this port answers (Session._try_udf): the catalog's, and the
+# stats and health UDFs of stats/ and operations/health.py
 _UDFS = ("create_distributed_table", "create_reference_table",
          "citus_add_node", "citus_remove_node", "citus_disable_node",
          "citus_activate_node", "nextval", "currval",
          "citus_tables", "citus_shards", "citus_change_feed",
-         "citus_get_node_clock")
+         "citus_get_node_clock",
+         "citus_stat_counters", "citus_stat_counters_reset",
+         "citus_stat_statements", "citus_stat_statements_reset",
+         "citus_stat_latency", "citus_stat_latency_reset",
+         "citus_stat_tenants", "citus_stat_activity", "citus_stat_memory",
+         "citus_check_cluster_node_health", "citus_promote_node")
 
 # the JAX package's other UDFs, by the ROADMAP queue A item that brings
 # their module: each raises UnsupportedQueryError naming it
 _UNPORTED_UDFS = {
-    **dict.fromkeys(
-        ("citus_stat_counters", "citus_stat_counters_reset",
-         "citus_stat_statements", "citus_stat_statements_reset",
-         "citus_stat_latency", "citus_stat_latency_reset",
-         "citus_stat_tenants", "citus_stat_activity",
-         "citus_check_cluster_node_health", "citus_promote_node"),
-        "queue A item 8 (stats/ and operations/health.py)"),
-    "citus_stat_memory":
-        "queue A item 8 (its columns read stats/counters)",
     **dict.fromkeys(
         ("citus_stat_mesh", "citus_rebalance_mesh", "citus_drain_device"),
         "queue A item 9 (multi-GPU)"),
@@ -182,6 +190,8 @@ class Session:
         self.data_dir = data_dir or tempfile.mkdtemp(prefix="citus_port_")
         os.makedirs(self.data_dir, exist_ok=True)
         self.settings = Settings(settings or None)
+        # counters, statement/tenant stats, activity and the tracer
+        self.stats = SessionStats(self.data_dir, self.settings)
         cat_path = os.path.join(self.data_dir, "catalog.json")
         self.catalog = (Catalog.load(cat_path) if os.path.exists(cat_path)
                         else Catalog())
@@ -192,7 +202,7 @@ class Session:
         if not self.catalog.nodes:
             self.catalog.add_node("device:0")
         self.executor = Executor(self.catalog, self.store, self.settings,
-                                 self.device)
+                                 self.device, self.stats.counters)
         # intermediate-result names: itertools.count is GIL-atomic, so
         # concurrent statements never mint the same temp
         self._temp_counter = itertools.count(1)
@@ -215,7 +225,14 @@ class Session:
 
     # ------------------------------------------------------------------
     def execute(self, sql: str):
-        """Run a SQL script; returns the last statement's ResultSet/None."""
+        """Run a SQL script; returns the last statement's ResultSet/None.
+
+        Each statement of the script gets its own trace (the first one's
+        covers parse, so top-level spans tile the wall), runs tracked in
+        the activity registry, and folds into the counters; the script
+        records once in citus_stat_statements and per pinned tenant."""
+        import time as _time
+
         # adopt another session's committed DDL; never mid-transaction
         # (the open transaction pinned its snapshot)
         if self.txn_manager.current is None:
@@ -223,9 +240,68 @@ class Session:
                                                    "catalog.json"))
         self._cancel_evt.clear()  # a fresh script clears stale cancels
         result = None
-        for stmt in parse(sql):
-            result = self._execute_resilient(stmt)
+        tenant_hits: list[tuple[str, object]] = []
+        tracer = self.stats.tracing
+        th = tracer.begin(sql)
+        trace_err = None
+        try:
+            with trace_span("parse"):
+                stmts = parse(sql)
+            with self.stats.activity.track(sql) as activity:
+                t0 = _time.perf_counter()
+                for i, stmt in enumerate(stmts):
+                    if i:
+                        tracer.end(th)
+                        th = tracer.begin(sql)
+                    activity.retries = 0
+                    # per statement: the citus_stat_activity cache
+                    # columns show the in-flight statement's own traffic
+                    activity.cache_base = (
+                        self.executor.plan_cache.hits,
+                        self.executor.plan_cache.misses,
+                        self.executor.feed_cache.hits,
+                        self.executor.feed_cache.misses)
+                    result = self._execute_resilient(stmt, activity)
+                    self._count_statement(stmt, result)
+                    tenant_hits.extend(extract_tenants(stmt, self.catalog))
+                elapsed_ms = (_time.perf_counter() - t0) * 1000.0
+        except BaseException as e:
+            trace_err = e
+            raise
+        finally:
+            tracer.end(th, error=trace_err)
+        rows = getattr(result, "row_count", 0) if result is not None else 0
+        self.stats.queries.record(sql, elapsed_ms, rows)
+        for table, tenant in tenant_hits:
+            self.stats.tenants.record(table, tenant, elapsed_ms)
         return result
+
+    def _count_statement(self, stmt: ast.Statement, result) -> None:
+        c = self.stats.counters
+        if isinstance(stmt, ast.Select):
+            if (not stmt.from_items and len(stmt.items) == 1
+                    and isinstance(stmt.items[0].expr, ast.FuncCall)
+                    and stmt.items[0].expr.name in _UDFS):
+                return  # admin UDF calls aren't query traffic
+            if result is not None:
+                c.increment(sc.ROWS_RETURNED, result.row_count)
+                # the executor's capacity retries (the envelope's own
+                # retries and rungs count in retries_total and
+                # oom_events_total)
+                c.increment(sc.CAPACITY_RETRIES,
+                            result.retries - result.envelope_retries)
+                c.increment(sc.DEVICE_ROWS_SCANNED,
+                            result.device_rows_scanned)
+                if result.fast_path:
+                    c.increment(sc.QUERIES_FAST_PATH)
+        elif isinstance(stmt, ast.Update):
+            c.increment(sc.DML_UPDATE)
+        elif isinstance(stmt, ast.Delete):
+            c.increment(sc.DML_DELETE)
+        elif isinstance(stmt, ast.Merge):
+            c.increment(sc.DML_MERGE)
+        elif isinstance(stmt, (ast.CreateTable, ast.DropTable)):
+            c.increment(sc.DDL_COMMANDS)
 
     def cancel(self) -> None:
         """Cooperative cross-thread cancel of the statement running on
@@ -235,7 +311,7 @@ class Session:
         self._cancel_evt.set()
 
     # -- the statement envelope --------------------------------------------
-    def _execute_resilient(self, stmt: ast.Statement):
+    def _execute_resilient(self, stmt: ast.Statement, activity=None):
         """One statement under the resilience envelope: a cooperative
         deadline (`statement_timeout_ms` + Session.cancel) around a
         bounded retry loop (`max_statement_retries`, exponential backoff
@@ -248,7 +324,10 @@ class Session:
         (its own budget: the ladder's depth is a property of the shape,
         not a transient-fault allowance).  A returned ResultSet's
         `retries` adds this loop's retries and rungs to the executor's
-        capacity retries."""
+        capacity retries (`envelope_retries` holds the added part).
+        `activity` (the statement's ActivityEntry) shows the attempts
+        live in citus_stat_activity.  Each attempt is an `execute`
+        span; rungs and backoff waits are spans of their own."""
         import random as _random
         import traceback as _traceback
 
@@ -278,19 +357,32 @@ class Session:
                     commit_txid = self.txn_manager.current.txid
                 try:
                     check_cancel()
-                    result = self._execute_statement(stmt)
+                    n_attempt = attempt + oom_steps
+                    # first attempts (the steady state) skip the meta
+                    espan = (trace_span("execute") if n_attempt == 0
+                             else trace_span("execute", attempt=n_attempt))
+                    with espan:
+                        result = self._execute_statement(stmt)
                     if isinstance(result, ResultSet):
-                        result.retries += attempt + oom_steps
+                        result.retries += n_attempt
+                        result.envelope_retries = n_attempt
                     return result
-                except (StatementTimeout, QueryCanceled):
+                except (StatementTimeout, QueryCanceled) as e:
                     if commit_txid is not None and \
                             self._resolve_failed_commit(commit_txid):
                         # the deadline/cancel fired inside the 2PC with
                         # the commit record durable: the transaction IS
                         # committed (recovery just rolled it forward)
                         return None
+                    self.stats.counters.increment(
+                        sc.TIMEOUTS_TOTAL
+                        if isinstance(e, StatementTimeout)
+                        else sc.QUERIES_CANCELED)
                     raise
                 except Exception as e:
+                    if getattr(e, "injected_fault", False):
+                        self.stats.counters.increment(
+                            sc.FAULTS_INJECTED_TOTAL)
                     # device-memory exhaustion is retryable after
                     # degradation: each OOM applies the next rung of the
                     # ladder (evict caches → shrink stream batches →
@@ -300,20 +392,24 @@ class Session:
                     # before any visibility flip, so the re-run is safe.
                     if isinstance(e, DeviceMemoryExhausted) and \
                             commit_txid is None:
+                        self.stats.counters.increment(sc.OOM_EVENTS_TOTAL)
                         if not self.settings.get("oom_degradation"):
                             raise
                         # the failed attempt's finished frames hold its
                         # feeds: release them before the rung evicts
                         _traceback.clear_frames(e.__traceback__)
                         oom_steps += 1
-                        rung = self.executor.degrade_for_oom(
-                            oom_steps, getattr(e, "nbytes", None))
+                        with trace_span("oom.degrade", rung=oom_steps):
+                            rung = self.executor.degrade_for_oom(
+                                oom_steps, getattr(e, "nbytes", None))
                         if rung is None:
                             raise ResourceExhausted(
                                 "statement does not fit device memory "
                                 f"even after {oom_steps - 1} "
                                 f"degradation rung(s): {e}") from e
                         self.last_oom_rungs.append(rung)
+                        if activity is not None:
+                            activity.retries = attempt + oom_steps
                         continue  # re-run degraded (deadline intact)
                     retryable = self._retryable_error(e)
                     # COPY commits each parsed batch on its own, so
@@ -332,6 +428,9 @@ class Session:
                     if not retryable or attempt >= max_retries:
                         raise
                     attempt += 1
+                    self.stats.counters.increment(sc.RETRIES_TOTAL)
+                    if activity is not None:
+                        activity.retries = attempt + oom_steps
                     self._mark_failover(e)
                     # retries must never observe half-applied state:
                     # finish any interrupted 2PC before re-executing
@@ -357,7 +456,8 @@ class Session:
                     if delay:
                         # waiting on the cancel event (not time.sleep)
                         # keeps Session.cancel() prompt mid-backoff
-                        self._cancel_evt.wait(delay)
+                        with trace_span("retry.backoff"):
+                            self._cancel_evt.wait(delay)
                     # loop: the next check_cancel raises if the wait
                     # consumed the deadline or a cancel arrived
 
@@ -384,7 +484,7 @@ class Session:
         """A failed shard read carries (table, shard_id): mark the
         placement it routed to suspect, so `catalog.active_placement`
         (and with it `store.stripe_read_path`) routes the retry to a
-        surviving replica."""
+        surviving replica, and count the failover when one exists."""
         shard_id = getattr(e, "shard_id", None)
         if shard_id is None:
             return
@@ -392,7 +492,8 @@ class Session:
             p = self.catalog.active_placement(shard_id)
         except Exception:  # noqa: BLE001 — no placement: a bare retry
             return
-        self.catalog.mark_placement_suspect(p.placement_id)
+        if self.catalog.mark_placement_suspect(p.placement_id):
+            self.stats.counters.increment(sc.FAILOVERS_TOTAL)
 
     def _resolve_failed_commit(self, txid: int) -> bool:
         """COMMIT died mid-2PC: resolve by the recovery rule instead of
@@ -611,7 +712,137 @@ class Session:
                  "min_value": list(cols[2]), "max_value": list(cols[3]),
                  "node": list(cols[4]), "size_bytes": list(cols[5]),
                  "live_rows": list(cols[6])}, len(rows))
+        elif e.name.startswith("citus_stat_"):
+            return self._stat_udf(e.name)
+        elif e.name == "citus_check_cluster_node_health":
+            # health_check.c analogue: one probe row per node (device +
+            # storage reachability from the controller)
+            from .operations.health import check_cluster_health
+
+            hrows = check_cluster_health(self)
+            return ResultSet(
+                ["node_name", "is_active", "healthy"],
+                {"node_name": [r[0] for r in hrows],
+                 "is_active": [r[1] for r in hrows],
+                 "healthy": [r[2] for r in hrows]}, len(hrows))
+        elif e.name == "citus_promote_node":
+            # node_promotion.c analogue: demote a dead node's placements
+            # so every shard's surviving replica becomes its primary
+            from .operations.health import promote_node_replicas
+
+            n = promote_node_replicas(self, str(args[0]))
+            return ResultSet(["placements_demoted"],
+                             {"placements_demoted": [n]}, 1)
         return ResultSet(["ok"], {"ok": [True]}, 1)
+
+    def _stat_udf(self, name: str):
+        """The citus_stat_* UDFs (the JAX package's columns); the
+        *_reset ones answer like any admin UDF."""
+        st = self.stats
+        if name == "citus_stat_counters":
+            snap = st.counters.snapshot()
+            names = sorted(snap)
+            return ResultSet(["name", "value"],
+                             {"name": names,
+                              "value": [snap[n] for n in names]}, len(names))
+        if name == "citus_stat_statements":
+            entries = st.queries.entries()
+            return ResultSet(
+                ["query", "calls", "total_time_ms", "rows"],
+                {"query": [q.query for q in entries],
+                 "calls": [q.calls for q in entries],
+                 "total_time_ms": [round(q.total_time_ms, 3)
+                                   for q in entries],
+                 "rows": [q.rows for q in entries]}, len(entries))
+        if name == "citus_stat_latency":
+            # per-statement-class DDSketch histograms of the recorder
+            lrows = st.tracing.latency_rows()
+            lcols = ["statement_class", "calls", "mean_ms", "p50_ms",
+                     "p95_ms", "p99_ms", "max_ms"]
+            return ResultSet(
+                lcols, {c: [r[c] for r in lrows] for c in lcols},
+                len(lrows))
+        if name == "citus_stat_tenants":
+            entries = st.tenants.entries()
+            return ResultSet(
+                ["table_name", "tenant_attribute", "query_count",
+                 "total_time_ms"],
+                {"table_name": [t.table for t in entries],
+                 "tenant_attribute": [t.tenant for t in entries],
+                 "query_count": [t.query_count for t in entries],
+                 "total_time_ms": [round(t.total_time_ms, 3)
+                                   for t in entries]}, len(entries))
+        if name == "citus_stat_activity":
+            return self._stat_activity()
+        if name == "citus_stat_memory":
+            return self._stat_memory()
+        reset = {"citus_stat_counters_reset": st.counters.reset,
+                 "citus_stat_statements_reset": st.queries.reset,
+                 "citus_stat_latency_reset": st.tracing.reset_latency}
+        reset[name]()
+        return ResultSet(["ok"], {"ok": [True]}, 1)
+
+    def _stat_activity(self):
+        entries = self.stats.activity.entries()
+        # per-statement cache activity: live executor totals minus the
+        # snapshot taken when the statement started
+        ex = self.executor
+        live = (ex.plan_cache.hits, ex.plan_cache.misses,
+                ex.feed_cache.hits, ex.feed_cache.misses)
+
+        def delta(a, i):
+            if a.cache_base is None:
+                return 0
+            return max(0, live[i] - a.cache_base[i])
+
+        # live/peak device bytes are the data_dir-shared accountant's
+        # ledger at snapshot time (repeated per row)
+        hbm_live = ex.accountant.live_bytes()
+        hbm_peak = ex.accountant.peak_bytes
+        return ResultSet(
+            ["global_pid", "query", "state", "wait_state",
+             "queued_ms", "retries", "read_repairs",
+             "plan_cache_hits", "plan_cache_misses",
+             "feed_cache_hits", "feed_cache_misses",
+             "hbm_live_bytes", "hbm_peak_bytes"],
+            {"global_pid": [a.gpid for a in entries],
+             "query": [a.query for a in entries],
+             "state": [a.state for a in entries],
+             "wait_state": [a.wait_state for a in entries],
+             "queued_ms": [round(a.queued_ms, 3) for a in entries],
+             "retries": [a.retries for a in entries],
+             "read_repairs": [a.read_repairs for a in entries],
+             "plan_cache_hits": [delta(a, 0) for a in entries],
+             "plan_cache_misses": [delta(a, 1) for a in entries],
+             "feed_cache_hits": [delta(a, 2) for a in entries],
+             "feed_cache_misses": [delta(a, 3) for a in entries],
+             "hbm_live_bytes": [hbm_live] * len(entries),
+             "hbm_peak_bytes": [hbm_peak] * len(entries)},
+            len(entries))
+
+    def _stat_memory(self):
+        """Device-memory snapshot: the shared accountant's ledger, this
+        executor's degradation state, and the CUDA allocator's own
+        stats (none on a CPU session)."""
+        from .executor.hbm import DeviceMemoryAccountant
+
+        acc = self.executor.accountant
+        csnap = self.stats.counters.snapshot()
+        dev = DeviceMemoryAccountant.device_memory_stats(self.device)
+        cols = dict(acc.snapshot())
+        cols["budget_bytes"] = acc.budget_bytes(self.device, self.settings)
+        for c in (sc.OOM_EVENTS_TOTAL, sc.CACHE_EVICTIONS_TOTAL,
+                  sc.STREAM_BATCH_SHRINKS_TOTAL, sc.SPILL_PASSES_TOTAL):
+            cols[c] = csnap.get(c, 0)
+        oom = self.executor.oom
+        cols["degradation_batch_shrink"] = oom.batch_shrink
+        cols["degradation_force_stream"] = oom.force_stream
+        cols["degradation_multipass_k"] = oom.multipass_k
+        cols["device_bytes_in_use"] = (
+            sum(d["bytes_in_use"] for d in dev) if dev else None)
+        cols["device_bytes_limit"] = (
+            min(d["bytes_limit"] for d in dev) if dev else None)
+        return ResultSet(list(cols), {k: [v] for k, v in cols.items()}, 1)
 
     def create_distributed_table(self, name: str, distribution_column: str,
                                  shard_count: int | None = None,
@@ -725,6 +956,7 @@ class Session:
         self.store.bump_data_version(stmt.table)
         self.executor.feed_cache.invalidate_table(stmt.table)
         self._save_catalog()
+        self.stats.counters.increment(sc.DDL_COMMANDS)
         return None
 
     def _execute_drop_table(self, stmt: ast.DropTable):
@@ -880,6 +1112,7 @@ class Session:
             meta = self.catalog.table(stmt.table)
             columns = list(stmt.columns or meta.schema.names)
             rows = [list(r) for r in result.rows()]
+            self.stats.counters.increment(sc.INSERT_SELECT_PULL)
             return insert_rows(self, stmt.table, columns, rows)
 
     def _execute_dml(self, stmt):
@@ -905,13 +1138,43 @@ class Session:
 
     def _execute_select(self, sel: ast.Select,
                         params: tuple = ()) -> ResultSet:
-        """A statement or a subplan: plan, run, drop the temps."""
+        """A statement's SELECT: plan, count its shape, run, drop the
+        temps."""
         plan, cleanup = self._plan_select(sel, params)
+        self._count_plan_shape(plan)
         try:
             return self.executor.execute_plan(plan)
         finally:
             for t in cleanup:
                 self._drop_temp(t)
+
+    def _execute_subselect(self, sel: ast.Select) -> ResultSet:
+        """Nested execution (recursive planning, set-operation sides,
+        MERGE sources): counts as a subplan, not as query traffic."""
+        self.stats.counters.increment(sc.SUBPLANS_EXECUTED)
+        plan, cleanup = self._plan_select(sel)
+        try:
+            return self.executor.execute_plan(plan)
+        finally:
+            for t in cleanup:
+                self._drop_temp(t)
+
+    def _count_plan_shape(self, plan: QueryPlan) -> None:
+        from .executor.feed import walk_plan
+        from .planner.plan import JoinNode, ScanNode
+
+        scans = [n for n in walk_plan(plan.root) if isinstance(n, ScanNode)]
+        repartition = any(
+            isinstance(n, JoinNode) and n.strategy.startswith("repart")
+            for n in walk_plan(plan.root))
+        single_shard = all(n.pruned_shards is not None
+                           and len(n.pruned_shards) <= 1 for n in scans)
+        if repartition:
+            self.stats.counters.increment(sc.QUERIES_REPARTITION)
+        if single_shard and scans:
+            self.stats.counters.increment(sc.QUERIES_SINGLE_SHARD)
+        else:
+            self.stats.counters.increment(sc.QUERIES_MULTI_SHARD)
 
     def _plan_select(self, sel: ast.Select, params: tuple = ()
                      ) -> tuple[QueryPlan, list[str]]:
@@ -922,20 +1185,27 @@ class Session:
         (generic over them); subplans substitute them (_sub_params)."""
         cleanup: list[str] = []
         try:
-            prev = getattr(self._params_tls, "value", ())
-            self._params_tls.value = params
-            try:
-                sel = self._recursive_plan(sel, cleanup)
-            finally:
-                self._params_tls.value = prev
-            binder = Binder(self.catalog, _StoreDicts(self.store),
-                            params=params)
-            bound = binder.bind_select(sel)
-            planner = DistributedPlanner(
-                self.catalog, _StoreStats(self.store), self.n_devices,
-                self.settings.get("enable_repartition_joins"),
-                dicts=_StoreDicts(self.store), device=self.device)
-            return planner.plan(bound), cleanup
+            with trace_span("plan"):
+                prev = getattr(self._params_tls, "value", ())
+                self._params_tls.value = params
+                try:
+                    sel = self._recursive_plan(sel, cleanup)
+                finally:
+                    self._params_tls.value = prev
+                # another session's commit since this session cached a
+                # table's manifest and dictionaries: reload both before
+                # binding (string literals bind through the dictionary)
+                for t in _from_tables(sel):
+                    if self.catalog.has_table(t):
+                        self.store.refresh_if_stale(t)
+                binder = Binder(self.catalog, _StoreDicts(self.store),
+                                params=params)
+                bound = binder.bind_select(sel)
+                planner = DistributedPlanner(
+                    self.catalog, _StoreStats(self.store), self.n_devices,
+                    self.settings.get("enable_repartition_joins"),
+                    dicts=_StoreDicts(self.store), device=self.device)
+                return planner.plan(bound), cleanup
         except BaseException:
             for t in cleanup:
                 self._drop_temp(t)
@@ -960,12 +1230,9 @@ class Session:
             _substitute_params(target, stmt.args))
 
     def _execute_explain(self, stmt: ast.Explain):
-        """EXPLAIN [EXECUTE name(args)] SELECT: the plan's lines, as
-        the JAX package renders them at one device."""
-        if stmt.analyze:
-            raise UnsupportedQueryError(
-                "EXPLAIN ANALYZE is not in this port yet: it comes with "
-                "stats/tracing (queue A item 8)")
+        """EXPLAIN [ANALYZE] [EXECUTE name(args)] SELECT: the plan's
+        lines, as the JAX package renders them at one device; ANALYZE
+        runs the plan and appends the JAX package's run lines."""
         target = stmt.statement
         params: tuple = ()
         if isinstance(target, ast.ExecutePrepared):
@@ -985,11 +1252,101 @@ class Session:
         try:
             lines = format_plan(plan, self.catalog, self.settings,
                                 self.device)
+            if stmt.analyze:
+                lines += self._explain_analyze(plan)
             return ResultSet(["QUERY PLAN"], {"QUERY PLAN": lines},
                              len(lines))
         finally:
             for t in cleanup:
                 self._drop_temp(t)
+
+    def _explain_analyze(self, plan: QueryPlan) -> list[str]:
+        """Run `plan` and render the JAX package's EXPLAIN ANALYZE lines,
+        in its order and format: Execution Time, Timing (from this
+        statement's span trace; a dispatch's device_ms stays in the
+        trace), Rows, Chunks Skipped, Device Rows Scanned, Streamed
+        Execution, Mesh, Memory, Resilience and Caches.  Integrity
+        (ROADMAP queue A item 10), Workload, Serving and Replication
+        (item 11) come with their modules, and so do the Caches line's
+        exec-cache fields (item 7)."""
+        import time
+
+        from .planner.explain import explain_tag
+        from .stats.tracing import current_root, format_timing_line
+
+        counters = self.stats.counters
+        snap0 = counters.snapshot()
+        pc, fc = self.executor.plan_cache, self.executor.feed_cache
+        cache0 = (pc.hits, pc.misses, fc.hits, fc.misses)
+        t0 = time.perf_counter()
+        result = self.executor.execute_plan(plan)
+        elapsed = time.perf_counter() - t0
+        lines = [f"Execution Time: {elapsed * 1000:.2f} ms"]
+        troot = current_root()
+        if troot is not None:
+            lines.append(f"{explain_tag('Timing')}: "
+                         + format_timing_line(troot))
+        else:
+            lines.append(f"{explain_tag('Timing')}: "
+                         f"total={elapsed * 1000:.2f}ms "
+                         "(no trace: tracing off or sampled out)")
+        lines.append(f"Rows: {result.row_count}"
+                     + (f" (capacity retries: {result.retries})"
+                        if result.retries else ""))
+        snap = counters.snapshot()
+
+        def d(name):
+            return snap.get(name, 0) - snap0.get(name, 0)
+
+        if d(sc.CHUNKS_SKIPPED):
+            lines.append(f"{explain_tag('Chunks Skipped')}: "
+                         f"{d(sc.CHUNKS_SKIPPED)}")
+        if result.device_rows_scanned:
+            lines.append(f"{explain_tag('Device Rows Scanned')}: "
+                         f"{result.device_rows_scanned}")
+        if result.streamed_batches:
+            lines.append(f"{explain_tag('Streamed Execution')}: "
+                         f"{result.streamed_batches} batches")
+        rows_in = result.device_rows_in
+        lines.append(
+            f"{explain_tag('Mesh')}: devices={self.n_devices} "
+            f"rows_in={rows_in if rows_in is not None else 'n/a'} "
+            f"rows_out=n/a all_to_all_bytes={d(sc.SHUFFLE_BYTES_TOTAL)}")
+        msnap = self.executor.accountant.snapshot()
+        lines.append(
+            f"{explain_tag('Memory')}: "
+            f"oom_events={d(sc.OOM_EVENTS_TOTAL)} "
+            f"cache_evictions={d(sc.CACHE_EVICTIONS_TOTAL)} "
+            f"spill_passes={d(sc.SPILL_PASSES_TOTAL)} "
+            f"live={msnap['live_bytes']} peak={msnap['peak_bytes']} "
+            f"(session totals: oom_events_total="
+            f"{snap.get(sc.OOM_EVENTS_TOTAL, 0)} "
+            "stream_batch_shrinks_total="
+            f"{snap.get(sc.STREAM_BATCH_SHRINKS_TOTAL, 0)} "
+            f"spill_passes_total={snap.get(sc.SPILL_PASSES_TOTAL, 0)})")
+        lines.append(
+            f"{explain_tag('Resilience')}: "
+            f"retries={d(sc.RETRIES_TOTAL)} "
+            f"failovers={d(sc.FAILOVERS_TOTAL)} "
+            f"devices_lost={d(sc.DEVICE_LOST_TOTAL)} "
+            f"mesh_failovers={d(sc.MESH_FAILOVERS_TOTAL)} "
+            "(session totals: retries_total="
+            f"{snap.get(sc.RETRIES_TOTAL, 0)} failovers_total="
+            f"{snap.get(sc.FAILOVERS_TOTAL, 0)} timeouts_total="
+            f"{snap.get(sc.TIMEOUTS_TOTAL, 0)} faults_injected_total="
+            f"{snap.get(sc.FAULTS_INJECTED_TOTAL, 0)} device_lost_total="
+            f"{snap.get(sc.DEVICE_LOST_TOTAL, 0)} mesh_failovers_total="
+            f"{snap.get(sc.MESH_FAILOVERS_TOTAL, 0)} "
+            "queries_rescued_total="
+            f"{snap.get(sc.QUERIES_RESCUED_TOTAL, 0)})")
+        lines.append(
+            f"{explain_tag('Caches')}: plan-cache hits="
+            f"{pc.hits - cache0[0]} misses={pc.misses - cache0[1]}  "
+            f"feed-cache hits={fc.hits - cache0[2]} "
+            f"misses={fc.misses - cache0[3]} (session totals: plan "
+            f"{pc.hits}/{pc.misses}, feed {fc.hits}/{fc.misses} "
+            f"hits/misses, feed invalidations={fc.invalidations})")
+        return lines
 
     # -- recursive planning ------------------------------------------------
     def _sub_params(self, node):
@@ -1191,7 +1548,7 @@ class Session:
                 # decorrelated EXISTS filters must apply here too
                 semi_joins=sel.semi_joins)
             inner = self._recursive_plan(hist, cleanup, cte_scope)
-            result = self._execute_select(self._sub_params(inner))
+            result = self._execute_subselect(self._sub_params(inner))
             nk = len(group_keys)
             # NULL column values form a NULL bucket group: percentile
             # ignores NULLs (PG semantics), so drop it
@@ -1328,7 +1685,7 @@ class Session:
             inner = self._recursive_plan(
                 self._subquery_select(q, cleanup, cte_scope), cleanup,
                 cte_scope)
-            return self._execute_select(
+            return self._execute_subselect(
                 dc_replace(self._sub_params(inner), **changes))
 
         if isinstance(e, ast.ScalarSubquery):
@@ -1490,7 +1847,7 @@ class Session:
             inner = self._setop_select(q, cleanup, cte_scope)
         else:
             inner = self._recursive_plan(q, cleanup, cte_scope)
-        return self._execute_select(self._sub_params(inner))
+        return self._execute_subselect(self._sub_params(inner))
 
     def _query_to_temp(self, q, cleanup: list[str], cte_scope,
                        column_names: tuple[str, ...] = ()) -> str:
@@ -1502,7 +1859,7 @@ class Session:
         else:
             sel = self._recursive_plan(q, cleanup, cte_scope)
         return self._store_result(
-            self._execute_select(self._sub_params(sel)), cleanup,
+            self._execute_subselect(self._sub_params(sel)), cleanup,
             column_names)
 
     def _drop_temp(self, name: str) -> None:
@@ -1646,3 +2003,22 @@ def _substitute_params(node, args: tuple):
     if isinstance(node, list):
         return [_substitute_params(x, args) for x in node]
     return node
+
+
+def _from_tables(sel: ast.Select) -> set[str]:
+    """Table names a bound SELECT reads (FROM items, joins, semi-join
+    items) — after recursive planning, so temps and plain tables."""
+    out: set[str] = set()
+
+    def visit(fi) -> None:
+        if isinstance(fi, ast.TableRef):
+            out.add(fi.name)
+        elif isinstance(fi, ast.Join):
+            visit(fi.left)
+            visit(fi.right)
+
+    for fi in sel.from_items:
+        visit(fi)
+    for sj in sel.semi_joins:
+        visit(sj.item)
+    return out

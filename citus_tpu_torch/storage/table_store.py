@@ -32,6 +32,7 @@ come from the primary shard directory; the replica-failover read
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import threading
@@ -95,6 +96,11 @@ class TableStore:
         self._lock = threading.RLock()
         self._manifests: dict[str, dict] = {}
         self._dicts: dict[tuple[str, str], Dictionary] = {}
+        # (table, storage column) → (on-disk identity, length) of the
+        # dictionary file as this store last loaded or saved it: a
+        # different identity means another session (of either package)
+        # wrote it since, and the cached copy is stale
+        self._dict_synced: dict[tuple[str, str], tuple] = {}
         # per-table data version: bumped on every visible mutation; the
         # executor's feed cache keys on it
         self._data_versions: dict[str, int] = {}
@@ -192,15 +198,18 @@ class TableStore:
             if self._manifest_stats.get(table) == disk:
                 return False
             self._manifests.pop(table, None)
+            self._drop_stale_dicts(table)
             self.bump_data_version(table)
             return True
 
     def refresh(self, table: str) -> None:
-        """Drop the cached manifest so the next read reloads from disk —
-        used after lock acquisition so a session sharing this data_dir
-        sees the lock winner's committed state."""
+        """Drop the cached manifest (and any dictionary another session
+        rewrote) so the next read reloads from disk — used after lock
+        acquisition so a session sharing this data_dir sees the lock
+        winner's committed state."""
         with self._lock:
             self._manifests.pop(table, None)
+            self._drop_stale_dicts(table)
             self.bump_data_version(table)
 
     def _write_lock(self, table: str) -> threading.Lock:
@@ -212,6 +221,7 @@ class TableStore:
 
     def _reload_manifest_locked(self, table: str) -> dict:
         self._manifests.pop(table, None)
+        self._drop_stale_dicts(table)
         return self.manifest(table)
 
     def data_version(self, table: str) -> int:
@@ -228,6 +238,8 @@ class TableStore:
             self._manifest_stats.pop(table, None)
             self._dicts = {k: v for k, v in self._dicts.items()
                            if k[0] != table}
+            self._dict_synced = {k: v for k, v in self._dict_synced.items()
+                                 if k[0] != table}
             self.bump_data_version(table)
             if os.path.exists(self.table_dir(table)):
                 shutil.rmtree(self.table_dir(table))
@@ -277,22 +289,74 @@ class TableStore:
                 renames[column] = f"{column}__{i}"
                 self._save_manifest(table)
 
+    def _dict_path(self, table: str, storage_column: str) -> str:
+        return os.path.join(self.table_dir(table),
+                            f"dict_{storage_column}.json")
+
     def dictionary(self, table: str, column: str) -> Dictionary:
         column = self.storage_column_name(table, column)
         with self._lock:
             key = (table, column)
             if key not in self._dicts:
-                path = os.path.join(self.table_dir(table), f"dict_{column}.json")
-                self._dicts[key] = (Dictionary.load(path)
-                                    if os.path.exists(path) else Dictionary())
+                path = self._dict_path(table, column)
+                ident = self._stat_identity(path)
+                d = (Dictionary.load(path) if ident is not None
+                     else Dictionary())
+                self._dicts[key] = d
+                self._dict_synced[key] = (ident, len(d))
             return self._dicts[key]
 
-    def save_dictionaries(self, table: str) -> None:
+    def _drop_stale_dicts(self, table: str) -> None:
+        """Forget cached dictionaries of `table` whose file another
+        session rewrote since this store loaded or saved it (the next
+        read reloads it).  Caller holds self._lock."""
+        for key in [k for k in self._dicts if k[0] == table]:
+            synced = self._dict_synced.get(key)
+            disk = self._stat_identity(self._dict_path(*key))
+            if synced is None or synced[0] != disk:
+                self._dicts.pop(key, None)
+                self._dict_synced.pop(key, None)
+
+    @contextlib.contextmanager
+    def interning(self, table: str, column: str):
+        """The dictionary a writer interns into, under the table's write
+        lock: re-read from disk first when another session rewrote it,
+        and saved before the lock drops when the writer appended — so
+        every session appends to the on-disk dictionary and a code is
+        never handed out twice.  (A JAX-package session holding a stale
+        copy can still overwrite the file; ROADMAP queue C.)"""
+        with self._write_lock(table):
+            with self._lock:
+                self._drop_stale_dicts(table)
+            d = self.dictionary(table, column)
+            n0 = len(d)
+            yield d
+            if len(d) > n0:
+                self._save_dictionary(
+                    table, self.storage_column_name(table, column), d)
+
+    def _save_dictionary(self, table: str, storage_column: str,
+                         d: Dictionary) -> None:
+        os.makedirs(self.table_dir(table), exist_ok=True)
+        path = self._dict_path(table, storage_column)
+        d.save(path)
         with self._lock:
-            os.makedirs(self.table_dir(table), exist_ok=True)
-            for (t, col), d in self._dicts.items():
-                if t == table:
-                    d.save(os.path.join(self.table_dir(table), f"dict_{col}.json"))
+            self._dict_synced[(table, storage_column)] = (
+                self._stat_identity(path), len(d))
+
+    def save_dictionaries(self, table: str) -> None:
+        """Persist `table`'s cached dictionaries that grew since they
+        were last loaded or saved (an unchanged copy is never written:
+        it cannot clobber another session's appends)."""
+        with self._lock:
+            for (t, col), d in list(self._dicts.items()):
+                if t != table:
+                    continue
+                synced = self._dict_synced.get((t, col))
+                if synced is not None and synced[1] == len(d) and \
+                        synced[0] is not None:
+                    continue
+                self._save_dictionary(t, col, d)
 
     # -- write path --------------------------------------------------------
     def append_stripe(self, table: str, shard_id: int,

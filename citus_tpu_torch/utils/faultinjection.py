@@ -58,6 +58,10 @@ FAULT_POINTS: dict[str, str] = {
         "error='oom' for a synthetic allocator OOM)",
     "executor.repartition_shuffle":
         "executor/insert_select.py — INSERT..SELECT repartition write",
+    "executor.scan_prefetch":
+        "executor/scanpipe.py — producer column read (pipelined scan)",
+    "executor.device_decode":
+        "executor/scanpipe.py — on-device expand of a wire payload",
     "stream.prefetch": "executor/stream.py — batch prefetch thread",
     "txn.prepare": "transaction/manager.py — before PREPARE",
     "txn.commit_record": "transaction/manager.py — prepared, no record",

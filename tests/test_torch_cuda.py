@@ -477,3 +477,46 @@ def test_real_allocator_oom_answers_through_the_ladder(tmp_path, cuda):
         _close_rows(r.rows(), want)
     finally:
         torch.cuda.set_per_process_memory_fraction(1.0)
+
+
+def test_traced_statements_carry_device_legs(tmp_path, cuda):
+    """On the card each dispatch span carries its CUDA event pair's
+    device_ms: positive, and within the device phase (dispatch + fetch)
+    of the same trace; a pipelined scan's transfers carry theirs, and a
+    streamed statement's batches each one pair.  The recorder leaves no
+    span open."""
+    import citus_tpu_torch
+    from citus_tpu_torch.ingest import tpch
+    from citus_tpu_torch.stats import tracing
+
+    data_dir = str(tmp_path / "d")
+    cpu = citus_tpu_torch.connect(data_dir, device="cpu")
+    tpch.load_into_session(cpu, sf=0.01, seed=7, tables={"lineitem"})
+    want = cpu.execute(tpch.QUERIES["Q1"]).rows()
+    gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device",
+                                  trace_fast_statement_ms=0)
+    for streamed in (False, True):
+        if streamed:
+            gpu.execute("set max_feed_bytes_per_device = 1; "
+                        "set stream_batch_rows = 8192")
+        r = gpu.execute(tpch.QUERIES["Q1"])
+        _close_rows(r.rows(), want)
+        doc = gpu.stats.tracing.last_trace()
+        root = doc["root"]
+        dispatch = []
+
+        def walk(s):
+            if s["name"] == "mesh.dispatch":
+                dispatch.append(s)
+            for c in s.get("children", ()):
+                walk(c)
+
+        walk(root)
+        assert len(dispatch) == max(1, r.streamed_batches)
+        assert all(s["meta"]["device_ms"] > 0 for s in dispatch)
+        device_wall = tracing.span_seconds(root, "mesh.dispatch",
+                                           "mesh.fetch") * 1e3
+        assert tracing.device_ms(root) <= device_wall + 0.1
+        transfers = ("stream.transfer" if streamed else "scan.transfer")
+        assert tracing.device_ms(root, transfers) > 0
+        assert tracing.open_span_count() == 0

@@ -242,7 +242,8 @@ def test_point_index_built_by_jax_is_used_by_the_port(sessions):
     stamps = _stat(files)
     p = _port(data_dir)
     got = p.execute("select v from pt where k = 31337")
-    assert got.fast_path and p.executor.point_index_lookups == 1
+    assert got.fast_path and \
+        p.stats.counters.snapshot()[sc.POINT_INDEX_LOOKUPS] == 1
     assert got.rows() == want == [(31337.25,)]
     assert _stat(files) == stamps  # loaded, not rebuilt
 
@@ -361,7 +362,17 @@ def test_explain_execute_and_settings_match_jax(sessions):
 
 
 def test_explain_analyze_is_refused(sessions):
-    _j, p, _d = sessions
-    with pytest.raises(citus_tpu_torch.UnsupportedQueryError,
-                       match="queue A item 8"):
-        p.execute("explain analyze select count(*) from t")
+    """EXPLAIN ANALYZE runs SELECTs only (answered since the
+    observability slice, tests/test_torch_tracing.py): of any other
+    statement it is refused as the JAX package refuses it."""
+    j, p, _d = sessions
+    sql = ("explain analyze insert into t values "
+           "(1, 2, 3.0, date '1995-01-15', 'x')")
+    with pytest.raises(citus_tpu.UnsupportedQueryError) as jerr:
+        j.execute(sql)
+    with pytest.raises(citus_tpu_torch.UnsupportedQueryError) as perr:
+        p.execute(sql)
+    assert str(perr.value) == str(jerr.value)
+    got = p.execute("explain analyze select count(*) from t")
+    assert any(x.startswith("Timing: ")
+               for x in got.columns["QUERY PLAN"])

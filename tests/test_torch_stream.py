@@ -267,3 +267,79 @@ def test_nulls_only_in_later_batches(tmp_path):
         s.close()
     assert got["port"] == got["jax"]
     assert got["port"][1] == [(8000, 4000, sum(range(4000)) * 1.0)]
+
+
+# -- ORDER BY <aggregate> LIMIT k: no device top-k on partial aggregates ----
+# The JAX package cuts each batch's (and pass's) aggregate to its top k
+# before the host merge and returns wrong rows for these statements
+# (ROADMAP queue C item 1): the port is held to its resident answer and
+# to sqlite instead.
+TOPK = {
+    "suppkey_by_sum":
+        "select l_suppkey, sum(l_quantity) as s from lineitem "
+        "group by l_suppkey order by s desc, l_suppkey limit 5",
+    "custkey_by_sum_join":
+        "select o_custkey, sum(l_quantity) as s from orders, lineitem "
+        "where o_orderkey = l_orderkey group by o_custkey "
+        "order by s desc, o_custkey limit 5",
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOPK))
+def test_streamed_order_by_aggregate_limit_matches_resident(
+        data_dir, oracle_conn, name):
+    sql = TOPK[name]
+    p = _port(data_dir)
+    resident = p.execute(sql)
+    got = _under_budget(p, sql)
+    assert got.streamed_batches >= 2
+    compare_results(got.rows(), resident.rows(), True, TOL)
+    compare_results(got.rows(), run_oracle(oracle_conn, sql), True, TOL)
+    _assert_released(p)
+
+
+@pytest.mark.parametrize("force_stream", [False, True])
+@pytest.mark.parametrize("name", sorted(TOPK))
+def test_multipass_order_by_aggregate_limit_matches_resident(
+        data_dir, oracle_conn, name, force_stream):
+    from citus_tpu_torch.executor.runner import OomState
+
+    sql = TOPK[name]
+    p = _port(data_dir)
+    resident = p.execute(sql)
+    p.executor.oom = OomState(batch_shrink=2 if force_stream else 1,
+                              force_stream=force_stream, multipass_k=4)
+    got = p.execute(sql)
+    assert got.spill_passes >= 2
+    assert (got.streamed_batches > 0) == force_stream
+    compare_results(got.rows(), resident.rows(), True, TOL)
+    compare_results(got.rows(), run_oracle(oracle_conn, sql), True, TOL)
+    _assert_released(p)
+
+
+def test_topk_pushdown_kept_where_it_is_safe(data_dir, oracle_conn):
+    """Resident plans keep their device top-k, and so do streamed plans
+    that order by group keys only."""
+    from citus_tpu_torch.executor.stream import partial_plan
+
+    p = _port(data_dir)
+    explain = p.execute("explain " + jtpch.Q3).columns["QUERY PLAN"]
+    assert any("Device TopK: 10" in x for x in explain)
+    by_key = ("select l_orderkey, sum(l_quantity) from lineitem "
+              "group by l_orderkey order by l_orderkey limit 5")
+    p.execute(STREAM_SETUP)
+    try:
+        explain = p.execute("explain " + by_key).columns["QUERY PLAN"]
+        assert any("Device TopK: 5" in x for x in explain)
+        plan, cleanup = p._plan_select(citus_tpu_torch.sql.parse(by_key)[0])
+        assert not cleanup
+        assert partial_plan(plan) is plan
+        got = p.execute(by_key)
+        assert got.streamed_batches >= 2
+        # the per-batch top-k holds each batch's output to 5 slots
+        assert got.device_rows_scanned == 5 * got.streamed_batches
+        q3, _ = p._plan_select(citus_tpu_torch.sql.parse(jtpch.Q3)[0])
+        assert q3.device_topk == 10 and partial_plan(q3).device_topk is None
+    finally:
+        p.execute(STREAM_RESET)
+    compare_results(got.rows(), run_oracle(oracle_conn, by_key), True, TOL)

@@ -1,0 +1,477 @@
+"""The port's span flight recorder (stats/tracing.py), EXPLAIN ANALYZE
+and trace export, against the JAX package's, on CPU torch.
+
+One data_dir written by the JAX package (TPC-H sf 0.005, seed 5, 8
+shards, 1,000-row stripes); port sessions open it with device="cpu",
+JAX sessions with n_devices=1 and exec_cache_enabled=False, both in
+float64.  The contracts:
+
+* the top-level spans of a statement tile ≥ 95% of its root (resident
+  in each scan mode, streamed, retried, degraded by the OOM ladder);
+* the pipelined scan's and the stream's producer spans nest under the
+  statement's trace from their own threads, and open_span_count() is 0
+  after every statement: a streamed one, a cancel at a batch boundary,
+  and an injected `executor.scan_prefetch` / `executor.device_decode`
+  fault (which raise as in the JAX package);
+* a streamed statement with more spans than MAX_SPANS_PER_TRACE
+  truncates its trace;
+* EXPLAIN ANALYZE prints the JAX package's tags, minus the lines of
+  modules the port does not have yet, and the same Rows / Chunks
+  Skipped / Device Rows Scanned / Streamed Execution lines;
+* each package's slow-trace files render through the other's
+  trace_export, and tools/trace_summarize.py reads the port's;
+* device legs (CUDA event pairs) are read only once both events
+  completed and dropped unread after an error — exercised here with
+  stand-in events, since the CPU records none.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import threading
+
+import pytest
+import torch
+
+import citus_tpu
+import citus_tpu_torch
+from citus_tpu.ingest import tpch as jtpch
+from citus_tpu.stats import trace_export as jexport
+from citus_tpu.utils import faultinjection as jfi
+from citus_tpu_torch.stats import trace_export as pexport
+from citus_tpu_torch.stats import tracing
+from citus_tpu_torch.stats.tracing import (
+    open_span_count,
+    phase_breakdown,
+    span_seconds,
+)
+from citus_tpu_torch.utils import faultinjection as pfi
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STREAM_ON = "set max_feed_bytes_per_device = 1; set stream_batch_rows = 512"
+GROUPED = ("select l_returnflag, count(*), sum(l_quantity) from lineitem "
+           "group by l_returnflag")
+# EXPLAIN ANALYZE tags of modules the port does not have yet, by
+# ROADMAP queue A item
+UNPORTED_TAGS = {"Integrity": 10, "Workload": 11, "Serving": 11,
+                 "Replication": 11}
+SHARED_LINES = ("Rows", "Chunks Skipped", "Device Rows Scanned",
+                "Streamed Execution")
+
+
+@pytest.fixture(scope="module")
+def base(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("torch_tracing") / "base")
+    s = citus_tpu.connect(data_dir=d, n_devices=1, exec_cache_enabled=False,
+                          serving_result_cache_bytes=0,
+                          compute_dtype="float64",
+                          columnar_stripe_row_limit=1000)
+    jtpch.load_into_session(s, sf=0.005, seed=5, shard_count=8)
+    s.close()
+    return d
+
+
+def _port(d, **kw):
+    kw.setdefault("retry_backoff_base_ms", 1)
+    kw.setdefault("retry_backoff_max_ms", 2)
+    return citus_tpu_torch.connect(d, device="cpu", compute_dtype="float64",
+                                   columnar_stripe_row_limit=1000, **kw)
+
+
+def _jax(d, **kw):
+    return citus_tpu.connect(data_dir=d, n_devices=1,
+                             exec_cache_enabled=False,
+                             serving_result_cache_bytes=0,
+                             compute_dtype="float64",
+                             columnar_stripe_row_limit=1000,
+                             recover_2pc_interval_ms=-1,
+                             defer_shard_delete_interval_ms=-1,
+                             health_check_interval_ms=-1, **kw)
+
+
+def _copy(base, tmp_path, name):
+    d = str(tmp_path / name)
+    shutil.copytree(base, d)
+    return d
+
+
+def _find(span, name, out=None):
+    out = [] if out is None else out
+    if span["name"] == name:
+        out.append(span)
+    for c in span.get("children", ()):
+        _find(c, name, out)
+    return out
+
+
+def _assert_tiles_wall(doc, share=0.95, abs_ms=5.0):
+    wall = doc["root"]["dur_ms"]
+    top = sum(c["dur_ms"] for c in doc["root"].get("children", ()))
+    assert top <= wall * 1.001 + 0.05, (top, wall)
+    assert wall - top <= max((1.0 - share) * wall, abs_ms), (
+        f"top-level spans cover {top:.2f} of {wall:.2f} ms:\n"
+        + json.dumps(doc["root"], indent=1)[:2000])
+
+
+def _producers():
+    return [t for t in threading.enumerate() if t.is_alive()
+            and t.name in ("citus-stream-producer", "scan-prefetch")]
+
+
+# -- tiling and nesting ------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["off", "host", "device"])
+def test_cold_select_spans_tile_the_wall(base, tmp_path, mode):
+    p = _port(_copy(base, tmp_path, "p"), scan_pipeline=mode)
+    p.execute(jtpch.Q3)
+    p.executor.feed_cache.clear()
+    p.execute(jtpch.Q3)
+    doc = p.stats.tracing.last_trace()
+    assert doc["root"]["name"] == "statement" and doc["error"] is None
+    assert [c["name"] for c in doc["root"]["children"]] == \
+        ["parse", "execute"]
+    _assert_tiles_wall(doc)
+    assert abs(doc["wall_ms"] - doc["root"]["dur_ms"]) < 1.0
+    ph = phase_breakdown(doc["root"])
+    for phase in ("plan", "feed", "device", "combine"):
+        assert ph[phase] > 0, phase
+    # one dispatch and one fetch per run; no device legs on the CPU
+    dispatch = _find(doc["root"], "mesh.dispatch")
+    assert len(dispatch) == len(_find(doc["root"], "mesh.fetch")) >= 1
+    assert all("device_ms" not in (s.get("meta") or {}) for s in dispatch)
+    assert tracing.device_ms(doc["root"]) == 0.0
+    assert open_span_count() == 0
+
+
+@pytest.mark.parametrize("mode", ["host", "device"])
+def test_scanpipe_producer_spans_nest_under_feed(base, tmp_path, mode):
+    p = _port(_copy(base, tmp_path, "p"), scan_pipeline=mode)
+    p.execute("select sum(l_quantity), count(l_discount) from lineitem")
+    doc = p.stats.tracing.last_trace()
+    feeds = _find(doc["root"], "feed")
+    prefetch = _find(doc["root"], "scan.prefetch")
+    assert feeds and prefetch
+    under = [s for f in feeds for s in _find(f, "scan.prefetch")]
+    assert under == prefetch
+    assert all(s["tid"] != doc["root"]["tid"] for s in prefetch)
+    names = ["scan.prefetch", "scan.transfer"]
+    if mode == "device":
+        names += ["scan.wire_encode", "scan.device_decode"]
+    for name in names:
+        assert _find(doc["root"], name), name
+        assert span_seconds(doc["root"], name) > 0, name
+    assert open_span_count() == 0 and _producers() == []
+
+
+def test_streamed_statement_spans(base, tmp_path):
+    p = _port(_copy(base, tmp_path, "p"))
+    p.execute(STREAM_ON)
+    r = p.execute(GROUPED)
+    doc = p.stats.tracing.last_trace()
+    assert r.streamed_batches >= 4
+    batches = _find(doc["root"], "stream.batch")
+    assert [b["meta"]["batch"] for b in batches] == \
+        list(range(r.streamed_batches))
+    # each batch runs the device program once; the producer's decode and
+    # transfer legs land in the statement's tree from their own thread
+    for b in batches:
+        assert _find(b, "mesh.dispatch") and _find(b, "mesh.fetch")
+    for name in ("stream.decode", "stream.transfer"):
+        legs = _find(doc["root"], name)
+        assert len(legs) >= r.streamed_batches, name
+        assert all(s["tid"] != doc["root"]["tid"] for s in legs)
+    assert _find(doc["root"], "combine")
+    _assert_tiles_wall(doc)
+    assert open_span_count() == 0 and _producers() == []
+    assert p.executor.accountant.transient_bytes() == 0
+
+
+def test_span_cap_truncates_a_long_trace(base, tmp_path, monkeypatch):
+    monkeypatch.setattr(tracing, "MAX_SPANS_PER_TRACE", 40)
+    p = _port(_copy(base, tmp_path, "p"))
+    p.execute(STREAM_ON)
+    r = p.execute(GROUPED)
+    doc = p.stats.tracing.last_trace()
+    assert r.streamed_batches >= 4
+    assert doc["truncated"] and doc["spans"] <= 40
+    assert open_span_count() == 0
+
+
+def test_cancel_at_a_batch_boundary_leaves_no_open_span(base, tmp_path):
+    p = _port(_copy(base, tmp_path, "p"))
+    p.execute(STREAM_ON)
+    first_done, cancelled = threading.Event(), threading.Event()
+    real = p.executor.run_with_retry
+    runs = []
+
+    def run_with_retry(*a, **kw):
+        out = real(*a, **kw)
+        runs.append(1)
+        if len(runs) == 1:
+            first_done.set()
+            cancelled.wait(5)
+        return out
+
+    def canceller():
+        first_done.wait(5)
+        p.cancel()
+        cancelled.set()
+
+    p.executor.run_with_retry = run_with_retry
+    t = threading.Thread(target=canceller)
+    t.start()
+    with pytest.raises(citus_tpu_torch.QueryCanceled):
+        p.execute(GROUPED)
+    t.join()
+    doc = p.stats.tracing.last_trace()
+    assert doc["error"] == "QueryCanceled" and doc["leaked"] == 0
+    assert open_span_count() == 0 and _producers() == []
+    assert p.stats.counters.snapshot()["queries_canceled"] == 1
+
+
+@pytest.mark.parametrize("point", ["executor.scan_prefetch",
+                                   "executor.device_decode"])
+def test_scan_fault_points_match_jax_and_close_every_span(base, tmp_path,
+                                                          point):
+    """Without statement retries the injected fault fails the statement
+    in both packages; under the default retries both answer.  No span
+    is left open either way."""
+    sql = "select sum(l_quantity), sum(l_discount) from lineitem"
+    jd, pd = _copy(base, tmp_path, "j"), _copy(base, tmp_path, "p")
+    j = _jax(jd, scan_pipeline="device", max_statement_retries=0)
+    p = _port(pd, scan_pipeline="device", max_statement_retries=0)
+    with jfi.inject(point, require_fired=True):
+        with pytest.raises(citus_tpu.errors.CitusTpuError) as jerr:
+            j.execute(sql)
+    with pfi.inject(point, require_fired=True):
+        with pytest.raises(citus_tpu_torch.CitusTpuError) as perr:
+            p.execute(sql)
+    assert type(perr.value).__name__ == type(jerr.value).__name__
+    doc = p.stats.tracing.last_trace()
+    assert doc["error"] == type(perr.value).__name__
+    assert open_span_count() == 0 and _producers() == []
+    assert p.executor.accountant.transient_bytes() == 0
+    j.close()
+    # the envelope retries it
+    p.execute("set max_statement_retries = 2")
+    want = p.execute(sql).rows()
+    p.executor.feed_cache.clear()
+    with pfi.inject(point, require_fired=True):
+        assert p.execute(sql).rows() == want
+    doc = p.stats.tracing.last_trace()
+    attempts = [c for c in doc["root"]["children"] if c["name"] == "execute"]
+    assert len(attempts) == 2
+    assert attempts[0]["meta"]["error"] == "InjectedFault"
+    assert attempts[1]["meta"] == {"attempt": 1}
+    assert _find(doc["root"], "retry.backoff")
+    _assert_tiles_wall(doc, abs_ms=8.0)
+    assert open_span_count() == 0
+
+
+def test_oom_rung_time_visible_in_trace(base, tmp_path):
+    p = _port(_copy(base, tmp_path, "p"), scan_pipeline="off")
+    p.execute(GROUPED)
+    with pfi.inject("executor.hbm_exhausted", error="oom",
+                    require_fired=True):
+        p.execute("select c_nationkey, count(*) from customer "
+                  "group by c_nationkey")
+    doc = p.stats.tracing.last_trace()
+    rungs = _find(doc["root"], "oom.degrade")
+    assert [r["meta"]["rung"] for r in rungs] == [1]
+    assert phase_breakdown(doc["root"])["degrade"] > 0
+    _assert_tiles_wall(doc, abs_ms=8.0)
+    assert open_span_count() == 0
+
+
+# -- EXPLAIN ANALYZE -----------------------------------------------------------
+
+def _analyze_lines(sess, sql):
+    lines = sess.execute("explain analyze " + sql).columns["QUERY PLAN"]
+    i = next(k for k, x in enumerate(lines)
+             if x.startswith("Execution Time:"))
+    return lines[i:]
+
+
+EXPLAINED = {
+    "q1": jtpch.Q1,
+    "q3": jtpch.Q3,
+    "grouped": GROUPED,
+    "chunk_skip": "select count(*), sum(l_quantity) from lineitem "
+                  "where l_shipdate < date '1992-06-01'",
+    "fast_path": "select o_totalprice from orders where o_orderkey = 7",
+}
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("name", sorted(EXPLAINED))
+def test_explain_analyze_lines_match_jax(base, tmp_path, name, streamed):
+    sql = EXPLAINED[name]
+    j = _jax(_copy(base, tmp_path, "j"), scan_pipeline="host")
+    p = _port(_copy(base, tmp_path, "p"), scan_pipeline="host")
+    if streamed:
+        j.execute(STREAM_ON)
+        p.execute(STREAM_ON)
+    jl, pl = _analyze_lines(j, sql), _analyze_lines(p, sql)
+    j.close()
+
+    def tag(x):
+        return x.split(":", 1)[0]
+
+    assert [tag(x) for x in pl] == [tag(x) for x in jl
+                                    if tag(x) not in UNPORTED_TAGS]
+    # streamed Q3 orders by an aggregate: the port's batches run without
+    # the device top-k that cuts the JAX package's partial sums (the
+    # JAX package differs there: ROADMAP queue C item 1), so they return
+    # every group slot
+    repaired = streamed and name == "q3"
+    for x in pl:
+        if tag(x) in SHARED_LINES:
+            if repaired and tag(x) == "Device Rows Scanned":
+                assert x not in jl
+                continue
+            assert x in jl, x
+    timing = next(x for x in pl if x.startswith("Timing: "))
+    assert "plan=" in timing and "device=" in timing
+    if streamed and name != "fast_path":
+        assert any(x.startswith("Streamed Execution:") for x in pl)
+    assert open_span_count() == 0
+
+
+def test_explain_analyze_untraced_says_so(base, tmp_path):
+    p = _port(_copy(base, tmp_path, "p"), trace_enabled=False)
+    lines = _analyze_lines(p, GROUPED)
+    assert lines[1].startswith("Timing: total=")
+    assert lines[1].endswith("(no trace: tracing off or sampled out)")
+    assert p.stats.tracing.last_trace() is None
+    assert open_span_count() == 0
+
+
+# -- ring, histograms, slow log, export -----------------------------------------
+
+def test_sampling_keeps_histograms_for_every_statement(base, tmp_path):
+    p = _port(_copy(base, tmp_path, "p"), trace_sample_every=4,
+              trace_fast_statement_ms=0)
+    for _ in range(8):
+        p.execute(GROUPED)
+    assert len(p.stats.tracing.traces()) == 2
+    lat = {r[0]: r for r in p.execute("select citus_stat_latency()").rows()}
+    row = lat[citus_tpu_torch.stats.fingerprint(GROUPED)]
+    calls, mean, p50, p95, p99, mx = row[1:]
+    assert calls == 8 and 0 < p50 <= p95 <= p99 and mx >= p99 * 0.98
+
+
+def test_slow_traces_render_through_either_package(base, tmp_path):
+    pd, jd = _copy(base, tmp_path, "p"), _copy(base, tmp_path, "j")
+    p = _port(pd, trace_slow_statement_ms=1)
+    p.execute(jtpch.Q3)
+    j = _jax(jd, trace_slow_statement_ms=1)
+    j.execute(jtpch.Q3)
+    j.close()
+    for d in (pd, jd):
+        assert os.listdir(os.path.join(d, tracing.SLOW_TRACE_DIR))
+        pdoc, jdoc = pexport.load_trace(d), jexport.load_trace(d)
+        assert pdoc == jdoc and pdoc["sql"] == tracing.clamp_sql(jtpch.Q3)
+        pev = pexport.chrome_trace_events(pdoc)
+        jev = jexport.chrome_trace_events(jdoc)
+        assert pev == jev
+        phases = pev[-1]["args"]["phases_ms"]
+        top = sum(c["dur_ms"] for c in pdoc["root"]["children"])
+        assert phases["total"] >= top * 0.95
+    out = tmp_path / "out.json"
+    cmd = [sys.executable, "-m", "citus_tpu_torch.stats.trace_export", pd,
+           "-o", str(out)]
+    assert subprocess.run(cmd, cwd=REPO, capture_output=True).returncode == 0
+    events = json.loads(out.read_text())["traceEvents"]
+    assert events[0]["name"] == "statement"
+    summ = subprocess.run([sys.executable, "tools/trace_summarize.py", pd],
+                          cwd=REPO, capture_output=True, text=True,
+                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert summ.returncode == 0, summ.stderr
+    assert "phase breakdown" in summ.stdout and "device" in summ.stdout
+
+
+def test_trace_enabled_off_records_nothing(base, tmp_path):
+    p = _port(_copy(base, tmp_path, "p"), trace_enabled=False)
+    p.execute(GROUPED)
+    assert p.stats.tracing.last_trace() is None
+    assert p.execute("select citus_stat_latency()").row_count == 0
+    assert open_span_count() == 0
+
+
+# -- device legs, with stand-in CUDA events ----------------------------------
+
+class _Event:
+    """Stands in for torch.cuda.Event: record() stamps a time, query()
+    says whether the "device" reached it yet."""
+
+    clock = [0.0]
+
+    def __init__(self):
+        self.t = None
+        self.done = False
+
+    def record(self, stream=None):
+        self.t = self.clock[0]
+        self.done = False
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        assert self.done and end.done, "read before completion"
+        return end.t - self.t
+
+
+class _Pool(tracing._EventPool):
+    def __init__(self):
+        super().__init__()
+        self.made = 0
+
+    def take(self):
+        with self._mu:
+            if self._free:
+                return self._free.pop()
+        self.made += 1
+        return _Event()
+
+
+class _Cuda:
+    type = "cuda"
+
+
+def test_device_legs_are_read_only_after_completion():
+    rec = tracing.TraceRecorder()
+    rec.events = pool = _Pool()
+    h = rec.begin("select 1")
+    with tracing.trace_span("mesh.dispatch") as sp, \
+            tracing.device_timeline(sp, _Cuda()) as leg:
+        _Event.clock[0] += 2.5
+    # the fetch has not returned yet: nothing completed, nothing read
+    tracing.resolve_device_legs()
+    assert "device_ms" not in (sp.meta or {})
+    leg.start.done = leg.end.done = True
+    tracing.resolve_device_legs()
+    assert sp.meta["device_ms"] == 2.5
+    assert pool.made == 2 and len(pool._free) == 2  # back in the pool
+    # a block that raises drops its pair unread
+    with pytest.raises(RuntimeError):
+        with tracing.trace_span("mesh.dispatch") as sp2, \
+                tracing.device_timeline(sp2, _Cuda()):
+            raise RuntimeError("allocator OOM")
+    assert "device_ms" not in (sp2.meta or {})
+    # a leg still in flight at the statement's end is dropped unread
+    with tracing.trace_span("scan.transfer") as sp3, \
+            tracing.device_timeline(sp3, _Cuda()):
+        pass
+    doc = rec.end(h).to_dict()
+    assert "device_ms" not in (sp3.meta or {})
+    assert tracing.device_ms(doc["root"]) == 2.5
+    assert open_span_count() == 0
+    # a CPU device or an untraced thread records no pair at all
+    assert tracing.device_timeline(sp, torch.device("cpu")) is tracing._NOOP
+    assert tracing.device_timeline(tracing.trace_span("mesh.dispatch"),
+                                   _Cuda()) is tracing._NOOP

@@ -523,3 +523,50 @@ def test_round_trip_after_dml(tmp_path, writer):
     r = _jax(d) if writer == "port" else _port(d)
     for sql, rows in zip(ROUND_TRIP, want):
         compare_results(r.execute(sql).rows(), rows, "order by" in sql, TOL)
+
+
+# -- stale dictionaries: a second session's strings -------------------------
+# Both packages cache a table's dictionaries past another session's
+# commit: the stale session reads the new string as NULL and interns its
+# own string at the same code, overwriting the other's on disk (ROADMAP
+# queue C item 2).  The port reloads a dictionary whenever its manifest
+# reloads and interns under the table's write lock against the on-disk
+# copy; the JAX package differs, so the port is held to fresh sessions.
+ACCOUNTS = """
+create table accounts (id bigint, tenant bigint, balance double precision,
+                       status text);
+select create_distributed_table('accounts', 'id', 4);
+insert into accounts values (1, 10, 5.0, 'open'), (2, 20, 6.0, 'closed'),
+                            (3, 30, 7.0, 'open');
+"""
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_stale_dictionary_is_reloaded_and_appended_to(tmp_path, writer):
+    d = str(tmp_path / "d")
+    a = _port(d)
+    a.execute(ACCOUNTS)
+    by_status = "select status, count(*) from accounts group by status"
+    assert sorted(a.execute(by_status).rows()) == [("closed", 1),
+                                                   ("open", 2)]
+    b = _port(d) if writer == "port" else _jax(d)
+    b.execute("insert into accounts values (60, 10, 1.0, 'wb')")
+    b.execute("update accounts set status = 'Z' where tenant = 20")
+    # A reads B's committed strings, not NULL
+    assert a.execute("select status from accounts where id = 60").rows() \
+        == [("wb",)]
+    assert sorted(a.execute(by_status).rows()) == [
+        ("Z", 1), ("open", 2), ("wb", 1)]
+    # A's own new string gets a new code: it overwrites nothing
+    a.execute("insert into accounts values (61, 20, 2.0, 'qa')")
+    if writer == "jax":
+        b.close()
+    want = [(1, "open"), (2, "Z"), (3, "open"), (60, "wb"), (61, "qa")]
+    for fresh in (_port(d), _jax(d)):
+        assert sorted(fresh.execute(
+            "select id, status from accounts").rows()) == want
+        if isinstance(fresh, citus_tpu.session.Session):
+            fresh.close()
+    # a string literal binds through the reloaded dictionary
+    assert a.execute("select id from accounts where status = 'wb'").rows() \
+        == [(60,)]
