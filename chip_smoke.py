@@ -129,8 +129,36 @@ Phases, each fatal on failure (no result line is printed then):
     transient bytes or a producer thread outlive a step, when a kernel
     never launches under EXPLAIN ANALYZE, when tracing costs more than
     5% + 0.2 ms of Q1's best warm wall, or when a node probes unhealthy;
-13. print the kernels line (with each kernel's launches in phases 8,
-    9, 10, 11 and 12), then the device line last.
+13. concurrent statements, last, with every launch count at 0, each
+    step in sessions of its own: W1 eight sessions in threads, two
+    tenants weighted a:3,b:1, max_concurrent_statements = 2, the result
+    cache off, each running Q1, Q3, the GROUP BY and the nullable query
+    twice (the first round in device scan mode), every answer against
+    numpy, at most two statements executing at once (a count the script
+    keeps), every statement admitted and some queued, every kernel
+    launched (walls, queued_ms p50/p99/max per tenant,
+    citus_stat_wlm(), max_memory_allocated); W2 two Q3s under a
+    max_feed_bytes_per_device between one and two Q3 estimates: the
+    second queues on bytes with slots free, both answer; W3 four Q3s
+    under two slots and wlm_queue_depth = 1 (a clean AdmissionRejected,
+    the rest answer) and a 200 ms statement_timeout_ms running out in
+    the queue; P1 16 sessions in threads x 64 literal o_orderkey
+    lookups with the micro-batcher on, then off (answers against numpy,
+    answered + errored + fallback = requests, batches of more than one
+    and fewer dispatches than lookups when on; p50/p99 latency,
+    citus_stat_serving()); C1 Q1 twice with the result cache on (the
+    hit launches no kernel), an INSERT into lineitem from a second
+    session (a miss, equal to numpy's replay), an UPDATE of nation (Q1
+    still hits); R1 a follower provisioned from the data_dir, its Q1
+    and Q3 on the card equal to the leader's with K1, K2 and K5
+    launched there, a leader INSERT shipped by citus_replication_ship()
+    and seen, ReplicaTooStale at replica_max_staleness_lsn = 0 with an
+    unshipped write, ReadOnlyReplica for a write on the follower, and
+    citus_promote_replica(): the promoted dir takes a write and the old
+    leader's ship is fenced.  The device-memory ledger holds no
+    transient bytes after each step;
+14. print the kernels line (with each kernel's launches in phases 8,
+    9, 10, 11, 12 and 13), then the device line last.
 
 Exits non-zero without a result when no GPU is visible or the port's
 package is not next to this script.  Imports nothing of JAX.
@@ -181,6 +209,13 @@ NULLABLE_SQL = ("select l_returnflag, l_linestatus, count(*), "
                 "group by l_returnflag, l_linestatus order by 1, 2")
 NULL_SHARE = 0.1
 SCAN_MODES = ("off", "host", "device", "device", "host", "off")
+
+
+def rerun_connect(ct, data_dir, **settings):
+    """A session of phases 1-12: they time warm re-runs and count the
+    launches and spans of repeated statements, so each run must execute
+    — the serving result cache (on by default) stays off."""
+    return ct.connect(data_dir, serving_result_cache_bytes=0, **settings)
 
 
 def log(*a):
@@ -712,7 +747,7 @@ def scan_modes(ct, data_dir, queries, checks, want, ident) -> None:
     acc = accountant_for(data_dir)
     wire = {}
     for mode in SCAN_MODES:
-        sess = ct.connect(data_dir, scan_pipeline=mode)
+        sess = rerun_connect(ct, data_dir, scan_pipeline=mode)
         for q in ("Q1", "nullable"):
             sess.executor.scan_stats.reset()
             t0 = time.perf_counter()
@@ -953,7 +988,7 @@ def tpch22(ct, hk, data_dir, data, reps, ident) -> dict:
     try:
         for q in names:
             sql = tpch.QUERIES[q]
-            sess = ct.connect(data_dir)
+            sess = rerun_connect(ct, data_dir)
             del timer.temps[:]
             before = dict(hk.LAUNCHES)
             t0 = time.perf_counter()
@@ -995,7 +1030,7 @@ def tpch22(ct, hk, data_dir, data, reps, ident) -> dict:
         if not sum(first[q][n] for q in RECURSIVE_QUERIES):
             raise AssertionError(f"{n} never launched on the recursive "
                                  "TPC-H statements")
-    cpu = ct.connect(data_dir, device="cpu", compute_dtype="float32")
+    cpu = rerun_connect(ct, data_dir, device="cpu", compute_dtype="float32")
     differ = []
     for q in names:
         t0 = time.perf_counter()
@@ -1109,8 +1144,8 @@ def phase9(ct, hk, data_dir, data, reps, ident) -> dict:
     t_phase = time.perf_counter()
     acc = accountant_for(data_dir)
     li, orders = data["lineitem"], data["orders"]
-    cpu = ct.connect(data_dir, device="cpu", compute_dtype="float32",
-                     fast_path_max_rows=P1_FAST_PATH_MAX_ROWS)
+    cpu = rerun_connect(ct, data_dir, device="cpu", compute_dtype="float32",
+                        fast_path_max_rows=P1_FAST_PATH_MAX_ROWS)
     first_launches: dict = {}
     failures: list = []
     hk.reset_launch_counts()
@@ -1121,7 +1156,7 @@ def phase9(ct, hk, data_dir, data, reps, ident) -> dict:
     def run(name, sql, setup=(), warm=True, **settings):
         """`sql` in a fresh cuda session (after `setup`): the first run,
         then the best of `reps` warm runs."""
-        sess = ct.connect(data_dir, **settings)
+        sess = rerun_connect(ct, data_dir, **settings)
         for st in setup:
             sess.execute(st)
         pc = sess.executor.plan_cache
@@ -1218,8 +1253,9 @@ def phase9(ct, hk, data_dir, data, reps, ident) -> dict:
     rng = np.random.default_rng(9)
     pick = rng.choice(len(orders["o_orderkey"]), P1_KEYS, replace=False)
     for mode, on in (("on", True), ("off", False)):
-        sess = ct.connect(data_dir, fast_path_max_rows=P1_FAST_PATH_MAX_ROWS,
-                          enable_fast_path_router=on)
+        sess = rerun_connect(ct, data_dir,
+                             fast_path_max_rows=P1_FAST_PATH_MAX_ROWS,
+                             enable_fast_path_router=on)
         sess.execute(P1_PREPARE)
         walls, fast, before = [], [], dict(hk.LAUNCHES)
         for i in pick:
@@ -1247,7 +1283,7 @@ def phase9(ct, hk, data_dir, data, reps, ident) -> dict:
             failures.append(f"P1 fast path {mode}: {fast}")
         check_no_temps(sess, acc, f"P1 {mode}")
     # the literal form rides the point index on the host
-    sess = ct.connect(data_dir)
+    sess = rerun_connect(ct, data_dir)
     walls = []
     for i in pick[:5]:
         key = int(orders["o_orderkey"][i])
@@ -1266,7 +1302,7 @@ def phase9(ct, hk, data_dir, data, reps, ident) -> dict:
     # P2: prepared Q1, three EXECUTEs through one PlanCompiler
     p2 = "prepare p2 as " + q1_body().replace(
         "date '1998-12-01' - interval '90' day", "$1")
-    sess = ct.connect(data_dir)
+    sess = rerun_connect(ct, data_dir)
     sess.execute(p2)
     cpu.execute(p2)
     before = dict(hk.LAUNCHES)
@@ -1288,7 +1324,8 @@ def phase9(ct, hk, data_dir, data, reps, ident) -> dict:
         failures.append(f"P2 built {pc.misses} PlanCompilers")
 
     # E1: EXPLAIN, against the CPU session's lines
-    sess = ct.connect(data_dir, fast_path_max_rows=P1_FAST_PATH_MAX_ROWS)
+    sess = rerun_connect(ct, data_dir,
+                         fast_path_max_rows=P1_FAST_PATH_MAX_ROWS)
     sess.execute(P1_PREPARE)
     cpu.execute("deallocate all")
     cpu.execute(P1_PREPARE)
@@ -1314,7 +1351,7 @@ def phase9(ct, hk, data_dir, data, reps, ident) -> dict:
 
     # D1, last: a view over Q1, then ALTER / DROP on supplier and a table
     # of its own
-    sess = ct.connect(data_dir)
+    sess = rerun_connect(ct, data_dir)
     sess.execute("create view q1v as " + q1_body())
     vsql = "select * from q1v order by l_returnflag, l_linestatus"
     res, _ = run("D1 view", vsql)
@@ -1422,8 +1459,8 @@ def phase10(ct, hk, data_dir, data, reps, ident) -> dict:
     hk.reset_launch_counts()
 
     def connect():
-        return ct.connect(data_dir, scan_pipeline="device",
-                          compute_dtype="float32")
+        return rerun_connect(ct, data_dir, scan_pipeline="device",
+                             compute_dtype="float32")
 
     def step(name, fn, check=None):
         """One step in a fresh cuda session, then its check on the same
@@ -1810,8 +1847,8 @@ def phase11(ct, hk, data_dir, data, queries, checks, want, reps,
     hk.reset_launch_counts()
 
     def connect(**kw):
-        return ct.connect(data_dir, scan_pipeline="device",
-                          compute_dtype="float32", **kw)
+        return rerun_connect(ct, data_dir, scan_pipeline="device",
+                             compute_dtype="float32", **kw)
 
     def ledger_clean(where):
         gc.collect()
@@ -2092,7 +2129,9 @@ def phase11(ct, hk, data_dir, data, queries, checks, want, reps,
 
 # -- phase 12: observability ----------------------------------------------
 
-OVERHEAD_REPS = 12    # Q1 warm runs per arm (tracing on / off), interleaved
+# Q1 warm runs per arm (tracing on / off), interleaved: the best of 12
+# moved by 0.3-0.6 ms between two calls on one card, about the bound
+OVERHEAD_REPS = 32
 OVERHEAD_SHARE = 0.05  # tracing may cost this share of Q1's best warm wall
 OVERHEAD_ABS_S = 0.0002  # ... plus this much
 LEG_SLACK_MS = 0.1    # summed dispatch device_ms ≤ the device phase + this
@@ -2174,9 +2213,9 @@ def phase12(ct, hk, data_dir, queries, checks, want, ident) -> dict:
     explain_launches = dict.fromkeys(hk.KERNELS, 0)
 
     def connect(**kw):
-        return ct.connect(data_dir, scan_pipeline="device",
-                          compute_dtype="float32",
-                          trace_fast_statement_ms=0, **kw)
+        return rerun_connect(ct, data_dir, scan_pipeline="device",
+                             compute_dtype="float32",
+                             trace_fast_statement_ms=0, **kw)
 
     def clean(where):
         gc.collect()
@@ -2340,6 +2379,415 @@ def phase12(ct, hk, data_dir, queries, checks, want, ident) -> dict:
     return explain_launches
 
 
+# -- phase 13: concurrent statements ------------------------------------------
+
+W1_THREADS = 8          # sessions in threads under admission
+W1_SLOTS = 2            # max_concurrent_statements in W1 and W3
+W1_WEIGHTS = "a:3,b:1"  # the two tenants' round-robin weights
+P1_THREADS = 16         # point-read sessions in threads
+P1_LOOKUPS = 64         # literal o_orderkey lookups per thread
+PHASE13_BUDGET_S = 150.0
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def phase13(ct, hk, data_dir, data, queries, checks, want, ident,
+            tmp) -> dict:
+    """Phase 13 (concurrent statements).  Returns each kernel's launches
+    over the phase."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from citus_tpu_torch.errors import (AdmissionRejected, ReadOnlyReplica,
+                                        ReplicaTooStale, ReplicationError,
+                                        StatementTimeout)
+    from citus_tpu_torch.executor.hbm import accountant_for
+    from citus_tpu_torch.replication import provision_replica
+    from citus_tpu_torch.serving import batcher_for
+    from citus_tpu_torch.sql import parse
+    from citus_tpu_torch.wlm import AdmissionRequest, planned_feed_bytes
+
+    t_phase = time.perf_counter()
+    failures: list = []
+    acc = accountant_for(data_dir)
+    hk.reset_launch_counts()
+    li, orders = data["lineitem"], data["orders"]
+
+    def clean(where, sessions=()):
+        for s in sessions:
+            s.close()
+        gc.collect()
+        torch.cuda.synchronize()
+        if acc.transient_bytes():
+            failures.append(f"{where}: {acc.transient_bytes()} transient "
+                            "ledger bytes after the step")
+
+    def run_threads(fn, args_list):
+        threads = [threading.Thread(target=fn, args=a) for a in args_list]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    # -- W1: admission under concurrency ------------------------------------
+    sessions = [ct.connect(data_dir, serving_result_cache_bytes=0,
+                           max_concurrent_statements=W1_SLOTS,
+                           wlm_tenant="a" if i % 2 else "b",
+                           wlm_tenant_weights=W1_WEIGHTS)
+                for i in range(W1_THREADS)]
+    mu = threading.Lock()
+    live = {"now": 0, "max": 0}
+    queued_ms = {"a": [], "b": []}
+    for s in sessions:
+        orig = s._execute_resilient
+
+        def counted(stmt, activity=None, timeout_ms=None, _orig=orig,
+                    _s=s):
+            # admitted statements only (an exempt SET runs here too)
+            admitted = getattr(_s._wlm_tls, "last", None) is not None
+            with mu:
+                live["now"] += admitted
+                live["max"] = max(live["max"], live["now"])
+            try:
+                return _orig(stmt, activity, timeout_ms=timeout_ms)
+            finally:
+                with mu:
+                    live["now"] -= admitted
+        s._execute_resilient = counted
+    order = ("Q1", "Q3", "high_card_groupby", "nullable")
+    bad: list = []
+
+    def w1(s):
+        try:
+            for rnd in range(2):
+                s.execute("set scan_pipeline = "
+                          + ("device" if rnd == 0 else "auto"))
+                for q in order:
+                    checks[q](s.execute(queries[q]), want[q])
+                    info = s._wlm_tls.last
+                    with mu:
+                        queued_ms[info["tenant"]].append(info["queued_ms"])
+        except Exception as e:  # noqa: BLE001 — gathered as a failure
+            bad.append(repr(e))
+
+    torch.cuda.reset_peak_memory_stats()
+    wlm = sessions[0].wlm
+    base = wlm.snapshot()
+    t0 = time.perf_counter()
+    run_threads(w1, [(s,) for s in sessions])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = wlm.snapshot()
+    admitted = sum(s.stats.counters.snapshot()["wlm_admitted_total"]
+                   for s in sessions)
+    statements = W1_THREADS * 2 * len(order)
+    log(f"phase13 W1: {W1_THREADS} sessions x {2 * len(order)} statements "
+        f"in {wall!r} s, at most {live['max']} executing at once, admitted "
+        f"{admitted}, queued {snap['queued_total'] - base['queued_total']},"
+        f" max_memory_allocated {torch.cuda.max_memory_allocated()} "
+        f"({ident})")
+    for t in ("a", "b"):
+        xs = queued_ms[t]
+        log(f"  tenant {t}: {len(xs)} admitted, queued_ms p50 "
+            f"{_pct(xs, 0.5)!r} p99 {_pct(xs, 0.99)!r} max "
+            f"{max(xs) if xs else None!r}")
+    log(f"  citus_stat_wlm(): "
+        f"{sessions[0].execute('select citus_stat_wlm()').rows()}")
+    launched_w1 = dict(hk.LAUNCHES)
+    if bad:
+        failures.append(f"W1 answers: {bad[:3]}")
+    if live["max"] > W1_SLOTS:
+        failures.append(f"W1: {live['max']} statements executing at once")
+    if admitted != statements:
+        failures.append(f"W1: admitted {admitted} of {statements}")
+    if snap["queued_total"] == base["queued_total"]:
+        failures.append("W1: nothing queued")
+    if not queued_ms["a"] or not queued_ms["b"]:
+        failures.append("W1: a tenant was never admitted")
+    if not all(launched_w1[k] > 0 for k in hk.KERNELS):
+        failures.append(f"W1 launches {launched_w1}")
+    clean("W1", sessions)
+
+    # -- W2: the memory gate queues on bytes --------------------------------
+    probe = ct.connect(data_dir, serving_result_cache_bytes=0)
+    q3 = parse(queries["Q3"])[0]
+    full = planned_feed_bytes(q3, probe.catalog, probe.store, 1,
+                              probe.settings)
+    budget = int(1.5 * full)
+    pair = [ct.connect(data_dir, serving_result_cache_bytes=0,
+                       max_feed_bytes_per_device=budget) for _ in range(2)]
+    wlm = probe.wlm
+    results, seen = {}, {"slots": None}
+
+    def w2(i):
+        try:
+            results[i] = pair[i].execute(queries["Q3"])
+        except Exception as e:  # noqa: BLE001 — gathered as a failure
+            results[i] = e
+
+    base = wlm.snapshot()
+    t0 = time.perf_counter()
+    ta = threading.Thread(target=w2, args=(0,))
+    ta.start()
+    while wlm.snapshot()["slots_in_use"] < 1 and ta.is_alive():
+        time.sleep(0.0005)
+    tb = threading.Thread(target=w2, args=(1,))
+    tb.start()
+    while tb.is_alive():
+        s_now = wlm.snapshot()
+        if any(r["queued"] for r in s_now["tenants"]):
+            seen["slots"] = s_now["slots_in_use"]
+            break
+        time.sleep(0.0005)
+    ta.join()
+    tb.join()
+    wall = time.perf_counter() - t0
+    b_queued = pair[1].stats.counters.snapshot()["wlm_queued_total"]
+    log(f"phase13 W2: Q3 planned {full} bytes, budget {budget}; two Q3s in "
+        f"{wall!r} s; the second queued {b_queued} time(s) with "
+        f"{seen['slots']} of 8 slots in use ({ident})")
+    for i in (0, 1):
+        if isinstance(results.get(i), Exception):
+            failures.append(f"W2 Q3 {i}: {results[i]!r}")
+        else:
+            try:
+                checks["Q3"](results[i], want["Q3"])
+            except AssertionError as e:
+                failures.append(f"W2 Q3 {i}: {e}")
+    if b_queued != 1 or seen["slots"] is None or seen["slots"] >= 8:
+        failures.append(f"W2: the second Q3 did not queue on bytes "
+                        f"(queued {b_queued}, slots {seen['slots']})")
+    clean("W2", pair)
+
+    # -- W3: shedding and the timeout while queued --------------------------
+    four = [ct.connect(data_dir, serving_result_cache_bytes=0,
+                       max_concurrent_statements=W1_SLOTS, wlm_queue_depth=1)
+            for _ in range(4)]
+    barrier = threading.Barrier(4)
+    outcomes: list = []
+
+    def w3(s):
+        barrier.wait()
+        try:
+            res = s.execute(queries["Q3"])
+            checks["Q3"](res, want["Q3"])
+            outcomes.append("answered")
+        except AdmissionRejected:
+            outcomes.append("shed")
+        except Exception as e:  # noqa: BLE001 — gathered as a failure
+            outcomes.append(repr(e))
+
+    run_threads(w3, [(s,) for s in four])
+    log(f"phase13 W3: 4 Q3s under {W1_SLOTS} slots, wlm_queue_depth 1: "
+        f"{sorted(outcomes)}")
+    if outcomes.count("shed") < 1 or \
+            outcomes.count("answered") + outcomes.count("shed") != 4:
+        failures.append(f"W3 shedding: {outcomes}")
+    timed = ct.connect(data_dir, serving_result_cache_bytes=0,
+                       max_concurrent_statements=1,
+                       statement_timeout_ms=200)
+    blocker = timed.wlm.admit(AdmissionRequest(max_slots=1))
+    t0 = time.perf_counter()
+    try:
+        timed.execute(queries["Q3"])
+        failures.append("W3: no StatementTimeout while queued")
+    except StatementTimeout:
+        log(f"phase13 W3: StatementTimeout after "
+            f"{time.perf_counter() - t0!r} s queued (200 ms limit)")
+    finally:
+        timed.wlm.release(blocker)
+    clean("W3", four + [timed, probe])
+
+    # -- P1: the micro-batcher ----------------------------------------------
+    rng = np.random.default_rng(13)
+    batcher = batcher_for(data_dir)
+    for mode, on in (("on", True), ("off", False)):
+        readers = [ct.connect(data_dir, serving_result_cache_bytes=0,
+                              serving_enabled=on,
+                              fast_path_max_rows=P1_FAST_PATH_MAX_ROWS)
+                   for _ in range(P1_THREADS)]
+        picks = [rng.choice(len(orders["o_orderkey"]), P1_LOOKUPS,
+                            replace=False) for _ in range(P1_THREADS)]
+        lat: list = []
+        wrong: list = []
+        batcher.reset_totals()
+        start = threading.Barrier(P1_THREADS)
+
+        def p1(s, pick):
+            start.wait()
+            for i in pick:
+                key = int(orders["o_orderkey"][i])
+                t1 = time.perf_counter()
+                try:
+                    rows = s.execute(
+                        "select o_orderkey, o_custkey, o_totalprice "
+                        f"from orders where o_orderkey = {key}").rows()
+                except Exception as e:  # noqa: BLE001 — a failure
+                    wrong.append(repr(e))
+                    continue
+                dt = time.perf_counter() - t1
+                with mu:
+                    lat.append(dt)
+                w = [(key, int(orders["o_custkey"][i]),
+                      float(orders["o_totalprice"][i]))]
+                if same_rows(rows, w, True):
+                    wrong.append(key)
+
+        t0 = time.perf_counter()
+        run_threads(p1, list(zip(readers, picks)))
+        wall = time.perf_counter() - t0
+        bs = batcher.snapshot()
+        n = P1_THREADS * P1_LOOKUPS
+        log(f"phase13 P1 serving {mode}: {n} lookups in {wall!r} s, "
+            f"latency p50 {_pct(lat, 0.5)!r} s p99 {_pct(lat, 0.99)!r} s; "
+            f"batcher requests {bs['requests_total']} answered "
+            f"{bs['answered_total']} errored {bs['errored_total']} fallback "
+            f"{bs['fallback_total']} dispatches "
+            f"{bs['batch_dispatch_total']} max batch "
+            f"{bs['max_batch_seen']} ({ident})")
+        log(f"  citus_stat_serving(): "
+            f"{readers[0].execute('select citus_stat_serving()').rows()}")
+        if wrong:
+            failures.append(f"P1 {mode}: {len(wrong)} wrong answers, "
+                            f"{wrong[:3]}")
+        if bs["requests_total"] != bs["answered_total"] + \
+                bs["errored_total"] + bs["fallback_total"]:
+            failures.append(f"P1 {mode}: the batcher's ledger {bs}")
+        if on and (bs["requests_total"] != n or bs["max_batch_seen"] < 2
+                   or bs["batch_dispatch_total"] >= n):
+            failures.append(f"P1 on: no coalescing {bs}")
+        if not on and bs["requests_total"]:
+            failures.append(f"P1 off: the batcher saw {bs}")
+        clean(f"P1 {mode}", readers)
+
+    # -- C1: the result cache -----------------------------------------------
+    sess = ct.connect(data_dir)
+    writer = ct.connect(data_dir, serving_result_cache_bytes=0)
+    first = sess.execute(queries["Q1"])
+    checks["Q1"](first, want["Q1"])
+    torch.cuda.synchronize()
+    before = dict(hk.LAUNCHES)
+    t0 = time.perf_counter()
+    hit = sess.execute(queries["Q1"])
+    hit_s = time.perf_counter() - t0
+    if hit.rows() != first.rows() or dict(hk.LAUNCHES) != before:
+        failures.append("C1: the repeat was not a hit without launches")
+    key = int(orders["o_orderkey"][7])
+    extra = li["l_orderkey"] == key
+    li2 = {c: np.concatenate([a, a[extra]]) for c, a in li.items()}
+    writer.execute("insert into lineitem select * from lineitem "
+                   f"where l_orderkey = {key}")
+    c0 = sess.stats.counters.snapshot()
+    miss = sess.execute(queries["Q1"])
+    torch.cuda.synchronize()
+    try:
+        checks["Q1"](miss, numpy_q1(li2))
+    except AssertionError as e:
+        failures.append(f"C1 after the insert: {e}")
+    c1 = sess.stats.counters.snapshot()
+    writer.execute("update nation set n_comment = 'c1' "
+                   "where n_nationkey = 1")
+    before = dict(hk.LAUNCHES)
+    again = sess.execute(queries["Q1"])
+    c2 = sess.stats.counters.snapshot()
+    misses = (c1["serving_cache_misses_total"]
+              - c0["serving_cache_misses_total"])
+    hits = c2["serving_cache_hits_total"] - c1["serving_cache_hits_total"]
+    log(f"phase13 C1: hit in {hit_s!r} s, no launch; after the insert "
+        f"{misses} miss ({int(extra.sum())} rows more, equal to numpy); "
+        f"after the UPDATE of nation {hits} hit ({ident})")
+    if misses != 1:
+        failures.append("C1: the insert did not invalidate Q1")
+    if hits != 1 or dict(hk.LAUNCHES) != before \
+            or again.rows() != miss.rows():
+        failures.append("C1: an UPDATE of nation invalidated Q1")
+    clean("C1", [sess, writer])
+
+    # -- R1: replication ----------------------------------------------------
+    foll_dir = os.path.join(tmp, "replica")
+    lead = ct.connect(data_dir, serving_result_cache_bytes=0)
+    t0 = time.perf_counter()
+    prov = provision_replica(data_dir, foll_dir,
+                             counters=lead.stats.counters)
+    prov_s = time.perf_counter() - t0
+    foll = ct.connect(foll_dir, serving_result_cache_bytes=0)
+    before = dict(hk.LAUNCHES)
+    fq1, fq3 = foll.execute(queries["Q1"]), foll.execute(queries["Q3"])
+    torch.cuda.synchronize()
+    on_foll = {n: hk.LAUNCHES[n] - before[n] for n in hk.KERNELS}
+    lq1, lq3 = lead.execute(queries["Q1"]), lead.execute(queries["Q3"])
+    for name, f, ld in (("Q1", fq1, lq1), ("Q3", fq3, lq3)):
+        diff = same_rows(f.rows(), ld.rows(), True)
+        if diff:
+            failures.append(f"R1 follower {name}: {diff}")
+    if not all(on_foll[k] > 0 for k in ("dense_grid_sum", "bucketed_probe",
+                                        "dict_decode")):
+        failures.append(f"R1 follower launches {on_foll}")
+    key2 = int(orders["o_orderkey"][11])
+    extra2 = li2["l_orderkey"] == key2
+    li3 = {c: np.concatenate([a, a[extra2]]) for c, a in li2.items()}
+    lead.execute("insert into lineitem select * from lineitem "
+                 f"where l_orderkey = {key2}")
+    t0 = time.perf_counter()
+    shipped = lead.execute("select citus_replication_ship()").rows()
+    ship_s = time.perf_counter() - t0
+    try:
+        checks["Q1"](foll.execute(queries["Q1"]), numpy_q1(li3))
+    except AssertionError as e:
+        failures.append(f"R1 follower after the ship: {e}")
+    lead.execute("insert into nation values (96, 'UNSHIPPED', 1, 'u')")
+    foll.execute("set replica_max_staleness_lsn = 0")
+    try:
+        foll.execute(queries["Q1"])
+        failures.append("R1: no ReplicaTooStale")
+    except ReplicaTooStale:
+        pass
+    foll.settings.reset("replica_max_staleness_lsn")  # back to unbounded
+    try:
+        foll.execute("insert into nation values (95, 'X', 1, 'x')")
+        failures.append("R1: the follower took a write")
+    except ReadOnlyReplica:
+        pass
+    stat_l = lead.execute("select citus_stat_replication()").rows()
+    stat_f = foll.execute("select citus_stat_replication()").rows()
+    epoch = foll.execute("select citus_promote_replica()").rows()[0][0]
+    foll.execute("insert into nation values (98, 'PROMOTED', 1, 'p')")
+    took = foll.execute("select count(*) from nation "
+                        "where n_nationkey = 98").rows()[0][0]
+    lead.execute("insert into nation values (97, 'ZOMBIE', 1, 'z')")
+    try:
+        lead.execute("select citus_replication_ship()")
+        failures.append("R1: the old leader's ship was not fenced")
+        fenced = False
+    except ReplicationError:
+        fenced = True
+    log(f"phase13 R1: provision {prov_s!r} s ({prov}); follower Q1 and Q3 "
+        f"equal the leader's, launches on the follower {on_foll}; "
+        f"incremental ship {ship_s!r} s {shipped}; citus_stat_replication "
+        f"leader {stat_l} follower {stat_f}; promoted to epoch {epoch}, "
+        f"its write landed ({took}), the old leader fenced ({fenced}) "
+        f"({ident})")
+    if int(took) != 1:
+        failures.append("R1: the promoted follower lost its write")
+    clean("R1", [lead, foll])
+
+    launched = dict(hk.LAUNCHES)
+    wall = time.perf_counter() - t_phase
+    log(f"phase13: {wall!r} s (budget {PHASE13_BUDGET_S} s), launches "
+        f"{launched}")
+    if wall > PHASE13_BUDGET_S:
+        failures.append(f"phase 13 took {wall!r} s")
+    if failures:
+        raise AssertionError(f"phase 13: {failures}")
+    return launched
+
+
 def _spans_named(span, name):
     if span["name"] == name:
         yield span
@@ -2406,7 +2854,7 @@ def main() -> int:
         t0 = time.perf_counter()
         data = tpch.generate_tables(args.sf, seed=0)
         log(f"generate SF{args.sf}: {time.perf_counter() - t0:.3f} s")
-        sess = ct.connect(os.path.join(tmp, "data"))
+        sess = rerun_connect(ct, os.path.join(tmp, "data"))
         t0 = time.perf_counter()
         counts = tpch.load_tables(sess, data)
         log(f"load {counts}: {time.perf_counter() - t0:.3f} s")
@@ -2493,12 +2941,17 @@ def main() -> int:
         launched12 = phase12(ct, hk, os.path.join(tmp, "data"), queries,
                              checks, want, ident)
         log(f"phase 12: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        launched13 = phase13(ct, hk, os.path.join(tmp, "data"), data,
+                             queries, checks, want, ident, tmp)
+        log(f"phase 13: {time.perf_counter() - t0:.3f} s")
         for rep in reports:
             rep["launches_tpch22"] = launched[rep["name"]]
             rep["launches_phase9"] = launched9[rep["name"]]
             rep["launches_phase10"] = launched10[rep["name"]]
             rep["launches_phase11"] = launched11[rep["name"]]
             rep["launches_phase12"] = launched12[rep["name"]]
+            rep["launches_phase13"] = launched13[rep["name"]]
 
         log(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s")
         print(json.dumps({"kernels": reports}), flush=True)

@@ -10,6 +10,7 @@ as its own copy.  Both packages read and write the same data_dir format.
 
 from .config import Settings, registered_vars
 from .errors import (
+    AdmissionRejected,
     CapacityOverflowError,
     CatalogError,
     CitusTpuError,
@@ -19,6 +20,10 @@ from .errors import (
     ParseError,
     PlanningError,
     QueryCanceled,
+    ReadOnlyReplica,
+    ReplicaTooStale,
+    ReplicationError,
+    StatementTimeout,
     UnsupportedQueryError,
 )
 from .types import ColumnDef, DataType, TableSchema
@@ -28,7 +33,8 @@ __all__ = [
     "TableSchema", "CitusTpuError", "ConfigError", "CatalogError",
     "ParseError", "PlanningError", "UnsupportedQueryError",
     "ExecutionError", "CapacityOverflowError", "IngestError",
-    "QueryCanceled",
+    "QueryCanceled", "StatementTimeout", "AdmissionRejected",
+    "ReplicationError", "ReadOnlyReplica", "ReplicaTooStale",
 ]
 
 

@@ -278,6 +278,93 @@ _register(ConfigVar(
     int, min_value=1, max_value=1_000_000))
 
 
+# --- workload management (wlm/ — the shared-pool governor analogue; the
+# JAX package's knobs and defaults) ------------------------------------------
+def _validate_tenant_weights(value: str) -> None:
+    from .wlm.manager import parse_tenant_weights
+
+    parse_tenant_weights(value)  # raises ConfigError on malformed spec
+
+
+_register(ConfigVar(
+    "wlm_enabled", True,
+    "Route every non-exempt statement through the workload manager's "
+    "admission gate (slots + HBM budget + per-tenant fair queue, "
+    "wlm/manager.py).  Off restores the ungoverned race into the "
+    "executor (ref: the citus.max_shared_pool_size governor as a "
+    "whole, shared_library_init.c).",
+    bool))
+_register(ConfigVar(
+    "max_concurrent_statements", 8,
+    "Admission slots: statements executing concurrently across every "
+    "session sharing this data_dir; the rest queue per tenant and "
+    "priority class (ref: citus.max_shared_pool_size / "
+    "citus.max_adaptive_executor_pool_size).",
+    int, min_value=1, max_value=1024))
+_register(ConfigVar(
+    "wlm_queue_depth", 64,
+    "Bounded admission queue per priority class; arrivals beyond it "
+    "shed with a clean AdmissionRejected instead of queueing without "
+    "bound (0 sheds whenever the gate is saturated).",
+    int, min_value=0, max_value=1_000_000))
+_register(ConfigVar(
+    "wlm_default_priority", "interactive",
+    "Priority class this session's statements enqueue at.  Classes "
+    "dispatch strictly interactive > batch > background.",
+    str, choices=("interactive", "batch", "background")))
+_register(ConfigVar(
+    "wlm_tenant", "",
+    "Explicit tenant identity for fair queueing.  Empty derives the "
+    "tenant from the statement's distcol = const pin (the "
+    "citus_stat_tenants attribution, stats/tenants.py), falling back "
+    "to 'default'.",
+    str))
+_register(ConfigVar(
+    "wlm_tenant_weights", "",
+    "Weighted round-robin shares per tenant within a priority class, "
+    "as 'tenantA:3,tenantB:1' (unlisted tenants weigh 1).",
+    str, validate=_validate_tenant_weights))
+
+# --- serving layer (serving/: the cross-session micro-batcher and the
+# CDC-invalidated result cache) ---------------------------------------------
+_register(ConfigVar(
+    "serving_enabled", True,
+    "Route fast-path point-index lookups through the per-data_dir "
+    "cross-session micro-batcher (serving/batcher.py): concurrent "
+    "lookups coalesce into one batched stripe/chunk probe, single-"
+    "flight when alone.  Also gates the result cache "
+    "(serving_result_cache_bytes).  Off restores the solo path.",
+    bool))
+_register(ConfigVar(
+    "serving_max_batch", 64,
+    "Ceiling on point lookups coalesced into ONE batched index probe "
+    "per dispatch; arrivals beyond it form the next batch.",
+    int, min_value=1, max_value=4096))
+_register(ConfigVar(
+    "serving_batch_window_ms", 2.0,
+    "How long a batch leader that found company holds the door open "
+    "for the burst's tail before dispatching.  0 dispatches whatever "
+    "is queued immediately; a lone request never waits.",
+    float, min_value=0.0, max_value=1000.0))
+_register(ConfigVar(
+    "serving_result_cache_bytes", 256 << 20,
+    "Byte budget for the shared per-data_dir result cache of repeated "
+    "read statements (serving/result_cache.py).  Entries drop when the "
+    "change journal shows a write to a table they read (never on a "
+    "TTL), with a manifest-identity backstop.  A hit launches no "
+    "kernel.  0 disables (what a benchmark of warm re-runs sets).",
+    int, min_value=0, max_value=1 << 40))
+
+# --- replication (replication/) --------------------------------------------
+_register(ConfigVar(
+    "replica_max_staleness_lsn", -1,
+    "Follower read gate: the max lsns a replica may lag its leader and "
+    "still answer.  Beyond it a statement fails with a clean "
+    "ReplicaTooStale.  -1 = unbounded (lag is still reported by "
+    "citus_stat_replication).",
+    int, min_value=-1, max_value=1_000_000_000))
+
+
 class Settings:
     """Session-scoped mutable settings over the global registry."""
 

@@ -118,3 +118,27 @@ class CapacityOverflowError(ExecutionError):
 
 class IngestError(CitusTpuError):
     """COPY/bulk-load failure."""
+
+
+class AdmissionRejected(CitusTpuError):
+    """The workload manager shed this statement instead of queueing it
+    without bound: the admission queue for its priority class was full
+    (wlm_queue_depth).  A clean, client-retryable error, never a
+    half-executed statement."""
+
+
+class ReplicationError(CitusTpuError):
+    """Log-shipping state violation (replication/): a fenced leader
+    shipping from a superseded epoch, a broken batch spool order, or a
+    role mismatch (promoting a leader, shipping from a follower)."""
+
+
+class ReadOnlyReplica(ReplicationError):
+    """A write reached a follower data_dir; every mutation belongs on
+    the leader.  Nothing was executed."""
+
+
+class ReplicaTooStale(ReplicationError):
+    """The follower's applied lsn lags its leader beyond
+    `replica_max_staleness_lsn`: it refuses instead of serving old
+    rows as if they were current."""

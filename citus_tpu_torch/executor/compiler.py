@@ -32,6 +32,7 @@ routing.
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -203,6 +204,10 @@ class PlanCompiler:
         self.device = torch.device(device)
         self.out_meta = None
         self.stage_keys = None
+        # a run keeps its plan, capacities and stage counters on the
+        # instance, and the plan cache hands one instance to every thread
+        # of a session that runs the shape: runs take turns
+        self._run_lock = threading.Lock()
         if plan.n_devices != 1:
             raise ExecutionError("the port executes on one device")
         if plan.output_repart is not None:
@@ -224,24 +229,25 @@ class PlanCompiler:
             trace_span,
         )
 
-        self.plan = plan
-        self.caps = caps
-        try:
-            # the eager program's launches, timed on the card by a CUDA
-            # event pair (the span's device_ms), then the two blocking
-            # copies back to the host
-            with trace_span("mesh.dispatch") as sp, \
-                    device_timeline(sp, self.device):
-                packed, counters, meta, stage_keys = self._dispatch(
-                    plan, feeds)
-            with trace_span("mesh.fetch"):
-                packed = packed.cpu().numpy()
-                counters = counters.cpu().numpy()
-        finally:
-            self.plan = self.caps = None
+        with self._run_lock:
+            self.plan = plan
+            self.caps = caps
+            try:
+                # the eager program's launches, timed on the card by a
+                # CUDA event pair (the span's device_ms), then the two
+                # blocking copies back to the host
+                with trace_span("mesh.dispatch") as sp, \
+                        device_timeline(sp, self.device):
+                    packed, counters, meta, stage_keys = self._dispatch(
+                        plan, feeds)
+                with trace_span("mesh.fetch"):
+                    packed = packed.cpu().numpy()
+                    counters = counters.cpu().numpy()
+            finally:
+                self.plan = self.caps = None
+            self.out_meta, self.stage_keys = meta, stage_keys
         # the fetch returned: every launch before it has completed
         resolve_device_legs()
-        self.out_meta, self.stage_keys = meta, stage_keys
         return packed[:, None, :], counters, meta, stage_keys
 
     def _dispatch(self, plan: QueryPlan, feeds) -> tuple:

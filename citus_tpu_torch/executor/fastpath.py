@@ -16,7 +16,9 @@ reference's own routing, not a fallback: the same statement with
 enable_fast_path_router off runs on the device.
 
 A table with rows staged by the open transaction never answers through
-the point index (index_probe), as in the JAX package.
+the point index (index_probe), as in the JAX package.  With
+`serving_enabled` on, a point-index lookup goes through the data_dir's
+cross-session micro-batcher (serving/batcher.py, `_index_rows`).
 
 Scope: Scan / Project / inner+left Join plans.  Aggregates and
 right/full joins take the device path.  The row ceiling keeps the host
@@ -179,8 +181,6 @@ def _exec_host(executor, node):
 
 
 def _scan_host(executor, node: ScanNode):
-    from ..storage import pkindex
-
     store = executor.store
     meta = executor.catalog.table(node.rel.table)
     shards = executor.catalog.table_shards(node.rel.table)
@@ -192,23 +192,20 @@ def _scan_host(executor, node: ScanNode):
 
     value = index_probe(executor, node)
     if value is not None and len(wanted) == 1:
-        hits = pkindex.lookup(store, node.rel.table, wanted[0].shard_id,
-                              meta.distribution_column, value)
-        if executor.counters is not None:
-            executor.counters.increment(sc.POINT_INDEX_LOOKUPS)
-        vals, mask, n = pkindex.read_rows(store, node.rel.table,
-                                          wanted[0].shard_id, colnames,
-                                          hits)
-        cols = {cid: vals[cname]
-                for cid, cname in zip(node.columns, colnames)}
-        nulls = {cid: ~mask[cname]
-                 for cid, cname in zip(node.columns, colnames)
-                 if not mask[cname].all()}
-        valid = np.ones(n, dtype=bool)
-        if n:  # the remaining (non-key) conjuncts still apply
-            valid = valid & np.broadcast_to(np.asarray(predicate_mask(
-                node.filter, ColumnSource(cols, nulls), np)), (n,))
-        return _compress(cols, nulls, valid)
+        got = _index_rows(executor, node.rel.table, wanted[0].shard_id,
+                          meta.distribution_column, value, colnames)
+        if got is not None:
+            vals, mask, n = got
+            cols = {cid: vals[cname]
+                    for cid, cname in zip(node.columns, colnames)}
+            nulls = {cid: ~mask[cname]
+                     for cid, cname in zip(node.columns, colnames)
+                     if not mask[cname].all()}
+            valid = np.ones(n, dtype=bool)
+            if n:  # the remaining (non-key) conjuncts still apply
+                valid = valid & np.broadcast_to(np.asarray(predicate_mask(
+                    node.filter, ColumnSource(cols, nulls), np)), (n,))
+            return _compress(cols, nulls, valid)
     chunk_filter = None
     if node.filter is not None:
         name_map = {c.name: store.storage_column_name(node.rel.table,
@@ -244,6 +241,52 @@ def _scan_host(executor, node: ScanNode):
             predicate_mask(node.filter, ColumnSource(cols, nulls), np)),
             (n,))
     return _compress(cols, nulls, valid)
+
+
+def _index_rows(executor, table: str, shard_id: int, column: str,
+                value: int, colnames):
+    """Point-index rows for one key: through the cross-session
+    micro-batcher (serving/batcher.py) when the serving layer is on,
+    solo otherwise.  None ⇒ the index cannot answer (an overlay holds
+    staged rows): the caller scans the shard instead."""
+    from ..storage import pkindex
+
+    store = executor.store
+    if executor.settings.get("serving_enabled") \
+            and store.overlay is None \
+            and executor.settings.get("storage_verify_checksums"):
+        # only overlay-free sessions batch: an open transaction's staged
+        # records and delete masks are private to its own store, so it
+        # must neither read through another session's probe store nor
+        # answer other sessions.  Only verify-on sessions batch: the
+        # coalesced probe reads through ONE member's store
+        batcher = getattr(store, "_serving_batcher", None)
+        if batcher is None:
+            from ..serving.batcher import batcher_for
+
+            batcher = store._serving_batcher = batcher_for(store.data_dir)
+        res = batcher.lookup(
+            store, table, shard_id, column, value, colnames,
+            max_batch=executor.settings.get("serving_max_batch"),
+            window_s=executor.settings.get(
+                "serving_batch_window_ms") / 1000.0)
+        if res.fallback:
+            return None
+        if executor.counters is not None:
+            executor.counters.increment(sc.POINT_INDEX_LOOKUPS)
+            # this session's lookup rode a batch; a leader also owns the
+            # dispatches it drove
+            executor.counters.increment(sc.SERVING_BATCHED_LOOKUPS_TOTAL)
+            if res.dispatches_led:
+                executor.counters.increment(
+                    sc.SERVING_BATCH_DISPATCH_TOTAL, res.dispatches_led)
+        return res.vals, res.mask, res.n
+    hits = pkindex.lookup(store, table, shard_id, column, value)
+    if hits is None:
+        return None
+    if executor.counters is not None:
+        executor.counters.increment(sc.POINT_INDEX_LOOKUPS)
+    return pkindex.read_rows(store, table, shard_id, colnames, hits)
 
 
 def _compress(cols, nulls, valid):

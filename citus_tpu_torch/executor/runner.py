@@ -467,12 +467,25 @@ class Executor:
         shared).  Frees at least 4× the failed allocation when its size
         is known, everything otherwise.  Then hands the CUDA caching
         allocator's free blocks back to CUDA: the ledger does not
-        see that reserve, and the retry needs it.  Returns cache entries
+        see that reserve, and the retry needs it.  Also clears the
+        data_dir's serving result cache.  Returns feed-cache entries
         evicted — only those mark the rung successful."""
         evicted = self.accountant.evict_evictable(
             nbytes * 4 if nbytes else None)
         if evicted and self.counters is not None:
             self.counters.increment(sc.CACHE_EVICTIONS_TOTAL, evicted)
+        # best-effort: finished results are host bytes, but a data_dir
+        # under memory pressure keeps no serving cache warm either; the
+        # peek never resurrects a released registry entry, and this
+        # never counts toward the rung's success.  (Eviction above drops
+        # only the feed cache's reference: a feed another admitted
+        # statement is running on stays alive, and charged, through that
+        # statement's own reference until it ends.)
+        from ..serving.result_cache import peek_result_cache
+
+        rcache = peek_result_cache(self.store.data_dir)
+        if rcache is not None and len(rcache):
+            rcache.clear()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         return evicted

@@ -61,11 +61,21 @@ MAX_SMEM_BYTES = 232448
 _lock = threading.Lock()
 # kernel name → its C entry point, argtypes set: bound once, called as is
 _entries: dict[str, ctypes._CFuncPtr] = {}
+# LAUNCHES is read-modify-written by every session thread that launches
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel `name`, counted exactly under concurrent
+    sessions (`+=` on a dict entry is not atomic across threads)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -157,7 +167,7 @@ def _launch(name: str, *args) -> None:
     err = _fn(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def _on_cpu(*tensors) -> bool:

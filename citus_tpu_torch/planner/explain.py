@@ -34,9 +34,8 @@ _JOIN_LABEL = {
 # EXPLAIN tag registry: every strategy tag a plan renders in this port.
 # Render sites call explain_tag("…") instead of inlining the literal
 # (tests grep these strings — a silently renamed tag is a silently
-# broken assertion).  The JAX package's Integrity, Workload, Serving and
-# Replication tags come with their modules (ROADMAP queue A items 10
-# and 11).
+# broken assertion).  The JAX package's Integrity tag comes with its
+# module (ROADMAP queue A item 10).
 EXPLAIN_TAGS: dict[str, str] = {
     "Fast Path Router": "single-shard host execution, device skipped",
     "point index lookup": "scan answered by the persistent PK index",
@@ -57,6 +56,10 @@ EXPLAIN_TAGS: dict[str, str] = {
     "Memory": "device-memory ledger + OOM degradation for this statement",
     "Resilience": "retry/failover totals for this statement",
     "Caches": "plan/feed cache traffic for this statement",
+    "Workload": "admission-gate trip for this statement",
+    "Serving": "micro-batch / result-cache trip for this statement",
+    "Replication": "replica role, applied lsn and visible staleness "
+                   "(followers) or follower fleet state (leaders)",
 }
 
 

@@ -1,0 +1,394 @@
+"""CDC-invalidated result cache for repeated read statements
+(counterpart of citus_tpu/serving/result_cache.py).
+
+The prepared-statement-caching analogue taken one level further: where
+the plan cache reuses the compiled program and the feed cache reuses
+device-resident tensors, this cache reuses the FINISHED ResultSet of a
+repeated read statement — keyed on (statement shape, bound params,
+catalog version, compute dtype) and shared by every session on one
+data_dir.
+
+Freshness is proven, not assumed:
+
+* **CDC subscription** — every logical mutation lands in the change
+  journal at its commit point (cdc/feed.py); the cache consumes the
+  journal incrementally (`ChangeFeedCursor`, one size-stat per poll)
+  and drops exactly the touched tables' entries.  Never a wall-clock
+  TTL: a hit is as-of the latest journaled LSN for every table it
+  reads, and internal data movement (shard move/split/rebalance —
+  suppressed at the CDC source) correctly invalidates nothing.
+* **Manifest-identity backstop** — `cdc.append` is post-visibility: a
+  crash between the manifest flip and the journal append leaves a
+  committed-but-unjournaled mutation.  Each entry therefore records
+  every read table's on-disk manifest identity (mtime_ns, size, inode)
+  at fill time, captured BEFORE execution; a hit re-stats and a
+  mismatch invalidates.  This also covers out-of-band surgery
+  (restore_cluster) for free.
+
+A hit launches no kernel and does no device work: it returns the
+finished host arrays.  That is why a benchmark of warm re-runs connects
+with ``serving_result_cache_bytes=0``.
+
+Entries are LRU in a byte-bounded store (`serving_result_cache_bytes`)
+with a per-table key index, so DML invalidation touches only the
+written table's entries instead of scanning the whole cache under the
+lock.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..cdc.feed import ChangeFeedCursor
+from ..errors import CitusTpuError
+from ..sql import ast, parse
+from ..utils.faultinjection import fault_point
+
+
+@dataclass
+class _Entry:
+    result: object
+    tables: tuple[str, ...]
+    sigs: dict[str, tuple | None]   # table → manifest identity at fill
+    nbytes: int
+
+
+def _result_nbytes(result) -> int:
+    """Rough retained-bytes estimate for LRU accounting."""
+    total = 256
+    for col in result.columns.values():
+        if isinstance(col, np.ndarray):
+            total += int(col.nbytes)
+            if col.dtype == object:
+                total += 32 * col.size  # boxed values
+        else:
+            total += 64 * len(col)
+    if result.null_masks:
+        for m in result.null_masks.values():
+            total += int(np.asarray(m).nbytes)
+    return total
+
+
+class ResultCache:
+    """Per-data_dir LRU of read-statement results with CDC-driven,
+    table-indexed invalidation."""
+
+    def __init__(self, data_dir: str):
+        self._mu = threading.Lock()
+        self._cursor = ChangeFeedCursor(
+            os.path.join(data_dir, "cdc_changes.jsonl"))
+        self._entries: OrderedDict[tuple, _Entry] = OrderedDict()
+        self._by_table: dict[str, set] = {}
+        # monotone fill-epoch: bumped per invalidation batch; an entry
+        # filled under an older epoch than its tables' last invalidation
+        # is discarded at put() (the mid-execution-write race)
+        self._epoch = 0
+        self._table_epoch: dict[str, int] = {}
+        self._bytes = 0
+        self.hits = 0
+        self.misses = 0
+        self.invalidations = 0
+
+    # -- invalidation ------------------------------------------------------
+    def _poll_locked(self) -> None:
+        events = self._cursor.poll()
+        if events is None:
+            # the journal regressed (restore_cluster replaced it):
+            # nothing is provably fresh — drop everything
+            self._clear_locked()
+            return
+        touched = {ev["table"] for ev in events}
+        if touched:
+            self._epoch += 1
+            for t in touched:
+                self._table_epoch[t] = self._epoch
+                self._invalidate_table_locked(t)
+
+    def _invalidate_table_locked(self, table: str) -> None:
+        keys = self._by_table.pop(table, None)
+        if not keys:
+            return
+        for k in keys:
+            e = self._entries.pop(k, None)
+            if e is None:
+                continue
+            self._bytes -= e.nbytes
+            self.invalidations += 1
+            for t in e.tables:
+                if t != table:
+                    other = self._by_table.get(t)
+                    if other is not None:
+                        other.discard(k)
+
+    def _drop_locked(self, key: tuple) -> None:
+        e = self._entries.pop(key, None)
+        if e is None:
+            return
+        self._bytes -= e.nbytes
+        for t in e.tables:
+            s = self._by_table.get(t)
+            if s is not None:
+                s.discard(key)
+                if not s:
+                    del self._by_table[t]
+
+    def _clear_locked(self) -> None:
+        n = len(self._entries)
+        self._entries.clear()
+        self._by_table.clear()
+        self._bytes = 0
+        self.invalidations += n
+        if n:
+            self._epoch += 1
+            for t in list(self._table_epoch):
+                self._table_epoch[t] = self._epoch
+
+    def clear(self) -> None:
+        with self._mu:
+            self._clear_locked()
+
+    # -- lookup / fill -----------------------------------------------------
+    def lookup(self, key: tuple, sig_fn=None):
+        """(cached ResultSet or None, entries THIS call dropped).
+        Polls the change feed first; when `sig_fn(table) -> sig` is
+        given, the entry's manifest identities are re-checked (the
+        crash-window backstop).  The drop count is per-call — folding
+        it into a session counter never attributes another session's
+        concurrent poll (`invalidations` only moves under `_mu`, so the
+        delta inside one locked section is exactly this call's).
+
+        The per-table stat()s run OUTSIDE `_mu` (a slow filesystem must
+        not serialize every session's hit behind one stat); the verdict is re-applied under the lock only if the
+        entry survived untouched (`_Entry` is immutable after put)."""
+        with self._mu:
+            inv0 = self.invalidations
+            self._poll_locked()
+            e = self._entries.get(key)
+            sigs = e.sigs if (e is not None and sig_fn is not None) \
+                else None
+            poll_dropped = self.invalidations - inv0
+        stale = False
+        if sigs is not None:
+            stale = any(sig_fn(t) != sigs.get(t) for t in e.tables)
+        with self._mu:
+            dropped = poll_dropped
+            if e is not None and self._entries.get(key) is not e:
+                e = None  # raced with a concurrent invalidation/refill
+            elif e is not None and stale:
+                self._drop_locked(key)
+                self.invalidations += 1
+                dropped += 1
+                e = None
+            if e is None:
+                self.misses += 1
+                return None, dropped
+            self._entries.move_to_end(key)
+            self.hits += 1
+            return e.result, dropped
+
+    def get(self, key: tuple, sig_fn=None):
+        """`lookup()` without the per-call drop count."""
+        return self.lookup(key, sig_fn)[0]
+
+    def fill_token(self) -> int:
+        """Epoch snapshot taken at miss time, BEFORE executing: put()
+        refuses the fill when any read table was invalidated after this
+        point (the result may predate a concurrent write)."""
+        with self._mu:
+            self._poll_locked()
+            return self._epoch
+
+    def put(self, key: tuple, result, tables, sigs: dict,
+            token: int, max_bytes: int) -> bool:
+        """Insert a finished result.  Returns False when the fill was
+        refused (stale token / oversized entry / cache disabled).
+        The fill is a named fault seam: an injected failure here errors
+        the STATEMENT cleanly (a SELECT has no visibility effect, so
+        the retry loop safely re-executes) and must never leave a
+        half-inserted entry."""
+        if max_bytes <= 0:
+            return False
+        fault_point("serving.cache_fill")
+        nbytes = _result_nbytes(result)
+        if nbytes > max(1, max_bytes // 4):
+            return False  # one answer must not evict the working set
+        with self._mu:
+            self._poll_locked()
+            if any(self._table_epoch.get(t, 0) > token for t in tables):
+                return False  # a write landed mid-execution
+            if key in self._entries:
+                self._drop_locked(key)
+            entry = _Entry(result, tuple(tables), dict(sigs), nbytes)
+            self._entries[key] = entry
+            self._bytes += nbytes
+            for t in entry.tables:
+                self._by_table.setdefault(t, set()).add(key)
+            while self._bytes > max_bytes and len(self._entries) > 1:
+                old_key = next(iter(self._entries))
+                self._drop_locked(old_key)
+            return True
+
+    def probe(self, key: tuple) -> bool:
+        """Membership check without traffic accounting (EXPLAIN)."""
+        with self._mu:
+            self._poll_locked()
+            return key in self._entries
+
+    # -- observability -----------------------------------------------------
+    @property
+    def total_bytes(self) -> int:
+        return self._bytes
+
+    def __len__(self):
+        return len(self._entries)
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            return {
+                "entries": len(self._entries),
+                "bytes": self._bytes,
+                "hits_total": self.hits,
+                "misses_total": self.misses,
+                "invalidations_total": self.invalidations,
+                "last_lsn": self._cursor.last_lsn,
+            }
+
+
+# -- statement fingerprinting ----------------------------------------------
+def _walk_nodes(node):
+    """Every ast dataclass node in a statement tree (generic traversal —
+    the same shape _substitute_params walks)."""
+    stack = [node]
+    while stack:
+        n = stack.pop()
+        if dataclasses.is_dataclass(n) and not isinstance(n, type):
+            yield n
+            for f in dataclasses.fields(n):
+                stack.append(getattr(n, f.name))
+        elif isinstance(n, (tuple, list)):
+            stack.extend(n)
+
+
+def read_closure(stmt, catalog, _depth: int = 0):
+    """Base tables the statement may READ, views expanded recursively —
+    the invalidation subscription set.  Conservative: CTE names that
+    shadow base tables over-approximate (extra invalidation is safe;
+    a missed table would serve stale rows).  Returns None when the
+    statement is not provably cacheable (mutating kinds, unresolvable
+    views)."""
+    if _depth > 8:
+        return None
+    if not isinstance(stmt, (ast.Select, ast.SetOp)):
+        return None
+    tables: set[str] = set()
+    for n in _walk_nodes(stmt):
+        if isinstance(n, ast.TableRef):
+            view = catalog.views.get(n.name)
+            if view is not None:
+                try:
+                    body = parse(view["sql"])[0]
+                except CitusTpuError:
+                    return None
+                inner = read_closure(body, catalog, _depth + 1)
+                if inner is None:
+                    return None
+                tables |= inner
+            elif catalog.has_table(n.name):
+                tables.add(n.name)
+            # else: a CTE/derived name — its body's tables are walked
+    return tables
+
+
+def cache_key(stmt, params, catalog, settings, udfs, device_type=""):
+    """(key, tables) for a cacheable read statement, else None.
+
+    The key covers everything that determines the result AND its
+    execution metadata: the statement tree (frozen-dataclass reprs are
+    stable value serializations), the bound EXECUTE literals, the
+    catalog version (DDL fences), the session's full settings profile
+    and the session's device type.  A knob flip simply misses: EXPLAIN
+    ANALYZE and tests read metadata (fast_path, streamed_batches) off
+    the result.  The device type keeps a cuda session's float32 sums
+    and a CPU session's apart (their rounding differs).  Data freshness
+    is NOT in the key — that is the CDC subscription's job.
+
+    The statement-shape half (UDF scan, read closure, tree repr) is
+    memoized ON the statement node per catalog version, so a statement
+    object that is run again (a prepared statement's target) is walked
+    once."""
+    memo = getattr(stmt, "_serving_key_memo", None)
+    if memo is None or memo[0] != catalog.version:
+        shape = None  # uncacheable under this catalog version
+        if not any(isinstance(n, ast.FuncCall) and n.name in udfs
+                   for n in _walk_nodes(stmt)):
+            tables = read_closure(stmt, catalog)
+            if tables is not None:
+                shape = (repr(stmt), tuple(sorted(tables)))
+        memo = (catalog.version, shape)
+        # frozen dataclass, no slots: attach without thawing
+        object.__setattr__(stmt, "_serving_key_memo", memo)
+    shape = memo[1]
+    if shape is None:
+        return None  # admin/volatile UDF call or unresolvable view
+    key = (shape[0], tuple(repr(p) for p in params), catalog.version,
+           settings.profile(), device_type)
+    return key, shape[1]
+
+
+# -- registry ---------------------------------------------------------------
+_registry: dict[str, ResultCache] = {}
+_refs: dict[str, int] = {}
+_registry_mu = threading.Lock()
+
+
+def peek_result_cache(data_dir: str) -> "ResultCache | None":
+    """The registry's existing cache for `data_dir`, or None — WITHOUT
+    creating one.  For best-effort consumers (the OOM ladder's
+    eviction rung) that must not resurrect an entry the refcounted
+    acquire/release lifecycle already dropped."""
+    key = os.path.realpath(data_dir)
+    with _registry_mu:
+        return _registry.get(key)
+
+
+def result_cache_for(data_dir: str) -> ResultCache:
+    key = os.path.realpath(data_dir)
+    with _registry_mu:
+        if key not in _registry:
+            _registry[key] = ResultCache(data_dir)
+        return _registry[key]
+
+
+def acquire_result_cache(data_dir: str) -> ResultCache:
+    """result_cache_for + a liveness reference.  Unlike the batcher
+    registry (counters only), a ResultCache pins up to
+    serving_result_cache_bytes of finished result arrays — a process
+    churning through data_dirs (the test suite, a bench driver) must
+    not accrete every dir's working set forever.  Sessions acquire on
+    first use and release on close; the last release drops the
+    registry entry and its bytes."""
+    key = os.path.realpath(data_dir)
+    with _registry_mu:
+        if key not in _registry:
+            _registry[key] = ResultCache(data_dir)
+        _refs[key] = _refs.get(key, 0) + 1
+        return _registry[key]
+
+
+def release_result_cache(data_dir: str) -> None:
+    key = os.path.realpath(data_dir)
+    with _registry_mu:
+        n = _refs.get(key, 0) - 1
+        if n > 0:
+            _refs[key] = n
+            return
+        _refs.pop(key, None)
+        cache = _registry.pop(key, None)
+    if cache is not None:
+        cache.clear()

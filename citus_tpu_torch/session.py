@@ -51,9 +51,19 @@ feed → mesh.dispatch / mesh.fetch → combine, with CUDA-event device
 legs on a cuda session); EXPLAIN ANALYZE prints its Timing line from
 that trace.
 
-Not in this port yet: the UDFs of unported modules (`_UNPORTED_UDFS`),
-serving, WLM, replication, and the envelope's device-loss failover
-(multi-GPU).
+Concurrent sessions (wlm/, serving/, replication/): every non-exempt
+statement passes the data_dir's workload manager between parse and the
+envelope (`_execute_admitted`: slots, the device-memory gate, per-tenant
+fair queueing and shedding, one deadline over queue wait and execution);
+fast-path point reads coalesce across sessions in the micro-batcher; a
+repeated read statement answers from the CDC-invalidated result cache
+(`_execute_select`; never inside an open transaction); a follower
+data_dir applies shipped batches when it opens and before each
+statement, refuses writes and bounds its visible staleness
+(`_replica_gate`).
+
+Not in this port yet: the UDFs of unported modules (`_UNPORTED_UDFS`)
+and the envelope's device-loss failover (multi-GPU).
 """
 
 from __future__ import annotations
@@ -85,6 +95,7 @@ from .planner.decorrelate import (
 )
 from .planner.explain import format_plan
 from .planner.plan import DistributedPlanner, QueryPlan, StatsProvider
+from .replication import apply_pending, replication_for
 from .runtime import resolve_device
 from .sql import ast, parse
 from .stats import SessionStats, extract_tenants
@@ -100,15 +111,19 @@ from .types import (
     date_to_days,
     sql_type_to_datatype,
 )
+from .wlm import workload_manager_for
 
 
-# the UDFs this port answers (Session._try_udf): the catalog's, and the
-# stats and health UDFs of stats/ and operations/health.py
+# the UDFs this port answers (Session._try_udf): the catalog's, the
+# workload, serving and replication UDFs, and the stats and health UDFs
+# of stats/ and operations/health.py
 _UDFS = ("create_distributed_table", "create_reference_table",
          "citus_add_node", "citus_remove_node", "citus_disable_node",
          "citus_activate_node", "nextval", "currval",
          "citus_tables", "citus_shards", "citus_change_feed",
          "citus_get_node_clock",
+         "citus_stat_wlm", "citus_stat_serving", "citus_stat_replication",
+         "citus_replication_ship", "citus_promote_replica",
          "citus_stat_counters", "citus_stat_counters_reset",
          "citus_stat_statements", "citus_stat_statements_reset",
          "citus_stat_latency", "citus_stat_latency_reset",
@@ -129,10 +144,6 @@ _UNPORTED_UDFS = {
          "citus_job_wait", "citus_job_cancel", "citus_job_list",
          "citus_create_restore_point", "citus_check_cluster"),
         "queue A item 10 (operations/ and background/ jobs)"),
-    **dict.fromkeys(
-        ("citus_stat_wlm", "citus_stat_serving", "citus_stat_replication",
-         "citus_replication_ship", "citus_promote_replica"),
-        "queue A item 11 (serving/, wlm/ and replication/)"),
 }
 
 
@@ -141,6 +152,22 @@ _UNPORTED_UDFS = {
 # the error propagates instead (the reference likewise never retries a
 # task once its placement reported success)
 _NON_RETRYABLE_POINTS = frozenset({"cdc.append"})
+
+# statement shapes a follower refuses: every mutation belongs on the
+# leader, and the journal is the only way data reaches a replica
+_REPLICA_WRITE_STMTS = (
+    ast.InsertValues, ast.InsertSelect, ast.Update, ast.Delete, ast.Merge,
+    ast.CopyFrom, ast.CreateTable, ast.DropTable, ast.AlterTable,
+    ast.CreateView, ast.DropView, ast.CreateSequence, ast.DropSequence)
+# admin UDFs that mutate catalog or data (the JAX package's list)
+_REPLICA_WRITE_UDFS = frozenset({
+    "create_distributed_table", "create_reference_table",
+    "citus_add_node", "citus_remove_node", "citus_disable_node",
+    "citus_activate_node", "rebalance_table_shards",
+    "citus_move_shard_placement", "citus_split_shard_by_split_points",
+    "isolate_tenant_to_node", "citus_rebalance_start",
+    "citus_rebalance_mesh", "citus_drain_device",
+    "citus_promote_node", "citus_create_restore_point", "nextval"})
 
 
 class _StoreStats(StatsProvider):
@@ -222,6 +249,28 @@ class Session:
         self._cancel_evt = threading.Event()
         # the OOM ladder's rungs taken by the last statement, in order
         self.last_oom_rungs: list[str] = []
+        # the workload manager: sessions sharing a data_dir share ONE
+        # admission gate (they share the card and its memory ledger)
+        self.wlm = workload_manager_for(self.data_dir)
+        # per thread: the last admission (EXPLAIN ANALYZE's Workload
+        # line) and the last follower staleness check (its Replication
+        # line)
+        self._wlm_tls = threading.local()
+        self._replica_stale_tls = threading.local()
+        # this session's reference on the shared result cache, taken on
+        # first use; the lock keeps concurrent first uses to ONE
+        # reference, which close() gives back
+        self._result_cache_handle = None
+        self._result_cache_mu = threading.Lock()
+        # replication role: a follower drains the batches shipped while
+        # no session was open BEFORE serving, then adopts the shipped
+        # catalog
+        self.replication = replication_for(self.data_dir)
+        if self.replication.is_follower():
+            res = apply_pending(self.data_dir, counters=self.stats.counters,
+                                store=self.store)
+            if res["applied"]:
+                self.catalog.maybe_reload(cat_path)
 
     # ------------------------------------------------------------------
     def execute(self, sql: str):
@@ -261,7 +310,7 @@ class Session:
                         self.executor.plan_cache.misses,
                         self.executor.feed_cache.hits,
                         self.executor.feed_cache.misses)
-                    result = self._execute_resilient(stmt, activity)
+                    result = self._execute_admitted(stmt, activity)
                     self._count_statement(stmt, result)
                     tenant_hits.extend(extract_tenants(stmt, self.catalog))
                 elapsed_ms = (_time.perf_counter() - t0) * 1000.0
@@ -310,8 +359,108 @@ class Session:
         boundary, multi-pass pass, retry iteration."""
         self._cancel_evt.set()
 
+    # -- workload management -----------------------------------------------
+    def _execute_admitted(self, stmt: ast.Statement, activity=None):
+        """Admission around the resilience envelope: classify the
+        statement, hold a slot and its device-memory budget through
+        every retry of its execution, release at statement end.  Exempt
+        statements (utility, transaction control, admin UDFs, fast-path
+        point reads) and every statement inside an open transaction
+        skip the gate (wlm/admission.py).  The queue wait honors
+        statement_timeout_ms and Session.cancel() as execution does,
+        and the time spent queued comes out of the statement's one
+        timeout budget."""
+        from .errors import AdmissionRejected, QueryCanceled, StatementTimeout
+        from .utils.cancellation import deadline_scope
+        from .wlm import (
+            AdmissionRequest,
+            parse_tenant_weights,
+            planned_feed_bytes,
+            statement_exempt,
+            statement_tenant,
+        )
+
+        self._wlm_tls.last = None
+        # EXECUTE classifies by its prepared statement's real shape
+        target = stmt
+        if isinstance(stmt, ast.ExecutePrepared):
+            target = self._prepared.get(stmt.name, stmt)
+        # an open transaction already owns its resources: queueing for a
+        # slot while holding 2PL locks would make slot↔lock deadlock
+        # cycles the lock manager's detector cannot see.  The
+        # classification is admission work, so it books under `queue`
+        with trace_span("queue"):
+            exempt = (self.txn_manager.current is not None
+                      or not self.settings.get("wlm_enabled")
+                      or statement_exempt(target, self.catalog,
+                                          self.settings, _UDFS))
+        if exempt:
+            return self._execute_resilient(stmt, activity)
+
+        # this span covers the estimate and the wait; it carries the
+        # ticket's queued_ms
+        with trace_span("queue") as qspan:
+            tenant = statement_tenant(target, self.catalog, self.settings)
+            weights = parse_tenant_weights(
+                self.settings.get("wlm_tenant_weights"))
+            req = AdmissionRequest(
+                tenant=tenant,
+                priority=self.settings.get("wlm_default_priority"),
+                feed_bytes=planned_feed_bytes(target, self.catalog,
+                                              self.store, self.n_devices,
+                                              self.settings),
+                weight=weights.get(tenant, 1),
+                max_slots=self.settings.get("max_concurrent_statements"),
+                max_feed_bytes=self.settings.get(
+                    "max_feed_bytes_per_device"),
+                queue_depth=self.settings.get("wlm_queue_depth"))
+            timeout_ms = self.settings.get("statement_timeout_ms")
+            if activity is not None:
+                activity.wait_state = "queued"
+            try:
+                with deadline_scope(timeout_ms or None, self._cancel_evt):
+                    ticket = self.wlm.admit(req)
+            except Exception as e:
+                if activity is not None:
+                    activity.wait_state = "running"
+                if isinstance(e, AdmissionRejected):
+                    self.stats.counters.increment(sc.WLM_SHED_TOTAL)
+                elif isinstance(e, StatementTimeout):
+                    self.stats.counters.increment(sc.TIMEOUTS_TOTAL)
+                elif isinstance(e, QueryCanceled):
+                    self.stats.counters.increment(sc.QUERIES_CANCELED)
+                raise
+            if qspan is not None:
+                qspan.meta = {"tenant": ticket.tenant,
+                              "queued_ms": round(ticket.queued_ms, 3)}
+        if activity is not None:
+            activity.wait_state = "admitted"
+            activity.queued_ms = ticket.queued_ms
+        self.stats.counters.increment(sc.WLM_ADMITTED_TOTAL)
+        if ticket.was_queued:
+            self.stats.counters.increment(sc.WLM_QUEUED_TOTAL)
+            self.stats.counters.increment(
+                sc.WLM_QUEUE_WAIT_MS, int(round(ticket.queued_ms)))
+        self._wlm_tls.last = {
+            "tenant": ticket.tenant, "priority": ticket.priority,
+            "queued_ms": ticket.queued_ms,
+            "feed_bytes": ticket.feed_bytes,
+            "slots_in_use": ticket.slots_in_use,
+            "slots_total": ticket.slots_total}
+        # ONE deadline spans queue wait and execution
+        remaining_ms = (max(1.0, timeout_ms - ticket.queued_ms)
+                        if timeout_ms else None)
+        try:
+            if activity is not None:
+                activity.wait_state = "running"
+            return self._execute_resilient(stmt, activity,
+                                           timeout_ms=remaining_ms)
+        finally:
+            self.wlm.release(ticket)
+
     # -- the statement envelope --------------------------------------------
-    def _execute_resilient(self, stmt: ast.Statement, activity=None):
+    def _execute_resilient(self, stmt: ast.Statement, activity=None,
+                           timeout_ms=None):
         """One statement under the resilience envelope: a cooperative
         deadline (`statement_timeout_ms` + Session.cancel) around a
         bounded retry loop (`max_statement_retries`, exponential backoff
@@ -327,7 +476,9 @@ class Session:
         capacity retries (`envelope_retries` holds the added part).
         `activity` (the statement's ActivityEntry) shows the attempts
         live in citus_stat_activity.  Each attempt is an `execute`
-        span; rungs and backoff waits are spans of their own."""
+        span; rungs and backoff waits are spans of their own.
+        `timeout_ms=None` reads `statement_timeout_ms`; admission passes
+        what its queue wait left of it."""
         import random as _random
         import traceback as _traceback
 
@@ -340,7 +491,8 @@ class Session:
         from .utils.cancellation import check_cancel, deadline_scope
 
         max_retries = self.settings.get("max_statement_retries")
-        timeout_ms = self.settings.get("statement_timeout_ms")
+        if timeout_ms is None:
+            timeout_ms = self.settings.get("statement_timeout_ms")
         attempt = 0
         oom_steps = 0  # statement-local position on the OOM ladder
         self.last_oom_rungs = []
@@ -528,7 +680,57 @@ class Session:
 
         return rows_for(self.store, event)
 
+    # -- replication -------------------------------------------------------
+    def promote_replica(self) -> int:
+        """Promote this follower data_dir to leader (leader-death
+        failover): roll the shipped journal forward, bump the fencing
+        epoch (stamping the old leader's dir so its late ships are
+        refused), flip the role record, then run 2PC recovery through
+        this session's own manager and adopt the rolled-forward
+        catalog.  Returns the new epoch; this session accepts writes
+        from its next statement on."""
+        from .replication import promote
+
+        epoch = promote(self.data_dir, counters=self.stats.counters,
+                        store=self.store)
+        self.txn_manager.recover()
+        self.catalog.maybe_reload(os.path.join(self.data_dir,
+                                               "catalog.json"))
+        return epoch
+
+    def _replica_gate(self, stmt: ast.Statement) -> None:
+        """Follower-session statement gate: refuse writes cleanly, then
+        drain any shipped batches and bound the visible staleness before
+        a read plans (replication/applier.ensure_fresh)."""
+        if not self.replication.is_follower():
+            return
+        from .errors import ReadOnlyReplica
+        from .replication import ensure_fresh
+
+        if isinstance(stmt, _REPLICA_WRITE_STMTS):
+            raise ReadOnlyReplica(
+                f"cannot execute {type(stmt).__name__} on a read "
+                "replica — writes belong on the leader "
+                f"({(self.replication.state() or {}).get('leader_dir')})")
+        if isinstance(stmt, ast.Select) and not stmt.from_items and \
+                len(stmt.items) == 1 and \
+                isinstance(stmt.items[0].expr, ast.FuncCall) and \
+                stmt.items[0].expr.name in _REPLICA_WRITE_UDFS:
+            raise ReadOnlyReplica(
+                f"cannot execute {stmt.items[0].expr.name}() on a read "
+                "replica — cluster mutations belong on the leader")
+        fresh = ensure_fresh(
+            self.data_dir, self.settings.get("replica_max_staleness_lsn"),
+            counters=self.stats.counters, store=self.store)
+        self._replica_stale_tls.last = fresh
+        # an applied batch may have shipped DDL: adopt the leader's
+        # catalog before planning (never mid-transaction)
+        if fresh["applied"] and self.txn_manager.current is None:
+            self.catalog.maybe_reload(
+                os.path.join(self.data_dir, "catalog.json"))
+
     def _execute_statement(self, stmt: ast.Statement):
+        self._replica_gate(stmt)
         if isinstance(stmt, ast.Select):
             udf = self._try_udf(stmt)
             if udf is not None:
@@ -714,6 +916,20 @@ class Session:
                  "live_rows": list(cols[6])}, len(rows))
         elif e.name.startswith("citus_stat_"):
             return self._stat_udf(e.name)
+        elif e.name == "citus_replication_ship":
+            # leader side: stage one batch for every registered follower
+            from .replication import ship_all
+
+            srows = ship_all(self.data_dir, counters=self.stats.counters)
+            cols = {"follower": [r["follower"] for r in srows],
+                    "status": [r["status"] for r in srows],
+                    "batch_seq": [r.get("batch_seq", 0) for r in srows],
+                    "files": [r.get("files", 0) for r in srows],
+                    "bytes": [r.get("bytes", 0) for r in srows]}
+            return ResultSet(list(cols), cols, len(srows))
+        elif e.name == "citus_promote_replica":
+            return ResultSet(["epoch"], {"epoch": [self.promote_replica()]},
+                             1)
         elif e.name == "citus_check_cluster_node_health":
             # health_check.c analogue: one probe row per node (device +
             # storage reachability from the controller)
@@ -776,6 +992,12 @@ class Session:
             return self._stat_activity()
         if name == "citus_stat_memory":
             return self._stat_memory()
+        if name == "citus_stat_wlm":
+            return self._stat_wlm()
+        if name == "citus_stat_serving":
+            return self._stat_serving()
+        if name == "citus_stat_replication":
+            return self._stat_replication()
         reset = {"citus_stat_counters_reset": st.counters.reset,
                  "citus_stat_statements_reset": st.queries.reset,
                  "citus_stat_latency_reset": st.tracing.reset_latency}
@@ -819,6 +1041,81 @@ class Session:
              "hbm_live_bytes": [hbm_live] * len(entries),
              "hbm_peak_bytes": [hbm_peak] * len(entries)},
             len(entries))
+
+    def _stat_wlm(self):
+        """The shared gate's occupancy and one row per (priority class,
+        tenant) it has seen (the JAX package's columns)."""
+        snap = self.wlm.snapshot()
+        rows = snap["tenants"] or [
+            {"priority": "*", "tenant": "*", "queued": 0, "running": 0,
+             "admitted_total": 0, "shed_total": 0, "weight": 0}]
+        cols = {c: [r[c] for r in rows]
+                for c in ("priority", "tenant", "queued", "running",
+                          "admitted_total", "shed_total", "weight")}
+        for c in ("slots_in_use", "slots_total", "feed_bytes_admitted",
+                  "requests_total", "timedout_total", "canceled_total",
+                  "queue_wait_ms_total"):
+            cols[c] = [snap[c]] * len(rows)
+        return ResultSet(list(cols), cols, len(rows))
+
+    def _stat_serving(self):
+        """One row: the shared micro-batcher's ledger and the result
+        cache's traffic for this data_dir."""
+        from .serving.batcher import batcher_for
+        from .serving.result_cache import result_cache_for
+
+        b = batcher_for(self.data_dir).snapshot()
+        c = result_cache_for(self.data_dir).snapshot()
+        cols = {k: b[k] for k in (
+            "requests_total", "answered_total", "errored_total",
+            "fallback_total", "batch_dispatch_total",
+            "batched_lookups_total", "max_batch_seen",
+            "avg_batch_occupancy", "queue_depth")}
+        cols.update({
+            "cache_entries": c["entries"], "cache_bytes": c["bytes"],
+            "cache_hits_total": c["hits_total"],
+            "cache_misses_total": c["misses_total"],
+            "cache_invalidations_total": c["invalidations_total"],
+            "cache_last_lsn": c["last_lsn"]})
+        return ResultSet(list(cols), {k: [v] for k, v in cols.items()}, 1)
+
+    def _stat_replication(self):
+        """Per-peer lag in lsns and bytes: a leader reports one row per
+        registered follower, a follower one row about its own cursor
+        against its leader's journal tail."""
+        from .replication import journal_tail_lsn, load_cursor, staleness
+
+        state = self.replication.state()
+        out = {c: [] for c in ("peer", "peer_role", "applied_lsn",
+                               "leader_lsn", "lag_lsn", "lag_bytes",
+                               "epoch")}
+
+        def row(peer, role, applied, leader, lag_l, lag_b, epoch):
+            for c, v in zip(out, (peer, role, applied, leader, lag_l,
+                                  lag_b, epoch)):
+                out[c].append(v)
+
+        if state and state.get("role") == "leader":
+            leader_lsn = journal_tail_lsn(self.data_dir)
+            try:
+                jbytes = os.path.getsize(os.path.join(
+                    self.data_dir, "cdc_changes.jsonl"))
+            except OSError:
+                jbytes = 0
+            for fdir in state.get("followers", []):
+                cur = load_cursor(fdir)
+                a = int(cur["applied_lsn"]) if cur else 0
+                fb = int(cur["journal_size"]) if cur else 0
+                row(fdir, "follower", a, leader_lsn,
+                    max(0, leader_lsn - a), max(0, jbytes - fb),
+                    int(cur["epoch"]) if cur else int(state["epoch"]))
+        elif state and state.get("role") == "follower":
+            st = staleness(self.data_dir)
+            cur = load_cursor(self.data_dir)
+            row(st["leader_dir"] or "", "leader", st["applied_lsn"],
+                st["leader_lsn"], st["lag_lsn"], st["lag_bytes"],
+                int(cur["epoch"]) if cur else int(state["epoch"]))
+        return ResultSet(list(out), out, len(out["peer"]))
 
     def _stat_memory(self):
         """Device-memory snapshot: the shared accountant's ledger, this
@@ -875,6 +1172,15 @@ class Session:
 
     def close(self):
         self._save_catalog()
+        # give back this session's reference on the shared result
+        # cache: the last one out drops the data_dir's cached results
+        with self._result_cache_mu:
+            handle, self._result_cache_handle = \
+                self._result_cache_handle, None
+        if handle is not None:
+            from .serving.result_cache import release_result_cache
+
+            release_result_cache(self.data_dir)
 
     # ------------------------------------------------------------------
     def _execute_create_table(self, stmt: ast.CreateTable):
@@ -1136,17 +1442,76 @@ class Session:
             for t in cleanup:
                 self._drop_temp(t)
 
+    def _serving_cache(self):
+        """The shared per-data_dir result cache, or None when serving is
+        off, its byte budget is 0, or this session is inside an open
+        transaction (staged rows are session-private: neither a fill
+        nor a hit may cross the transaction boundary)."""
+        if self.txn_manager.current is not None:
+            return None
+        if not self.settings.get("serving_enabled") or \
+                self.settings.get("serving_result_cache_bytes") <= 0:
+            return None
+        if self._result_cache_handle is None:
+            from .serving.result_cache import acquire_result_cache
+
+            with self._result_cache_mu:
+                if self._result_cache_handle is None:
+                    self._result_cache_handle = acquire_result_cache(
+                        self.data_dir)
+        return self._result_cache_handle
+
     def _execute_select(self, sel: ast.Select,
                         params: tuple = ()) -> ResultSet:
-        """A statement's SELECT: plan, count its shape, run, drop the
-        temps."""
+        """A statement's SELECT: answer from the result cache when it
+        holds a provably fresh result (CDC-driven invalidation plus the
+        manifest-identity backstop — serving/result_cache.py); else
+        plan, count its shape, run, drop the temps, and fill."""
+        fill = None
+        cache = self._serving_cache()
+        if cache is not None:
+            from .serving.result_cache import cache_key
+
+            with trace_span("serving.cache_lookup"):
+                keyed = cache_key(sel, params, self.catalog,
+                                  self.settings, _UDFS, self.device.type)
+                if keyed is not None:
+                    key, tables = keyed
+                    hit, d_inv = cache.lookup(
+                        key, self.store.manifest_stat_sig)
+                    if d_inv:  # this statement's poll did the dropping
+                        self.stats.counters.increment(
+                            sc.SERVING_CACHE_INVALIDATIONS_TOTAL, d_inv)
+                    if hit is not None:
+                        self.stats.counters.increment(
+                            sc.SERVING_CACHE_HITS_TOTAL)
+                        # fresh metadata over the shared (immutable)
+                        # columns: a hit did no device work of its own
+                        return dc_replace(hit, retries=0,
+                                          envelope_retries=0,
+                                          device_rows_scanned=0,
+                                          streamed_batches=0)
+                    self.stats.counters.increment(
+                        sc.SERVING_CACHE_MISSES_TOTAL)
+                    # freshness tokens taken BEFORE execution: a write
+                    # landing mid-execution refuses this fill (epoch) or
+                    # drops the entry later (manifest identity)
+                    fill = (key, tables,
+                            {t: self.store.manifest_stat_sig(t)
+                             for t in tables},
+                            cache.fill_token())
         plan, cleanup = self._plan_select(sel, params)
         self._count_plan_shape(plan)
         try:
-            return self.executor.execute_plan(plan)
+            result = self.executor.execute_plan(plan)
         finally:
             for t in cleanup:
                 self._drop_temp(t)
+        if fill is not None:
+            key, tables, sigs, token = fill
+            cache.put(key, result, tables, sigs, token,
+                      self.settings.get("serving_result_cache_bytes"))
+        return result
 
     def _execute_subselect(self, sel: ast.Select) -> ResultSet:
         """Nested execution (recursive planning, set-operation sides,
@@ -1253,22 +1618,24 @@ class Session:
             lines = format_plan(plan, self.catalog, self.settings,
                                 self.device)
             if stmt.analyze:
-                lines += self._explain_analyze(plan)
+                lines += self._explain_analyze(plan, target, params)
             return ResultSet(["QUERY PLAN"], {"QUERY PLAN": lines},
                              len(lines))
         finally:
             for t in cleanup:
                 self._drop_temp(t)
 
-    def _explain_analyze(self, plan: QueryPlan) -> list[str]:
+    def _explain_analyze(self, plan: QueryPlan, target: ast.Select,
+                         params: tuple = ()) -> list[str]:
         """Run `plan` and render the JAX package's EXPLAIN ANALYZE lines,
         in its order and format: Execution Time, Timing (from this
         statement's span trace; a dispatch's device_ms stays in the
         trace), Rows, Chunks Skipped, Device Rows Scanned, Streamed
-        Execution, Mesh, Memory, Resilience and Caches.  Integrity
-        (ROADMAP queue A item 10), Workload, Serving and Replication
-        (item 11) come with their modules, and so do the Caches line's
-        exec-cache fields (item 7)."""
+        Execution, Mesh, Memory, Resilience, Caches, Workload, Serving
+        and Replication.  Integrity (ROADMAP queue A item 10) comes with
+        its module, and so do the Caches line's exec-cache fields (item
+        7).  `target` and `params` are the explained SELECT and its
+        EXECUTE arguments (the Serving line's cache probe)."""
         import time
 
         from .planner.explain import explain_tag
@@ -1346,7 +1713,89 @@ class Session:
             f"misses={fc.misses - cache0[3]} (session totals: plan "
             f"{pc.hits}/{pc.misses}, feed {fc.hits}/{fc.misses} "
             f"hits/misses, feed invalidations={fc.invalidations})")
+        lines.append(self._workload_line(snap))
+        lines.append(self._serving_line(snap, snap0, target, params))
+        rline = self._replication_line()
+        if rline is not None:
+            lines.append(rline)
         return lines
+
+    def _workload_line(self, snap: dict) -> str:
+        """This statement's trip through the admission gate (the EXPLAIN
+        ANALYZE statement itself was the admitted unit), with session
+        totals."""
+        from .planner.explain import explain_tag
+
+        info = getattr(self._wlm_tls, "last", None)
+        totals = (f"(session totals: wlm_admitted_total="
+                  f"{snap.get(sc.WLM_ADMITTED_TOTAL, 0)} wlm_queued_total="
+                  f"{snap.get(sc.WLM_QUEUED_TOTAL, 0)} wlm_shed_total="
+                  f"{snap.get(sc.WLM_SHED_TOTAL, 0)})")
+        if info is None:
+            return (f"{explain_tag('Workload')}: exempt (fast-path/utility "
+                    f"or wlm disabled) {totals}")
+        return (f"{explain_tag('Workload')}: class={info['priority']} "
+                f"tenant={info['tenant']} "
+                f"queued_ms={info['queued_ms']:.1f} "
+                f"slots={info['slots_in_use']}/{info['slots_total']} "
+                f"feed_bytes={info['feed_bytes']} {totals}")
+
+    def _serving_line(self, snap: dict, snap0: dict, target,
+                      params: tuple) -> str:
+        """This statement's micro-batch trip, whether its result is
+        cache-resident, and the shared batcher's occupancy."""
+        from .planner.explain import explain_tag
+
+        if not self.settings.get("serving_enabled"):
+            return f"{explain_tag('Serving')}: off"
+        from .serving.batcher import batcher_for
+        from .serving.result_cache import cache_key
+
+        bsnap = batcher_for(self.data_dir).snapshot()
+
+        def d(name):
+            return snap.get(name, 0) - snap0.get(name, 0)
+
+        rcache = self._serving_cache()
+        cstate = "off"
+        if rcache is not None:
+            keyed = cache_key(target, params, self.catalog, self.settings,
+                              _UDFS, self.device.type)
+            if keyed is None:
+                cstate = "uncacheable"
+            elif rcache.probe(keyed[0]):
+                cstate = "cached"
+            else:
+                cstate = "uncached"
+        return (f"{explain_tag('Serving')}: "
+                f"batched lookups={d(sc.SERVING_BATCHED_LOOKUPS_TOTAL)} "
+                f"dispatches led={d(sc.SERVING_BATCH_DISPATCH_TOTAL)} "
+                f"result-cache={cstate} (layer: avg batch occupancy="
+                f"{bsnap['avg_batch_occupancy']} max_batch_seen="
+                f"{bsnap['max_batch_seen']}; session totals: cache hits="
+                f"{snap.get(sc.SERVING_CACHE_HITS_TOTAL, 0)} misses="
+                f"{snap.get(sc.SERVING_CACHE_MISSES_TOTAL, 0)})")
+
+    def _replication_line(self) -> str | None:
+        """This data_dir's role and, on a follower, the staleness the
+        read gate saw for this statement; None when never replicated."""
+        from .planner.explain import explain_tag
+
+        rstate = self.replication.state()
+        if rstate is None:
+            return None
+        if rstate.get("role") == "follower":
+            gate = getattr(self._replica_stale_tls, "last", None) or {}
+            return (f"{explain_tag('Replication')}: role=follower "
+                    f"epoch={rstate['epoch']} "
+                    f"applied_lsn={gate.get('applied_lsn', 0)} "
+                    f"lag_lsn={gate.get('lag_lsn', 0)} "
+                    f"lag_bytes={gate.get('lag_bytes', 0)} "
+                    "(bound: replica_max_staleness_lsn="
+                    f"{self.settings.get('replica_max_staleness_lsn')})")
+        return (f"{explain_tag('Replication')}: role=leader "
+                f"epoch={rstate['epoch']} "
+                f"followers={len(rstate.get('followers', []))}")
 
     # -- recursive planning ------------------------------------------------
     def _sub_params(self, node):

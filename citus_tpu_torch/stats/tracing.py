@@ -57,11 +57,12 @@ import time
 
 # -- span-name registry ------------------------------------------------------
 # Every named span the port records (the JAX package's names; its
-# compile / queue / serving / replication / mesh.degrade spans come with
-# their modules, ROADMAP queue A items 7, 9 and 11).
+# compile and mesh.degrade spans come with their modules, ROADMAP queue
+# A items 7 and 9).
 SPAN_NAMES: dict[str, str] = {
     "statement": "root span: one executed statement, wall-clock",
     "parse": "lexer+parser",
+    "queue": "WLM admission: classification + slot/memory queue wait",
     "execute": "one execution attempt under the resilience envelope",
     "plan": "recursive planning + bind + distributed planning",
     "feed": "device feed build (eager, pipelined or per-batch)",
@@ -77,8 +78,18 @@ SPAN_NAMES: dict[str, str] = {
     "stream.batch": "stream path: one batched execution round",
     "stream.decode": "stream path: stripe pull + decode for a batch",
     "stream.transfer": "stream path: batch host→device placement",
+    "serving.cache_lookup": "result-cache key build + lookup",
+    "serving.door_hold": "micro-batch leader holding the door open",
+    "serving.batch_wait": "follower waiting on a batch leader",
+    "serving.batch_probe": "leader executing one coalesced batch",
     "retry.backoff": "resilience envelope backoff sleep",
     "oom.degrade": "OOM ladder rung application",
+    "replication.ship": "leader→follower batch staging (file diff + "
+                        "journal segment + batch.json commit)",
+    "replication.apply": "follower roll-forward of committed batches "
+                         "behind the apply cursor",
+    "replication.promote": "follower→leader promotion: roll forward, "
+                           "fence, epoch bump, role flip",
 }
 
 # phase attribution for the EXPLAIN ANALYZE Timing line and the

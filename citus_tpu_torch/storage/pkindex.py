@@ -99,13 +99,19 @@ def _cache(store) -> dict:
 
 
 def lookup(store, table: str, shard_id: int, column: str,
-           value: int) -> list[tuple[dict, int]]:
+           value: int) -> list[tuple[dict, int]] | None:
     """Positions of rows where column == value, as
-    [(stripe_record, row_pos)].  Builds/rebuilds the sidecar lazily.
+    [(stripe_record, row_pos)]; None while the store's open transaction
+    holds staged records for the table (the caller scans instead).
+    Builds/rebuilds the sidecar lazily.
 
     Warm lookups come from an in-memory cache validated against the
     manifest stripe signature — re-decompressing the sidecar per query
     would cost more than the binary search it enables."""
+    if store.overlay is not None and (
+            store._overlay_records(table, shard_id)
+            or any(t == table for (t, _s) in store.overlay.records)):
+        return None  # staged rows are not in the index
     records = store.manifest(table)["shards"].get(str(shard_id), [])
     sig = _sig(records)
     ckey = (table, shard_id, column)
@@ -140,27 +146,42 @@ def read_rows(store, table: str, shard_id: int, columns: list[str],
               hits) -> tuple[dict, dict, int]:
     """Materialize the hit rows (values, validity, n), reading only the
     chunks that contain them and honoring current deletion bitmaps.
-    Rows come back stripe by stripe in manifest order."""
+    Rows come back stripe by stripe in manifest order.  The one-request
+    form of `read_rows_multi`."""
+    return read_rows_multi(store, table, shard_id, columns, [hits])[0]
+
+
+def read_rows_multi(store, table: str, shard_id: int, columns: list[str],
+                    hit_lists) -> list[tuple[dict, dict, int]]:
+    """Batched `read_rows`: ONE stripe/chunk pass over the union of many
+    keys' hits, demuxed back per request — the serving micro-batcher's
+    gather (a chunk holding rows for several sessions is opened,
+    CRC-verified and decompressed once).  Returns [(values, validity,
+    n)] aligned with `hit_lists`; each request's rows come back in the
+    order `read_rows` gives it alone."""
     meta = store.catalog.table(table)
     storage_of = {c: store.storage_column_name(table, c) for c in columns}
-    by_stripe: dict[str, list[int]] = {}
+    n_req = len(hit_lists)
+    by_stripe: dict[str, list[tuple[int, int]]] = {}
     rec_of: dict[str, dict] = {}
-    for rec, pos in hits:
-        by_stripe.setdefault(rec["file"], []).append(pos)
-        rec_of[rec["file"]] = rec
+    for ri, hits in enumerate(hit_lists):
+        for rec, pos in hits:
+            by_stripe.setdefault(rec["file"], []).append((ri, pos))
+            rec_of[rec["file"]] = rec
     manifest_order = {r["file"]: i for i, r in enumerate(
         store.manifest(table)["shards"].get(str(shard_id), []))}
-    vals_out = {c: [] for c in columns}
-    mask_out = {c: [] for c in columns}
-    n = 0
+    vals_out = [{c: [] for c in columns} for _ in range(n_req)]
+    mask_out = [{c: [] for c in columns} for _ in range(n_req)]
+    counts = [0] * n_req
     for fname in sorted(by_stripe,
                         key=lambda f: manifest_order.get(f, 1 << 30)):
         dmask = store.effective_delete_mask(table, shard_id, rec_of[fname])
-        live = [p for p in by_stripe[fname]
+        live = [(ri, p) for ri, p in by_stripe[fname]
                 if dmask is None or not bool(dmask[p])]
         if not live:
             continue
-        pos_arr = np.asarray(live, dtype=np.int64)
+        pos_arr = np.asarray([p for _ri, p in live], dtype=np.int64)
+        req_ids = np.asarray([ri for ri, _p in live], dtype=np.int64)
         reader = _reader(store, table, shard_id, fname)
         # chunk index per live position; read ONLY those chunks
         bounds = np.cumsum(np.asarray(reader.footer["chunk_rows"]))
@@ -179,23 +200,29 @@ def read_rows(store, table: str, shard_id: int, columns: list[str],
             reader.read(present, chunks=sel)[:2]
         local = pos_arr + np.asarray([offset_of[int(c)] for c in chunk_of],
                                      dtype=np.int64)
+        for ri in np.unique(req_ids):
+            rl = local[req_ids == ri]
+            ri = int(ri)
+            for c in columns:
+                s = storage_of[c]
+                if s in v:
+                    vals_out[ri][c].append(np.asarray(v[s])[rl])
+                    mask_out[ri][c].append(np.asarray(m[s])[rl])
+                else:  # post-ALTER column: NULL for old stripes
+                    dt = meta.schema.column(c).dtype.numpy_dtype
+                    vals_out[ri][c].append(np.zeros(rl.size, dtype=dt))
+                    mask_out[ri][c].append(np.zeros(rl.size, dtype=bool))
+            counts[ri] += int(rl.size)
+    out = []
+    for ri in range(n_req):
+        out_v, out_m = {}, {}
         for c in columns:
-            s = storage_of[c]
-            if s in v:
-                vals_out[c].append(np.asarray(v[s])[local])
-                mask_out[c].append(np.asarray(m[s])[local])
-            else:  # post-ALTER column: NULL for old stripes
+            if vals_out[ri][c]:
+                out_v[c] = np.concatenate(vals_out[ri][c])
+                out_m[c] = np.concatenate(mask_out[ri][c])
+            else:
                 dt = meta.schema.column(c).dtype.numpy_dtype
-                vals_out[c].append(np.zeros(local.size, dtype=dt))
-                mask_out[c].append(np.zeros(local.size, dtype=bool))
-        n += int(local.size)
-    out_v, out_m = {}, {}
-    for c in columns:
-        if vals_out[c]:
-            out_v[c] = np.concatenate(vals_out[c])
-            out_m[c] = np.concatenate(mask_out[c])
-        else:
-            dt = meta.schema.column(c).dtype.numpy_dtype
-            out_v[c] = np.zeros(0, dtype=dt)
-            out_m[c] = np.zeros(0, dtype=bool)
-    return out_v, out_m, n
+                out_v[c] = np.zeros(0, dtype=dt)
+                out_m[c] = np.zeros(0, dtype=bool)
+        out.append((out_v, out_m, counts[ri]))
+    return out

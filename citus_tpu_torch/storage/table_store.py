@@ -202,6 +202,14 @@ class TableStore:
             self.bump_data_version(table)
             return True
 
+    def manifest_stat_sig(self, table: str) -> tuple | None:
+        """The on-disk manifest's identity (mtime_ns, size, inode), or
+        None when the table has no manifest yet.  Comparable across
+        sessions: the serving result cache records it at fill time and
+        re-checks it on every hit (the backstop for a write the change
+        journal missed)."""
+        return self._stat_identity(self._manifest_path(table))
+
     def refresh(self, table: str) -> None:
         """Drop the cached manifest (and any dictionary another session
         rewrote) so the next read reloads from disk — used after lock

@@ -67,6 +67,13 @@ FAULT_POINTS: dict[str, str] = {
     "txn.commit_record": "transaction/manager.py — prepared, no record",
     "txn.apply": "transaction/manager.py — record durable, not applied",
     "cdc.append": "cdc/feed.py — change-journal append",
+    "wlm.admit": "wlm/manager.py — admission gate entry",
+    "serving.batch_dispatch":
+        "serving/batcher.py — one coalesced point-lookup batch",
+    "serving.cache_fill": "serving/result_cache.py — result insert",
+    "replication.ship": "replication/shipper.py — batch staging",
+    "replication.apply": "replication/applier.py — batch roll-forward",
+    "replication.promote": "replication/promote.py — follower promotion",
 }
 
 _lock = threading.Lock()

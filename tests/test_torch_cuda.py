@@ -457,7 +457,8 @@ def test_real_allocator_oom_answers_through_the_ladder(tmp_path, cuda):
     base = torch.cuda.memory_reserved()
     base_alloc = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device")
+    gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device",
+                                  serving_result_cache_bytes=0)
     gpu.execute(q3)
     peak = torch.cuda.max_memory_allocated() - base_alloc
     gpu.executor.feed_cache.clear()
@@ -468,7 +469,8 @@ def test_real_allocator_oom_answers_through_the_ladder(tmp_path, cuda):
     try:
         torch.cuda.set_per_process_memory_fraction(
             (base + 0.5 * peak) / total)
-        gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device")
+        gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device",
+                                      serving_result_cache_bytes=0)
         acc = gpu.executor.accountant
         ooms = acc.oom_total
         r = gpu.execute(q3)
@@ -494,7 +496,8 @@ def test_traced_statements_carry_device_legs(tmp_path, cuda):
     tpch.load_into_session(cpu, sf=0.01, seed=7, tables={"lineitem"})
     want = cpu.execute(tpch.QUERIES["Q1"]).rows()
     gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device",
-                                  trace_fast_statement_ms=0)
+                                  trace_fast_statement_ms=0,
+                                  serving_result_cache_bytes=0)
     for streamed in (False, True):
         if streamed:
             gpu.execute("set max_feed_bytes_per_device = 1; "
@@ -520,3 +523,126 @@ def test_traced_statements_carry_device_legs(tmp_path, cuda):
         transfers = ("stream.transfer" if streamed else "scan.transfer")
         assert tracing.device_ms(root, transfers) > 0
         assert tracing.open_span_count() == 0
+
+
+def test_concurrent_sessions_under_admission(tmp_path, cuda):
+    """Phase 13's W1 at sf 0.05: eight sessions in threads on the card,
+    two tenants weighted a:3,b:1, two admission slots, the result cache
+    off.  Each thread runs Q1, Q3 and the high-cardinality GROUP BY
+    twice, the first round in device scan mode.  Every answer equals
+    the port's CPU session; at most two statements execute at once;
+    every statement is admitted, some queue; K1, K2, K3 and K5 launch;
+    the device-memory ledger holds no transient bytes at the end."""
+    import threading
+    import time
+
+    import citus_tpu_torch
+    import citus_tpu_torch.ops.join as pjoin
+    from citus_tpu_torch.ingest import tpch
+
+    data_dir = str(tmp_path / "d")
+    cpu = citus_tpu_torch.connect(data_dir, device="cpu",
+                                  serving_result_cache_bytes=0)
+    tpch.load_into_session(cpu, sf=0.05, seed=7,
+                           tables={"customer", "orders", "lineitem"})
+    queries = [tpch.QUERIES["Q1"], tpch.QUERIES["Q3"],
+               "select l_orderkey, count(*), sum(l_quantity) from lineitem "
+               "group by l_orderkey"]
+    want = [cpu.execute(q).rows() for q in queries]
+    sessions = [citus_tpu_torch.connect(
+        data_dir, serving_result_cache_bytes=0, max_concurrent_statements=2,
+        wlm_tenant="a" if i % 2 else "b", wlm_tenant_weights="a:3,b:1")
+        for i in range(8)]
+    mu = threading.Lock()
+    live = {"now": 0, "max": 0}
+    for s in sessions:
+        orig = s._execute_resilient
+
+        def counted(stmt, activity=None, timeout_ms=None, _orig=orig,
+                    _s=s):
+            # admitted statements only (an exempt SET runs here too)
+            admitted = getattr(_s._wlm_tls, "last", None) is not None
+            with mu:
+                live["now"] += admitted
+                live["max"] = max(live["max"], live["now"])
+            try:
+                return _orig(stmt, activity, timeout_ms=timeout_ms)
+            finally:
+                with mu:
+                    live["now"] -= admitted
+        s._execute_resilient = counted
+    bad: list = []
+
+    def worker(s):
+        try:
+            for rnd in range(2):
+                s.execute("set scan_pipeline = "
+                          + ("device" if rnd == 0 else "auto"))
+                for q, w in zip(queries, want):
+                    _close_rows(s.execute(q).rows(), w)
+        except Exception as e:  # noqa: BLE001 — asserted below
+            bad.append(repr(e))
+
+    saved = pjoin.PROBE_BUCKET_MIN_EXTENT
+    pjoin.PROBE_BUCKET_MIN_EXTENT = 1 << 10
+    hk.reset_launch_counts()
+    # the data_dir's one manager also counted the CPU session's queries
+    base = sessions[0].wlm.snapshot()
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=worker, args=(s,))
+                   for s in sessions]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        pjoin.PROBE_BUCKET_MIN_EXTENT = saved
+    torch.cuda.synchronize()
+    assert not bad, bad[:3]
+    assert time.perf_counter() - t0 < 600
+    assert live["max"] <= 2
+    snap = sessions[0].wlm.snapshot()
+    assert snap["admitted_total"] - base["admitted_total"] == \
+        8 * 2 * len(queries)
+    assert snap["queued_total"] > base["queued_total"]
+    assert snap["slots_in_use"] == 0
+    assert {"a", "b"} <= {r["tenant"] for r in snap["tenants"]}
+    for k in ("dense_grid_sum", "bucketed_probe", "bucketed_groupby_sums",
+              "dict_decode"):
+        assert hk.LAUNCHES[k] > 0, hk.LAUNCHES
+    import gc
+
+    gc.collect()
+    assert sessions[0].executor.accountant.transient_bytes() == 0
+
+
+def test_result_cache_hit_launches_no_kernel(tmp_path, cuda):
+    """Phase 13's C1 at sf 0.01: Q1 twice in one cuda session with the
+    result cache on — the second run is a hit that launches no kernel;
+    an INSERT from a second session invalidates it, and the next Q1 runs
+    on the card and sees the row."""
+    import citus_tpu_torch
+    from citus_tpu_torch.ingest import tpch
+
+    data_dir = str(tmp_path / "d")
+    cpu = citus_tpu_torch.connect(data_dir, device="cpu")
+    tpch.load_into_session(cpu, sf=0.01, seed=7, tables={"lineitem"})
+    gpu = citus_tpu_torch.connect(data_dir)
+    q1 = tpch.QUERIES["Q1"]
+    hk.reset_launch_counts()
+    first = gpu.execute(q1).rows()
+    launched = dict(hk.LAUNCHES)
+    assert launched["dense_grid_sum"] >= 1
+    second = gpu.execute(q1).rows()
+    assert second == first and hk.LAUNCHES == launched
+    writer = citus_tpu_torch.connect(data_dir, device="cpu")
+    writer.execute(
+        "insert into lineitem select * from lineitem where l_orderkey = 1")
+    third = gpu.execute(q1).rows()
+    assert hk.LAUNCHES["dense_grid_sum"] > launched["dense_grid_sum"]
+    _close_rows(third, cpu.execute(q1).rows())
+    assert sum(int(r[-1]) for r in third) > sum(int(r[-1]) for r in first)
+    counters = gpu.stats.counters.snapshot()
+    assert counters["serving_cache_hits_total"] == 1
+    assert counters["serving_cache_misses_total"] == 2

@@ -83,7 +83,8 @@ def jsess(tmp_path_factory):
 @pytest.fixture(scope="module")
 def sess(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("torch_oom") / "port")
-    s = citus_tpu_torch.connect(d, device="cpu", **_FAST_RETRY)
+    s = citus_tpu_torch.connect(d, device="cpu", serving_result_cache_bytes=0,
+                                **_FAST_RETRY)
     for sql in SETUP:
         s.execute(sql)
     yield s

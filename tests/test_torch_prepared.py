@@ -48,6 +48,7 @@ def _jax(data_dir):
 def _port(data_dir, **settings):
     return citus_tpu_torch.connect(data_dir, device="cpu",
                                    compute_dtype="float64",
+                                   serving_result_cache_bytes=0,
                                    fast_path_max_rows=MAX_ROWS, **settings)
 
 

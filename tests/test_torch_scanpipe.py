@@ -71,6 +71,7 @@ def _prefetch_bytes(data_dir) -> int:
 def _port(data_dir, mode, **kw):
     return citus_tpu_torch.connect(data_dir, device="cpu",
                                    compute_dtype="float64",
+                                   serving_result_cache_bytes=0,
                                    scan_pipeline=mode, **kw)
 
 

@@ -81,6 +81,7 @@ def _ordered(sql):
 def test_port_matches_jax_and_oracle(jax_dir, oracle, name):
     data_dir, want = jax_dir
     sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   serving_result_cache_bytes=0,
                                    compute_dtype="float64")
     got = sess.execute(QUERIES[name]).rows()
     assert len(got) > 0
@@ -93,6 +94,7 @@ def test_port_matches_jax_and_oracle(jax_dir, oracle, name):
 def test_bucketed_paths_match_jax(jax_dir, forced_bucketed, name):
     data_dir, want = jax_dir
     sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   serving_result_cache_bytes=0,
                                    compute_dtype="float64")
     plan, cleanup = sess._plan_select(parse(QUERIES[name])[0])
     assert cleanup == []
@@ -127,6 +129,7 @@ def test_bucketed_paths_hold_on_warm_runs(jax_dir, forced_bucketed,
     monkeypatch.setattr(hk, kernel, spy)
     data_dir, want = jax_dir
     sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   serving_result_cache_bytes=0,
                                    compute_dtype="float64")
     per_run = []
     for _ in range(3):
@@ -141,7 +144,8 @@ def test_port_float32_policy_close_to_jax(jax_dir):
     """The GPU default compute dtype (float32) answers Q1 within f32
     accumulation error of the float64 reference (rtol 1e-5)."""
     data_dir, want = jax_dir
-    sess = citus_tpu_torch.connect(data_dir, device="cpu")
+    sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   serving_result_cache_bytes=0)
     got = sess.execute(QUERIES["q1"]).rows()
     compare_results(got, want["q1"], True, 1e-5)
 
@@ -198,6 +202,7 @@ def test_dense_aggregate_is_one_kernel_call(jax_dir, jax_nullable_dir,
 
     monkeypatch.setattr(hk, "dense_grid_sum", spy)
     sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   serving_result_cache_bytes=0,
                                    compute_dtype=compute_dtype)
     got = sess.execute(sql).rows()
     assert len(calls) == 1, calls
@@ -213,6 +218,7 @@ def test_port_ingest_round_trips_with_jax(tmp_path, jax_dir):
     _data_dir, want = jax_dir
     port_dir = str(tmp_path / "port_loaded")
     sess = citus_tpu_torch.connect(port_dir, device="cpu",
+                                   serving_result_cache_bytes=0,
                                    compute_dtype="float64")
     counts = ptpch.load_into_session(sess, sf=SF, seed=SEED)
     assert counts["lineitem"] > 0
@@ -247,6 +253,7 @@ def test_data_dir_from_eight_device_session_folds_onto_one(tmp_path):
     want = jsess.execute("select count(*), sum(v) from t").rows()
     jsess.close()
     sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   serving_result_cache_bytes=0,
                                    compute_dtype="float64")
     assert len(sess.catalog.nodes) == 8
     assert set(sess.catalog.node_device_map(1).values()) == {0}
@@ -269,6 +276,7 @@ def test_port_honours_jax_deletion_bitmaps(tmp_path):
     want = jsess.execute("select count(*), sum(v) from t").rows()
     jsess.close()
     sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   serving_result_cache_bytes=0,
                                    compute_dtype="float64")
     got = sess.execute("select count(*), sum(v) from t").rows()
     assert int(got[0][0]) == 133
@@ -284,7 +292,8 @@ def test_connect_without_device_needs_a_gpu(tmp_path):
 
 def test_unsupported_statement_is_refused(jax_dir):
     data_dir, _want = jax_dir
-    sess = citus_tpu_torch.connect(data_dir, device="cpu")
+    sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   serving_result_cache_bytes=0)
     # DML and the statement retry envelope's settings are answered since
     # the write-path and memory-pressure slices; multi-GPU is refused
     with pytest.raises(citus_tpu_torch.UnsupportedQueryError):
@@ -316,6 +325,7 @@ def test_recursive_shapes_match_jax(jax_nullable_dir, shape):
     data_dir, _want = jax_nullable_dir
     sql = RECURSIVE_SHAPES[shape]
     sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   serving_result_cache_bytes=0,
                                    compute_dtype="float64")
     got = sess.execute(sql).rows()
     jsess = citus_tpu.connect(data_dir=data_dir, n_devices=1,
@@ -334,7 +344,8 @@ def test_text_case_is_refused(jax_nullable_dir):
     """A CASE whose result is text is refused while planning, before a
     tensor is made (the JAX package fails on it too)."""
     data_dir, _want = jax_nullable_dir
-    sess = citus_tpu_torch.connect(data_dir, device="cpu")
+    sess = citus_tpu_torch.connect(data_dir, device="cpu",
+                                   serving_result_cache_bytes=0)
     for sql in ["select case when x > 0 then 'pos' else 'zero' end "
                 "from nt",
                 "select id, case when x > 0 then 'pos' end from nt",

@@ -8,7 +8,10 @@ device="cpu"; both float64 and scan_pipeline=host).  The script reads
 (resident, fast-path point lookups, subqueries, a set operation, a CTE,
 a streamed statement), writes (INSERT VALUES, INSERT..SELECT, UPDATE,
 DELETE, DDL), retries an injected storage fault, times out one
-statement, and walks the OOM ladder once.  Afterwards:
+statement, walks the OOM ladder once, fills and hits the result cache
+once, and provisions a follower and ships a write to it; every
+non-exempt statement passes the admission gate and every point lookup
+rides the micro-batcher.  Afterwards:
 
 * every statement's fingerprint equals the JAX package's;
 * citus_stat_counters lists the JAX package's names, and every counter
@@ -32,6 +35,8 @@ import torch
 
 import citus_tpu
 import citus_tpu_torch
+from citus_tpu_torch import replication as prepl
+from citus_tpu import replication as jrepl
 from citus_tpu.ingest import tpch as jtpch
 from citus_tpu.stats import counters as jsc
 from citus_tpu.stats.query_stats import fingerprint as jfingerprint
@@ -48,14 +53,6 @@ torch.set_num_threads(1)
 # counters the port never bumps, by the ROADMAP queue A item that brings
 # the module bumping them in the JAX package
 NOT_BUMPED = {
-    **dict.fromkeys(
-        ("wlm_admitted_total", "wlm_queued_total", "wlm_shed_total",
-         "wlm_queue_wait_ms", "serving_batched_lookups_total",
-         "serving_batch_dispatch_total", "serving_cache_hits_total",
-         "serving_cache_misses_total", "serving_cache_invalidations_total",
-         "log_batches_shipped_total", "log_batches_applied_total",
-         "replicas_promoted_total", "replication_fenced_total",
-         "replica_lag_lsn"), 11),
     **dict.fromkeys(
         ("stripes_verified_total", "corruption_detected_total",
          "read_repairs_total", "scrub_runs_total", "scrub_repairs_total"),
@@ -122,6 +119,19 @@ SCRIPT = [
     ("explain analyze select l_returnflag, sum(l_quantity) from lineitem "
      "group by l_returnflag", "ok"),
     ("drop table acc", "ok"),
+    # the serving result cache, on for two runs of one statement: a
+    # miss that fills, then a hit
+    ("set serving_result_cache_bytes = 1048576", "ok"),
+    ("select count(*), sum(o_totalprice) from orders "
+     "where o_orderkey < 100", "ok"),
+    ("select count(*), sum(o_totalprice) from orders "
+     "where o_orderkey < 100", "ok"),
+    ("set serving_result_cache_bytes = 0", "ok"),
+    # a follower provisioned (one reseed batch shipped and applied),
+    # then a write shipped by the UDF
+    ("provision", "ship"),
+    ("insert into region values (9, 'NOWHERE', 'x')", "ok"),
+    ("select citus_replication_ship()", "ok"),
 ]
 
 _COMMON = dict(compute_dtype="float64", columnar_stripe_row_limit=1000,
@@ -151,13 +161,17 @@ def _jax(d):
 
 
 def _port(d):
-    return citus_tpu_torch.connect(d, device="cpu", **_COMMON)
+    return citus_tpu_torch.connect(d, device="cpu",
+                                   serving_result_cache_bytes=0, **_COMMON)
 
 
-def _run(sess, fi, err_timeout):
+def _run(sess, fi, err_timeout, repl):
     for sql, how in SCRIPT:
         if how == "ok":
             sess.execute(sql)
+        elif how == "ship":
+            repl.provision_replica(sess.data_dir, sess.data_dir + "_replica",
+                                   counters=sess.stats.counters)
         elif how == "retry":
             with fi.inject("store.read_shard", error="storage",
                            require_fired=True):
@@ -186,12 +200,12 @@ def ran(base, tmp_path_factory):
         d = str(root / pkg)
         shutil.copytree(base, d)
         if pkg == "jax":
-            s, fi = _jax(d), jfi
+            s, fi, repl = _jax(d), jfi, jrepl
             err = citus_tpu.errors.StatementTimeout
         else:
-            s, fi = _port(d), pfi
+            s, fi, repl = _port(d), pfi, prepl
             err = citus_tpu_torch.errors.StatementTimeout
-        _run(s, fi, err)
+        _run(s, fi, err, repl)
         counters = dict(s.execute("select citus_stat_counters()").rows())
         statements = {q: (c, r) for q, c, _t, r in
                       s.execute("select citus_stat_statements()").rows()}
@@ -230,7 +244,11 @@ def test_counters_match_jax_over_the_script(ran):
                  "chunks_skipped", "queries_streamed",
                  "chunks_prefetched_total", "retries_total",
                  "timeouts_total", "faults_injected_total",
-                 "oom_events_total"):
+                 "oom_events_total", "wlm_admitted_total",
+                 "serving_batched_lookups_total",
+                 "serving_batch_dispatch_total", "serving_cache_hits_total",
+                 "serving_cache_misses_total", "log_batches_shipped_total",
+                 "log_batches_applied_total"):
         assert pc[name] > 0, name
 
 
@@ -242,9 +260,9 @@ def test_statements_and_tenants_match_jax(ran):
         jcalls, jrows = jst[q]
         assert calls == jcalls, q
         if q.startswith("explain analyze"):
-            # the JAX package's output has its unported modules' lines
-            # (Integrity, Workload, Serving) on top
-            assert jrows - rows == 3, q
+            # the JAX package's output has its unported module's line
+            # (Integrity) on top
+            assert jrows - rows == 1, q
         else:
             assert rows == jrows, q
     assert pten == jten

@@ -121,6 +121,7 @@ def oracle_conn():
 def _port(data_dir):
     return citus_tpu_torch.connect(data_dir, device="cpu",
                                    compute_dtype="float64",
+                                   serving_result_cache_bytes=0,
                                    columnar_stripe_row_limit=1000)
 
 
@@ -215,7 +216,8 @@ def test_budget_sizes_the_batches(tmp_path):
     csv_path = tmp_path / "big.csv"
     csv_path.write_text("".join(f"{i},{i * 0.5}\n" for i in range(n)))
     p = citus_tpu_torch.connect(str(tmp_path / "d"), device="cpu",
-                                compute_dtype="float64")
+                                compute_dtype="float64",
+                                serving_result_cache_bytes=0)
     p.execute("create table big (k bigint, v double precision)")
     p.execute("select create_distributed_table('big', 'k', 4)")
     p.execute(f"copy big from '{csv_path}' with (format csv)")
@@ -247,6 +249,7 @@ def test_nulls_only_in_later_batches(tmp_path):
              if pkg == "jax" else
              citus_tpu_torch.connect(d, device="cpu",
                                      compute_dtype="float64",
+                                     serving_result_cache_bytes=0,
                                      columnar_stripe_row_limit=1000))
         s.execute("create table t (k bigint, v double precision)")
         s.execute("select create_distributed_table('t', 'k', 2)")

@@ -130,7 +130,8 @@ def assert_no_temps(sess) -> None:
 
 def _run_port(data_dir: str, q: str):
     sess = citus_tpu_torch.connect(data_dir, device="cpu",
-                                   compute_dtype="float64")
+                                   compute_dtype="float64",
+                                   serving_result_cache_bytes=0)
     result = sess.execute(ptpch.QUERIES[q])
     assert_no_temps(sess)
     return result.rows()

@@ -57,8 +57,7 @@ GROUPED = ("select l_returnflag, count(*), sum(l_quantity) from lineitem "
            "group by l_returnflag")
 # EXPLAIN ANALYZE tags of modules the port does not have yet, by
 # ROADMAP queue A item
-UNPORTED_TAGS = {"Integrity": 10, "Workload": 11, "Serving": 11,
-                 "Replication": 11}
+UNPORTED_TAGS = {"Integrity": 10}
 SHARED_LINES = ("Rows", "Chunks Skipped", "Device Rows Scanned",
                 "Streamed Execution")
 
@@ -78,6 +77,7 @@ def base(tmp_path_factory):
 def _port(d, **kw):
     kw.setdefault("retry_backoff_base_ms", 1)
     kw.setdefault("retry_backoff_max_ms", 2)
+    kw.setdefault("serving_result_cache_bytes", 0)
     return citus_tpu_torch.connect(d, device="cpu", compute_dtype="float64",
                                    columnar_stripe_row_limit=1000, **kw)
 
@@ -132,8 +132,13 @@ def test_cold_select_spans_tile_the_wall(base, tmp_path, mode):
     p.execute(jtpch.Q3)
     doc = p.stats.tracing.last_trace()
     assert doc["root"]["name"] == "statement" and doc["error"] is None
+    # admission books under two `queue` spans, as in the JAX package:
+    # the exemption check, then the estimate and the wait
     assert [c["name"] for c in doc["root"]["children"]] == \
-        ["parse", "execute"]
+        ["parse", "queue", "queue", "execute"]
+    queue = doc["root"]["children"][2]
+    assert queue["meta"]["tenant"] == "default"
+    assert queue["meta"]["queued_ms"] >= 0
     _assert_tiles_wall(doc)
     assert abs(doc["wall_ms"] - doc["root"]["dur_ms"]) < 1.0
     ph = phase_breakdown(doc["root"])
