@@ -157,8 +157,33 @@ Phases, each fatal on failure (no result line is printed then):
     citus_promote_replica(): the promoted dir takes a write and the old
     leader's ship is fenced.  The device-memory ledger holds no
     transient bytes after each step;
-14. print the kernels line (with each kernel's launches in phases 8,
-    9, 10, 11, 12 and 13), then the device line last.
+14. shard operations, background jobs and storage integrity, last, with
+    every launch count at 0, each step in sessions of its own (the
+    result cache off), every answer against numpy over lineitem as
+    phase 13 left it: O0 citus_create_restore_point('pre_ops'); O1 a
+    session warm on Q1 and Q3, then lineitem's first shard split at
+    its token midpoint (orders' with it): Q1, Q3 and the GROUP BY in
+    the warm session and a fresh one, `retries` 0, K1, K2, K3 and K5
+    launched, and the parents' directories gone within 2 s under a
+    session whose maintenance daemon sweeps every 200 ms; O2 a node
+    added and citus_rebalance_start(), two sessions in threads running
+    Q1 and Q3 meanwhile, get_rebalance_progress() polled, then
+    citus_rebalance_wait(): moves made, the job done, its tasks
+    admitted at the workload manager's background class; O3 a
+    replication-factor-2 copy of lineitem_nullable's aggregated columns
+    (6.0M rows), the storage.stripe_bitflip fault point armed once per
+    scan mode (off, host, device): the answer right, one read repair,
+    every copy verifying after, K4 and K5 launched in device mode, and
+    EXPLAIN ANALYZE's Integrity line counting the repair; a bit flipped
+    at rest found by citus_check_cluster() (quarantined, re-replicated)
+    and the next run repairing nothing; a bit flipped in factor-1
+    lineitem a clean CorruptStripe in every mode with no transient
+    ledger bytes left; O4 every session closed, restore_cluster(
+    data_dir, 'pre_ops'), lineitem back at 8 shards and Q1 and Q3 equal
+    to numpy.  Walls and launches per step; fails past its 150 s budget
+    or when a kernel never launches in the phase;
+15. print the kernels line (with each kernel's launches in phases 8,
+    9, 10, 11, 12, 13 and 14), then the device line last.
 
 Exits non-zero without a result when no GPU is visible or the port's
 package is not next to this script.  Imports nothing of JAX.
@@ -306,17 +331,25 @@ def nullable_masks(n: int):
     return rng.random(n) < NULL_SHARE, rng.random(n) < NULL_SHARE
 
 
-def load_nullable(sess, li, tpch) -> int:
-    """lineitem_nullable: lineitem's DDL (its measures are nullable),
-    shard_count 8 on l_orderkey, loaded from the generated arrays with
-    l_discount and l_tax passed as lists holding None where NULL."""
+def load_nullable(sess, li, tpch, table="lineitem_nullable",
+                  names=None, dist="l_orderkey") -> int:
+    """`table`: lineitem's columns `names` (all by default) under
+    lineitem's DDL types (its measures are nullable), shard_count 8 on
+    `dist`, loaded from the generated arrays with l_discount and l_tax
+    passed as lists holding None where NULL (the seeded masks)."""
     import numpy as np
     from citus_tpu_torch.ingest.copy_from import _ingest_batch
 
-    sess.execute(tpch.SCHEMAS["lineitem"].replace(
-        "create table lineitem", "create table lineitem_nullable"))
-    sess.create_distributed_table("lineitem_nullable", "l_orderkey",
-                                  shard_count=8)
+    names = list(names or li)
+    ddl = tpch.SCHEMAS["lineitem"].replace("create table lineitem",
+                                           f"create table {table}")
+    if len(names) < len(li):  # keep the DDL lines of `names` only
+        head, body = ddl.split("(", 1)
+        cols = [c.strip() for c in body.rsplit(")", 1)[0].split(",")]
+        ddl = head + "(" + ", ".join(
+            c for c in cols if c.split()[0] in names) + ")"
+    sess.execute(ddl)
+    sess.create_distributed_table(table, dist, shard_count=8)
     null_disc, null_tax = nullable_masks(len(li["l_orderkey"]))
 
     def with_nulls(a, mask):
@@ -325,13 +358,11 @@ def load_nullable(sess, li, tpch) -> int:
             cells[i] = None
         return cells
 
-    names = list(li)
     batch = [with_nulls(li[c], null_disc) if c == "l_discount"
              else with_nulls(li[c], null_tax) if c == "l_tax"
              else list(li[c]) if li[c].dtype == object else li[c]
              for c in names]
-    return _ingest_batch(sess, "lineitem_nullable", names, batch,
-                         pre_typed=True)[0]
+    return _ingest_batch(sess, table, names, batch, pre_typed=True)[0]
 
 
 def numpy_nullable(li):
@@ -2785,6 +2816,345 @@ def phase13(ct, hk, data_dir, data, queries, checks, want, ident,
         failures.append(f"phase 13 took {wall!r} s")
     if failures:
         raise AssertionError(f"phase 13: {failures}")
+    return launched, li3
+
+
+PHASE14_BUDGET_S = 150.0
+# the factor-2 copy of lineitem_nullable that O3 corrupts (at full
+# size, distributed on l_shipdate): the columns the nullable aggregate
+# reads, so every byte the bitflip fault point can flip lies in a chunk
+# the aggregate reads and verifies
+R2_TABLE = "lineitem_nullable_r2"
+R2_COLUMNS = ("l_shipdate", "l_returnflag", "l_linestatus", "l_discount",
+              "l_tax")
+R2_SQL = NULLABLE_SQL.replace("from lineitem_nullable ",
+                              f"from {R2_TABLE} ")
+
+
+def flipped_column(path: str) -> str:
+    """The column whose chunk holds the byte integrity.flip_one_bit
+    flips in `path` (the first column when it is the footer's)."""
+    from citus_tpu_torch.storage.format import read_stripe_footer
+
+    footer = read_stripe_footer(path)
+    pos = max(8, os.path.getsize(path) // 2)
+    for col in footer["columns"]:
+        for ch in col["chunks"]:
+            if ch["voff"] <= pos < ch["voff"] + ch["vclen"] or \
+                    ch["nclen"] and ch["noff"] <= pos < ch["noff"] \
+                    + ch["nclen"]:
+                return col["name"]
+    return footer["columns"][0]["name"]
+
+
+def primary_stripes(sess, table: str) -> list:
+    """Primary-copy paths of every committed stripe of `table`."""
+    st = sess.store
+    return [os.path.join(st.shard_dir(table, s.shard_id), r["file"])
+            for s in sess.catalog.table_shards(table)
+            for r in st.manifest(table)["shards"].get(str(s.shard_id), [])]
+
+
+def phase14(ct, hk, data_dir, data, li, queries, checks, want,
+            ident) -> dict:
+    """Phase 14 (shard operations, background jobs, storage integrity).
+    `li` is lineitem as phase 13 left it and `want` the numpy answers
+    over it.  Returns each kernel's launches over the phase."""
+    import gc
+    import threading
+
+    import torch
+
+    from citus_tpu_torch.errors import CorruptStripe
+    from citus_tpu_torch.executor.hbm import accountant_for
+    from citus_tpu_torch.ingest import tpch
+    from citus_tpu_torch.operations.cleanup import cleanup_registry_for
+    from citus_tpu_torch.operations.restore_point import restore_cluster
+    from citus_tpu_torch.storage import integrity
+    from citus_tpu_torch.utils.faultinjection import inject
+
+    t_phase = time.perf_counter()
+    failures: list = []
+    acc = accountant_for(data_dir)
+    hk.reset_launch_counts()
+    open_sessions: list = []
+
+    def connect(**settings):
+        s = rerun_connect(ct, data_dir, **settings)
+        open_sessions.append(s)
+        return s
+
+    def clean(where, sessions=()):
+        for s in sessions:
+            s.close()
+            open_sessions.remove(s)
+        gc.collect()
+        torch.cuda.synchronize()
+        if acc.transient_bytes():
+            failures.append(f"{where}: {acc.transient_bytes()} transient "
+                            "ledger bytes after the step")
+
+    def launches_since(before):
+        return {n: hk.LAUNCHES[n] - before[n] for n in hk.KERNELS}
+
+    def answer(sess, q, where):
+        res = sess.execute(queries[q])
+        torch.cuda.synchronize()
+        try:
+            checks[q](res, want[q])
+        except AssertionError as e:
+            failures.append(f"{where} {q}: {e}")
+        if res.retries:
+            failures.append(f"{where} {q}: {res.retries} retries")
+        return res
+
+    def counter(sess, name):
+        return sess.stats.counters.snapshot()[name]
+
+    # -- O0: restore point --------------------------------------------------
+    admin = connect()
+    t0 = time.perf_counter()
+    admin.execute("select citus_create_restore_point('pre_ops')")
+    log(f"phase14 O0: citus_create_restore_point('pre_ops') "
+        f"{time.perf_counter() - t0!r} s ({ident})")
+
+    # -- O1: split lineitem's first shard (orders splits with it) -----------
+    warm = connect()
+    for _ in range(2):
+        for q in ("Q1", "Q3"):
+            answer(warm, q, "O1 warm before")
+    shard = admin.catalog.table_shards("lineitem")[0]
+    mid = (shard.min_value + shard.max_value) // 2
+    before_ids = {t: {s.shard_id for s in admin.catalog.table_shards(t)}
+                  for t in ("lineitem", "orders")}
+    parents = [os.path.join(data_dir, "tables", t, f"shard_{sid}")
+               for t in ("lineitem", "orders")
+               for sid in before_ids[t]
+               if admin.catalog.shards[sid].shard_index
+               == shard.shard_index]
+    t0 = time.perf_counter()
+    admin.execute(f"select citus_split_shard_by_split_points("
+                  f"{shard.shard_id}, '{mid}')")
+    split_s = time.perf_counter() - t0
+    rewritten = {t: sum(admin.store.shard_row_count(t, s.shard_id)
+                        for s in admin.catalog.table_shards(t)
+                        if s.shard_id not in before_ids[t])
+                 for t in ("lineitem", "orders")}
+    counts = {t: len(admin.catalog.table_shards(t))
+              for t in ("lineitem", "orders")}
+    log(f"phase14 O1: split in {split_s!r} s, rows rewritten {rewritten}, "
+        f"shards {counts} ({ident})")
+    if counts != {"lineitem": 9, "orders": 9}:
+        failures.append(f"O1: shard counts {counts}")
+    fresh = connect()
+    after_split = dict(hk.LAUNCHES)
+    for name, sess in (("warm", warm), ("fresh", fresh)):
+        before = dict(hk.LAUNCHES)
+        t0 = time.perf_counter()
+        for q in ("Q1", "Q3", "high_card_groupby"):
+            answer(sess, q, f"O1 {name}")
+        got = launches_since(before)
+        log(f"phase14 O1 {name} session: Q1, Q3, GROUP BY in "
+            f"{time.perf_counter() - t0!r} s, launches {got}")
+    o1 = launches_since(after_split)
+    for k in ("dense_grid_sum", "bucketed_probe", "bucketed_groupby_sums",
+              "dict_decode"):
+        if o1[k] <= 0:
+            failures.append(f"O1: {k} never launched")
+    sweeper = connect(defer_shard_delete_interval_ms=200)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 2.0 and (
+            any(os.path.isdir(p) for p in parents)
+            or sweeper.maintenance.cleanup_runs == 0):
+        time.sleep(0.05)
+    pending = cleanup_registry_for(data_dir).pending()
+    log(f"phase14 O1 cleanup: parents gone "
+        f"{not any(os.path.isdir(p) for p in parents)}, daemon sweeps "
+        f"{sweeper.maintenance.cleanup_runs}, pending records "
+        f"{len(pending)} after {time.perf_counter() - t0!r} s")
+    if any(os.path.isdir(p) for p in parents) or pending \
+            or not sweeper.maintenance.cleanup_runs:
+        failures.append("O1: the parents' cleanup did not finish in 2 s")
+    clean("O1", [warm, fresh, sweeper])
+
+    # -- O2: rebalance as a background job under query traffic -------------
+    admin.execute("select citus_add_node('extra:1')")
+    reb = connect(rebalance_improvement_threshold=0.05)
+    readers = [connect() for _ in range(2)]
+    bad: list = []
+
+    def read(sess):
+        try:
+            for q in ("Q1", "Q3"):
+                checks[q](sess.execute(queries[q]), want[q])
+        except Exception as e:  # noqa: BLE001 — gathered as a failure
+            bad.append(repr(e))
+
+    threads = [threading.Thread(target=read, args=(s,)) for s in readers]
+    bg0 = {r["tenant"]: r["admitted_total"]
+           for r in reb.wlm.snapshot()["tenants"]
+           if r["priority"] == "background"}.get("background", 0)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    job_id = int(reb.execute("select citus_rebalance_start()"
+                             ).rows()[0][0])
+    progress = []
+    while reb.jobs.job_status(job_id).status.value in ("scheduled",
+                                                       "running"):
+        rows = reb.execute("select get_rebalance_progress()").rows()
+        progress.append(rows[-1] if rows else None)
+        time.sleep(0.01)
+    status = reb.execute("select citus_rebalance_wait()").rows()[0][0]
+    for t in threads:
+        t.join()
+    reb_s = time.perf_counter() - t0
+    job = reb.jobs.job_status(job_id)
+    moves = len(job.tasks) - 1  # the last task finalizes the progress
+    bg = {r["tenant"]: r["admitted_total"]
+          for r in reb.wlm.snapshot()["tenants"]
+          if r["priority"] == "background"}.get("background", 0) - bg0
+    nodes = {reb.catalog.active_placement(s.shard_id).node_id
+             for s in reb.catalog.table_shards("lineitem")}
+    log(f"phase14 O2: job {job_id} {status} in {reb_s!r} s, {moves} moves, "
+        f"{bg} tasks admitted at class background, progress samples "
+        f"{progress[:1] + progress[-1:]}, lineitem on nodes "
+        f"{sorted(nodes)}; 2 reader threads x (Q1, Q3) {bad or 'right'} "
+        f"({ident})")
+    if status != "done" or moves <= 0 or bg < moves + 1 or bad \
+            or len(nodes) < 2:
+        failures.append(f"O2: status {status}, moves {moves}, background "
+                        f"admissions {bg}, nodes {nodes}, readers {bad}")
+    clean("O2", [reb] + readers)
+
+    # -- O3: read-repair, scrub, and a clean error without a replica --------
+    loader = connect(shard_replication_factor=2)
+    t0 = time.perf_counter()
+    # phase 1's lineitem: the seeded NULLs and want["nullable"] are its
+    n_r2 = load_nullable(loader, data["lineitem"], tpch, R2_TABLE,
+                         R2_COLUMNS, dist="l_shipdate")
+    stripes = primary_stripes(loader, R2_TABLE)
+    copies = [p for s in loader.catalog.table_shards(R2_TABLE)
+              for r in loader.store.manifest(R2_TABLE)["shards"].get(
+                  str(s.shard_id), [])
+              for p in loader.store._copy_paths(R2_TABLE, s.shard_id,
+                                                r["file"])]
+    log(f"phase14 O3: {R2_TABLE} {n_r2} rows, {len(stripes)} stripes, "
+        f"{len(copies)} copies, loaded in {time.perf_counter() - t0!r} s")
+    if len(copies) != 2 * len(stripes):
+        failures.append(f"O3: {len(copies)} copies of {len(stripes)} "
+                        "stripes")
+    clean("O3 load", [loader])
+    for mode in ("off", "host", "device"):
+        sess = connect(scan_pipeline=mode)
+        rr0 = counter(sess, "read_repairs_total")
+        before = dict(hk.LAUNCHES)
+        t0 = time.perf_counter()
+        with inject("storage.stripe_bitflip", require_fired=True):
+            res = sess.execute(R2_SQL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launches_since(before)
+        rr = counter(sess, "read_repairs_total") - rr0
+        try:
+            check_nullable(res, want["nullable"])
+        except AssertionError as e:
+            failures.append(f"O3 {mode}: {e}")
+        bad_files = []
+        for p in copies:
+            try:
+                integrity.verify_stripe_file(p)
+            except CorruptStripe:
+                bad_files.append(p)
+        log(f"phase14 O3 {mode}: bitflip armed, answered in {wall!r} s, "
+            f"read repairs {rr}, unhealed copies {len(bad_files)}, "
+            f"launches {got}")
+        if rr != 1 or bad_files or sess.catalog._suspect_placements:
+            failures.append(f"O3 {mode}: {rr} read repairs, unhealed "
+                            f"{bad_files}")
+        if mode == "device":
+            if got["bit_unpack"] <= 0 or got["dict_decode"] <= 0:
+                failures.append(f"O3 device: launches {got}")
+            # a fresh session: the first one's feeds are cached
+            clean("O3 device", [sess])
+            sess = connect(scan_pipeline=mode)
+            with inject("storage.stripe_bitflip", require_fired=True):
+                lines = [r[0] for r in sess.execute(
+                    "explain analyze " + R2_SQL).rows()]
+            line = next((x for x in lines if x.startswith("Integrity:")),
+                        None)
+            log(f"phase14 O3 EXPLAIN ANALYZE: {line}")
+            if line is None or "read repairs=1" not in line:
+                failures.append(f"O3: Integrity line {line}")
+        clean(f"O3 {mode}", [sess])
+    # a bit flipped at rest: the scrub quarantines and re-replicates
+    at_rest = stripes[len(stripes) // 2]
+    integrity.flip_one_bit(at_rest)
+    sess = connect()
+    t0 = time.perf_counter()
+    res = sess.execute("select citus_check_cluster()")
+    scrub_s = time.perf_counter() - t0
+    scrub = dict(zip(res.column_names, res.rows()[0]))
+    rr0 = counter(sess, "read_repairs_total")
+    try:
+        check_nullable(sess.execute(R2_SQL), want["nullable"])
+    except AssertionError as e:
+        failures.append(f"O3 after the scrub: {e}")
+    rr = counter(sess, "read_repairs_total") - rr0
+    log(f"phase14 O3 at rest: citus_check_cluster() in {scrub_s!r} s: "
+        f"{scrub}; the next run repaired {rr}")
+    clean("O3 scrub", [sess])
+    if scrub["corrupt_copies"] != 1 or scrub["quarantined"] != 1 or \
+            scrub["repaired"] != 1 or scrub["unrepairable"] or rr:
+        failures.append(f"O3 at rest: {scrub}, {rr} read repairs after")
+    try:
+        integrity.verify_stripe_file(at_rest)
+    except CorruptStripe as e:
+        failures.append(f"O3 at rest: not re-replicated ({e})")
+    # factor 1: no copy to answer from
+    victim = primary_stripes(admin, "lineitem")[0]
+    col = flipped_column(victim)
+    integrity.flip_one_bit(victim)
+    for mode in ("off", "host", "device"):
+        sess = connect(scan_pipeline=mode)
+        try:
+            sess.execute(f"select count(*), count({col}) from lineitem")
+            failures.append(f"O3 factor 1 {mode}: no CorruptStripe")
+        except CorruptStripe:
+            pass
+        clean(f"O3 factor 1 {mode}", [sess])
+    log(f"phase14 O3 factor 1: a bit flipped in {col} of lineitem: a "
+        "clean CorruptStripe in off, host and device, no transient bytes "
+        "left")
+
+    # -- O4: restore --------------------------------------------------------
+    clean("O4", list(open_sessions))
+    t0 = time.perf_counter()
+    restore_cluster(data_dir, "pre_ops")
+    restore_s = time.perf_counter() - t0
+    sess = connect()
+    n_li = len(sess.catalog.table_shards("lineitem"))
+    for q in ("Q1", "Q3"):
+        answer(sess, q, "O4")
+    log(f"phase14 O4: restore_cluster in {restore_s!r} s; lineitem "
+        f"{n_li} shards, {R2_TABLE} "
+        f"{'gone' if not sess.catalog.has_table(R2_TABLE) else 'kept'}; "
+        f"Q1 and Q3 equal numpy ({ident})")
+    if n_li != 8 or sess.catalog.has_table(R2_TABLE):
+        failures.append(f"O4: {n_li} shards after the restore")
+    clean("O4", [sess])
+
+    launched = dict(hk.LAUNCHES)
+    wall = time.perf_counter() - t_phase
+    log(f"phase14: {wall!r} s (budget {PHASE14_BUDGET_S} s), launches "
+        f"{launched}")
+    if wall > PHASE14_BUDGET_S:
+        failures.append(f"phase 14 took {wall!r} s")
+    missing = [k for k in hk.KERNELS if launched[k] <= 0]
+    if missing:
+        failures.append(f"phase 14: {missing} never launched")
+    if failures:
+        raise AssertionError(f"phase 14: {failures}")
     return launched
 
 
@@ -2942,9 +3312,19 @@ def main() -> int:
                              checks, want, ident)
         log(f"phase 12: {time.perf_counter() - t0:.3f} s")
         t0 = time.perf_counter()
-        launched13 = phase13(ct, hk, os.path.join(tmp, "data"), data,
-                             queries, checks, want, ident, tmp)
+        launched13, li_now = phase13(ct, hk, os.path.join(tmp, "data"),
+                                     data, queries, checks, want, ident,
+                                     tmp)
         log(f"phase 13: {time.perf_counter() - t0:.3f} s")
+        # phase 13 added lineitem rows: phase 14's numpy answers are
+        # phase 1's functions over lineitem as it now stands
+        want14 = dict(want, Q1=numpy_q1(li_now),
+                      Q3=numpy_q3(cust, orders, li_now),
+                      high_card_groupby=numpy_high_card(li_now))
+        t0 = time.perf_counter()
+        launched14 = phase14(ct, hk, os.path.join(tmp, "data"), data,
+                             li_now, queries, checks, want14, ident)
+        log(f"phase 14: {time.perf_counter() - t0:.3f} s")
         for rep in reports:
             rep["launches_tpch22"] = launched[rep["name"]]
             rep["launches_phase9"] = launched9[rep["name"]]
@@ -2952,6 +3332,7 @@ def main() -> int:
             rep["launches_phase11"] = launched11[rep["name"]]
             rep["launches_phase12"] = launched12[rep["name"]]
             rep["launches_phase13"] = launched13[rep["name"]]
+            rep["launches_phase14"] = launched14[rep["name"]]
 
         log(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s")
         print(json.dumps({"kernels": reports}), flush=True)

@@ -363,6 +363,55 @@ _register(ConfigVar(
     "ReplicaTooStale.  -1 = unbounded (lag is still reported by "
     "citus_stat_replication).",
     int, min_value=-1, max_value=1_000_000_000))
+_register(ConfigVar(
+    "replication_ship_interval_ms", 0,
+    "Leader maintenance-daemon duty: ship a replication batch to every "
+    "registered follower each interval.  0 = off (explicit "
+    "citus_replication_ship() only).",
+    int, min_value=0, max_value=86_400_000))
+
+# --- shard operations and background jobs (operations/, background/;
+# the JAX package's names and defaults) -------------------------------------
+_register(ConfigVar(
+    "recover_2pc_interval_ms", 60_000,
+    "How often the maintenance daemon retries unresolved prepared "
+    "commits (ref: citus.recover_2pc_interval); -1 disables.",
+    int, min_value=-1, max_value=7_200_000))
+_register(ConfigVar(
+    "defer_shard_delete_interval_ms", 15_000,
+    "Maintenance-daemon deferred cleanup sweep interval (ref: "
+    "citus.defer_shard_delete_interval); -1 disables.",
+    int, min_value=-1, max_value=86_400_000))
+_register(ConfigVar(
+    "health_check_interval_ms", -1,
+    "Maintenance-daemon node health sweep: probe every node and disable "
+    "failures so reads fail over to replicas; -1 disables.",
+    int, min_value=-1, max_value=86_400_000))
+_register(ConfigVar(
+    "scrub_interval_ms", -1,
+    "Maintenance-daemon storage scrub (operations/scrubber.py): verify "
+    "every placement copy, quarantine and re-replicate corrupt ones; "
+    "-1 disables (on demand: citus_check_cluster()).",
+    int, min_value=-1, max_value=86_400_000))
+_register(ConfigVar(
+    "scrub_temp_max_age_s", 300.0,
+    "Age floor before the scrubber removes orphan temp files left by "
+    "crashes (younger ones may belong to an in-flight writer).",
+    float, min_value=0.0, max_value=86_400.0))
+_register(ConfigVar(
+    "max_background_task_executors", 4,
+    "Parallel background tasks (ref: "
+    "citus.max_background_task_executors).",
+    int, min_value=1, max_value=1000))
+_register(ConfigVar(
+    "rebalance_threshold", 0.1,
+    "Utilization imbalance tolerated before a move is planned (ref "
+    "default 10%).",
+    float, min_value=0.0, max_value=1.0))
+_register(ConfigVar(
+    "rebalance_improvement_threshold", 0.5,
+    "Minimum relative improvement for a move to be worth it (ref 50%).",
+    float, min_value=0.0, max_value=1.0))
 
 
 class Settings:

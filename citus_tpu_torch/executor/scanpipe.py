@@ -57,7 +57,7 @@ import traceback
 import numpy as np
 import torch
 
-from ..errors import DeviceMemoryExhausted
+from ..errors import CorruptStripe, DeviceMemoryExhausted
 from ..stats import counters as sc
 from ..stats.tracing import (
     adopt_context,
@@ -315,10 +315,6 @@ class _ScanPipeline:
         self.side = None  # the producer's CUDA stream
 
     # -- producer ----------------------------------------------------------
-    def _path(self, ti: int) -> str:
-        sid, rec = self.tasks[ti]
-        return self.store.stripe_read_path(self.table, sid, rec["file"])
-
     def _reader(self, path: str):
         r = self._readers.get(path)
         if r is None:
@@ -327,6 +323,26 @@ class _ScanPipeline:
             r = StripeReader(path, verify=self.store._verify_enabled())
             self._readers[path] = r
         return r
+
+    def _verified(self, ti: int, fn):
+        """`fn(reader)` over stripe `ti` through the store's read-repair
+        seam (`verified_read`).  A copy that fails verification loses
+        its cached reader, and verified_read answers from a copy that
+        verifies (healing the bad one in place), so the remaining
+        columns of the stripe read verified bytes — all on the host,
+        before the wire encode, so a flipped byte never reaches the
+        card's decode."""
+        sid, rec = self.tasks[ti]
+
+        def read_one(path):
+            try:
+                return fn(self._reader(path))
+            except CorruptStripe:
+                self._readers.pop(path, None)
+                raise
+
+        return self.store.verified_read(self.table, sid, rec["file"],
+                                        read_one)
 
     def _read_stripe_column(self, ti: int, cname: str, first: bool):
         """One (stripe, column) read.  Returns (values, validity, n)
@@ -348,35 +364,39 @@ class _ScanPipeline:
         lay = self.layout[ti]
         storage = self.storage_of[cname]
         # the stripe's deletion bitmap (an overlay never reaches here:
-        # such tables take the eager path); reads the routing
-        # placement's copy (a CorruptStripe propagates as a clean error)
+        # such tables take the eager path)
         dmask = (self.store.effective_delete_mask(self.table, sid, rec)
                  if first else None)
 
-        reader = self._reader(self._path(ti))
-        present_all = [self.storage_of[c] for c in self.colnames
-                       if self.storage_of[c] in reader._by_name]
-        if first:
-            # chunk selection over the FULL projection's stats, computed
-            # once and pinned for every column; stripes with deletions
-            # read whole (positions must align with the bitmap)
-            if dmask is None and self.chunk_filter is not None \
-                    and present_all:
-                lay[1] = reader.selected_chunks(present_all,
-                                                self.chunk_filter)
-            lay[2] = None if dmask is None or not dmask.any() else ~dmask
-            lay[3] = reader.n_chunks
-        sel = lay[1]
-        if storage in reader._by_name:
-            rv, rm, n = reader.read([storage], chunks=sel)
-            v, m = rv[storage], rm[storage]
-        else:
+        def read_one(reader):
+            present_all = [self.storage_of[c] for c in self.colnames
+                           if self.storage_of[c] in reader._by_name]
+            if first:
+                # chunk selection over the FULL projection's stats,
+                # computed once and pinned for every column; stripes
+                # with deletions read whole (positions must align with
+                # the bitmap).  Slot writes only: a failover re-runs
+                # this closure on another copy
+                if dmask is None and self.chunk_filter is not None \
+                        and present_all:
+                    lay[1] = reader.selected_chunks(present_all,
+                                                    self.chunk_filter)
+                lay[2] = (None if dmask is None or not dmask.any()
+                          else ~dmask)
+                lay[3] = reader.n_chunks
+            sel = lay[1]
+            if storage in reader._by_name:
+                rv, rm, n = reader.read([storage], chunks=sel)
+                return rv[storage], rm[storage], n
             # column added by ALTER TABLE after this stripe was written:
             # reads as all-NULL (eager-path contract)
             n = (reader.row_count if sel is None
                  else sum(reader.footer["chunk_rows"][i] for i in sel))
-            v = np.zeros(n, dtype=self.dtypes[self.colnames.index(cname)])
-            m = np.zeros(n, dtype=np.bool_)
+            return (np.zeros(n, dtype=self.dtypes[
+                self.colnames.index(cname)]),
+                np.zeros(n, dtype=np.bool_), n)
+
+        v, m, n = self._verified(ti, read_one)
         if first:
             n_ch = len(lay[1]) if lay[1] is not None else lay[3]
             self.chunks_prefetched += n_ch
@@ -447,7 +467,7 @@ class _ScanPipeline:
             else:
                 dmask = self.store.effective_delete_mask(self.table, sid,
                                                          rec)
-                n = self._reader(self._path(ti)).row_count
+                n = self._verified(ti, lambda r: r.row_count)
                 if dmask is not None and dmask.any():
                     n = int((~dmask).sum())
             self.layout[ti][0] = self.rows

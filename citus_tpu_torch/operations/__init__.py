@@ -1,4 +1,8 @@
-"""Cluster operations — counterpart of citus_tpu/operations/.  This
-slice ports the health check and node promotion (health.py); the
-rebalancer, shard split/transfer, cleanup, scrubber and restore points
-come with ROADMAP queue A item 10."""
+"""Cluster operations — counterpart of citus_tpu/operations/: the
+health check and node promotion (health.py), deferred cleanup
+(cleanup.py), shard moves and repair (shard_transfer.py), shard split
+and tenant isolation (shard_split.py), the greedy rebalancer
+(rebalancer.py), the storage scrubber (scrubber.py) and restore points
+(restore_point.py).  The mesh parts of the JAX package's rebalancer
+(rebalance_mesh, drain_device) come with multi-GPU (ROADMAP queue A
+item 9)."""

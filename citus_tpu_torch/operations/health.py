@@ -18,9 +18,11 @@ Counterpart of citus_tpu/operations/health.py.  Reference analogues:
   makes that durable: the dead node's placements demote to `to_delete`
   and each shard's surviving replica becomes the primary.
 
-The JAX package's `health_sweep` (disable every node that fails its
-probe) comes with its only caller, the maintenance daemon (ROADMAP
-queue A item 10).  Promotion stays an explicit operator action.
+The maintenance daemon runs `health_sweep` periodically
+(`health_check_interval_ms`, off by default): a probe failure only
+DISABLES the node (reads fail over at once); promotion stays an
+explicit operator action, as the reference splits detection from
+promotion.
 """
 
 from __future__ import annotations
@@ -75,6 +77,24 @@ def check_cluster_health(session) -> list[tuple[str, bool, bool]]:
     return [(node.name, node.is_active, probe_node(session, node))
             for node in sorted(session.catalog.nodes.values(),
                                key=lambda n: n.node_id)]
+
+
+def health_sweep(session) -> list[str]:
+    """Disable nodes that fail their probe (reads fail over to replicas
+    at the next active_placement call); returns the names disabled.
+    Nodes already inactive are left alone — reactivation is an operator
+    decision (citus_activate_node)."""
+    disabled = []
+    for name, is_active, healthy in check_cluster_health(session):
+        if is_active and not healthy:
+            try:
+                session.catalog.disable_node(name)
+                disabled.append(name)
+            except CatalogError:
+                pass  # a safety check (e.g. last placement) vetoes
+    if disabled:
+        session._save_catalog()
+    return disabled
 
 
 def promote_node_replicas(session, dead_node_name: str) -> int:

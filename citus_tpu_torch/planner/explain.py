@@ -34,8 +34,7 @@ _JOIN_LABEL = {
 # EXPLAIN tag registry: every strategy tag a plan renders in this port.
 # Render sites call explain_tag("…") instead of inlining the literal
 # (tests grep these strings — a silently renamed tag is a silently
-# broken assertion).  The JAX package's Integrity tag comes with its
-# module (ROADMAP queue A item 10).
+# broken assertion).
 EXPLAIN_TAGS: dict[str, str] = {
     "Fast Path Router": "single-shard host execution, device skipped",
     "point index lookup": "scan answered by the persistent PK index",
@@ -53,6 +52,7 @@ EXPLAIN_TAGS: dict[str, str] = {
             "statement",
     "Timing": "per-phase wall-clock breakdown from this statement's "
               "span trace (stats/tracing.py)",
+    "Integrity": "stripes CRC-verified / read-repaired this statement",
     "Memory": "device-memory ledger + OOM degradation for this statement",
     "Resilience": "retry/failover totals for this statement",
     "Caches": "plan/feed cache traffic for this statement",

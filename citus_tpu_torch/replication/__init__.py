@@ -36,6 +36,7 @@ from .state import (
     load_cursor,
     load_state,
     new_history_id,
+    rotate_history,
     save_state,
     state_path,
 )
@@ -45,7 +46,7 @@ __all__ = [
     "apply_pending", "ensure_fresh", "staleness", "has_pending",
     "promote", "ship", "ship_all", "register_follower",
     "journal_tail_lsn", "ensure_leader_state",
-    "load_state", "load_cursor", "new_history_id",
+    "load_state", "load_cursor", "new_history_id", "rotate_history",
 ]
 
 

@@ -3,11 +3,10 @@ of citus_tpu/replication/promote.py).
 
 When the leader dies, one follower rolls the shipped journal forward,
 runs the recovery machinery over its own tree (2PC recovery, the same
-pass every session start runs — Session.promote_replica; the cleanup
-sweep comes with operations/, ROADMAP queue A item 10),
-bumps the fencing **epoch**, best-effort stamps the old leader's
-data_dir so a zombie that wakes up refuses to ship, and flips its role
-record to ``leader``.  Serving traffic flips by pointing sessions (or,
+pass every session start runs, and the cleanup sweep —
+Session.promote_replica), bumps the fencing **epoch**, best-effort
+stamps the old leader's data_dir so a zombie that wakes up refuses to
+ship, and flips its role record to ``leader``.  Serving traffic flips by pointing sessions (or,
 in-process, the existing follower sessions' next statement — the role
 is re-read per statement) at the promoted directory.
 

@@ -106,3 +106,15 @@ def ensure_leader_state(data_dir: str) -> dict:
                  "leader_dir": None, "followers": []}
         save_state(data_dir, state)
     return state
+
+
+def rotate_history(data_dir: str) -> None:
+    """The journal was just replaced wholesale (restore_cluster): start
+    a new timeline so every follower cursor pinned to the old history
+    reseeds on the next ship instead of replaying pre-restore lsns onto
+    post-restore data."""
+    state = load_state(data_dir)
+    if state is None:
+        return  # never replicated: nothing points at this journal
+    state["history_id"] = new_history_id()
+    save_state(data_dir, state)

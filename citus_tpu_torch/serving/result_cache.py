@@ -392,3 +392,13 @@ def release_result_cache(data_dir: str) -> None:
         cache = _registry.pop(key, None)
     if cache is not None:
         cache.clear()
+
+
+def reset_serving_state(data_dir: str) -> None:
+    """Drop the data_dir's cached results: called by out-of-band
+    surgery (restore_cluster) that rewrites storage without emitting
+    change events.  The manifest-identity backstop would catch the
+    stale entries lazily; this makes it eager."""
+    cache = peek_result_cache(data_dir)
+    if cache is not None:
+        cache.clear()

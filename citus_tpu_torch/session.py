@@ -62,8 +62,19 @@ data_dir applies shipped batches when it opens and before each
 statement, refuses writes and bounds its visible staleness
 (`_replica_gate`).
 
-Not in this port yet: the UDFs of unported modules (`_UNPORTED_UDFS`)
-and the envelope's device-loss failover (multi-GPU).
+Shard operations and background jobs (operations/, background/):
+split, tenant isolation, moves, the rebalancer (inline or as a
+background job with live progress), the deferred cleanup registry
+(swept at open, by the maintenance daemon and after promotion), the
+storage scrubber and restore points.  Each Session starts a job runner
+(its tasks admit at the workload manager's `background` class) and a
+maintenance daemon; close() stops and joins both.  Every stripe read
+goes through the store's read-repair seam, and each statement folds its
+integrity accounting (stripes verified, corruption detected, read
+repairs) into the session counters and its activity row.
+
+Not in this port yet: the mesh UDFs (`_UNPORTED_UDFS`) and the
+envelope's device-loss failover (multi-GPU).
 """
 
 from __future__ import annotations
@@ -80,6 +91,7 @@ import numpy as np
 
 from .catalog import Catalog, DistributionMethod
 from .config import Settings
+from .background import BackgroundJobRunner, MaintenanceDaemon
 from .errors import (
     CatalogError,
     ExecutionError,
@@ -87,6 +99,7 @@ from .errors import (
     UnsupportedQueryError,
 )
 from .executor.runner import Executor, ResultSet
+from .operations.cleanup import cleanup_registry_for
 from .planner.bind import Binder, DictProvider
 from .planner.decorrelate import (
     _map_children,
@@ -102,6 +115,7 @@ from .stats import SessionStats, extract_tenants
 from .stats import counters as sc
 from .stats.tracing import trace_span
 from .storage import TableStore
+from .storage import integrity as _integrity
 from .transaction.locks import lock_manager_for
 from .transaction.manager import TransactionManager
 from .types import (
@@ -115,8 +129,9 @@ from .wlm import workload_manager_for
 
 
 # the UDFs this port answers (Session._try_udf): the catalog's, the
-# workload, serving and replication UDFs, and the stats and health UDFs
-# of stats/ and operations/health.py
+# workload, serving and replication UDFs, the stats and health UDFs of
+# stats/ and operations/health.py, and the shard operations and job UDFs
+# of operations/ and background/
 _UDFS = ("create_distributed_table", "create_reference_table",
          "citus_add_node", "citus_remove_node", "citus_disable_node",
          "citus_activate_node", "nextval", "currval",
@@ -128,23 +143,19 @@ _UDFS = ("create_distributed_table", "create_reference_table",
          "citus_stat_statements", "citus_stat_statements_reset",
          "citus_stat_latency", "citus_stat_latency_reset",
          "citus_stat_tenants", "citus_stat_activity", "citus_stat_memory",
-         "citus_check_cluster_node_health", "citus_promote_node")
-
-# the JAX package's other UDFs, by the ROADMAP queue A item that brings
-# their module: each raises UnsupportedQueryError naming it
-_UNPORTED_UDFS = {
-    **dict.fromkeys(
-        ("citus_stat_mesh", "citus_rebalance_mesh", "citus_drain_device"),
-        "queue A item 9 (multi-GPU)"),
-    **dict.fromkeys(
-        ("rebalance_table_shards", "citus_move_shard_placement",
+         "citus_check_cluster_node_health", "citus_promote_node",
+         "rebalance_table_shards", "citus_move_shard_placement",
          "get_rebalance_progress", "citus_split_shard_by_split_points",
          "isolate_tenant_to_node", "citus_cleanup_orphaned_resources",
          "citus_rebalance_start", "citus_rebalance_wait",
          "citus_job_wait", "citus_job_cancel", "citus_job_list",
-         "citus_create_restore_point", "citus_check_cluster"),
-        "queue A item 10 (operations/ and background/ jobs)"),
-}
+         "citus_create_restore_point", "citus_check_cluster")
+
+# the JAX package's other UDFs, by the ROADMAP queue A item that brings
+# their module: each raises UnsupportedQueryError naming it
+_UNPORTED_UDFS = dict.fromkeys(
+    ("citus_stat_mesh", "citus_rebalance_mesh", "citus_drain_device"),
+    "queue A item 9 (multi-GPU)")
 
 
 # fault points that fire AFTER a write's visibility flip: the effect is
@@ -245,6 +256,9 @@ class Session:
         self.txn_manager = TransactionManager(self.store, self.data_dir)
         self.locks = lock_manager_for(self.data_dir)
         self.txn_manager.recover()
+        # crash-recovery sweep: half-finished splits and moves resolve
+        # against the catalog (operations/cleanup.py)
+        cleanup_registry_for(self.data_dir).sweep(self.store, self.catalog)
         # Session.cancel() → the executing statement's next seam raises
         self._cancel_evt = threading.Event()
         # the OOM ladder's rungs taken by the last statement, in order
@@ -271,6 +285,16 @@ class Session:
                                 store=self.store)
             if res["applied"]:
                 self.catalog.maybe_reload(cat_path)
+        # background services: the job runner (its tasks admit at the
+        # workload manager's background class) and the maintenance
+        # daemon (2PC recovery, deferred cleanup, health sweep, scrub,
+        # log shipping, deadlock checks)
+        self.jobs = BackgroundJobRunner(
+            self.settings.get("max_background_task_executors"),
+            wlm=self.wlm, wlm_request=self._wlm_background_request)
+        self._last_rebalance_job = 0
+        self.maintenance = MaintenanceDaemon(self)
+        self.maintenance.start()
 
     # ------------------------------------------------------------------
     def execute(self, sql: str):
@@ -303,6 +327,7 @@ class Session:
                         tracer.end(th)
                         th = tracer.begin(sql)
                     activity.retries = 0
+                    activity.read_repairs = 0
                     # per statement: the citus_stat_activity cache
                     # columns show the in-flight statement's own traffic
                     activity.cache_base = (
@@ -310,7 +335,12 @@ class Session:
                         self.executor.plan_cache.misses,
                         self.executor.feed_cache.hits,
                         self.executor.feed_cache.misses)
-                    result = self._execute_admitted(stmt, activity)
+                    ibase = _integrity.snapshot()
+                    try:
+                        result = self._execute_admitted(stmt, activity)
+                    finally:
+                        self._fold_integrity(_integrity.delta(ibase),
+                                             activity)
                     self._count_statement(stmt, result)
                     tenant_hits.extend(extract_tenants(stmt, self.catalog))
                 elapsed_ms = (_time.perf_counter() - t0) * 1000.0
@@ -324,6 +354,19 @@ class Session:
         for table, tenant in tenant_hits:
             self.stats.tenants.record(table, tenant, elapsed_ms)
         return result
+
+    def _fold_integrity(self, idelta: dict, activity) -> None:
+        """Fold one statement's storage-integrity traffic (module-wide
+        accounting, storage/integrity.py) into the session counters and
+        its activity row."""
+        c = self.stats.counters
+        for key, counter in (("stripes_verified", sc.STRIPES_VERIFIED_TOTAL),
+                             ("corruption_detected",
+                              sc.CORRUPTION_DETECTED_TOTAL),
+                             ("read_repairs", sc.READ_REPAIRS_TOTAL)):
+            if idelta[key]:
+                c.increment(counter, idelta[key])
+        activity.read_repairs += idelta["read_repairs"]
 
     def _count_statement(self, stmt: ast.Statement, result) -> None:
         c = self.stats.counters
@@ -360,6 +403,19 @@ class Session:
         self._cancel_evt.set()
 
     # -- workload management -----------------------------------------------
+    def _wlm_background_request(self):
+        """Admission request of a background job task (rebalance moves,
+        the scrub): the background class — user statements always
+        dispatch first — with an effectively unbounded queue (a
+        maintenance task waits for capacity rather than shedding)."""
+        from .wlm import AdmissionRequest
+
+        return AdmissionRequest(
+            tenant="background", priority="background",
+            max_slots=self.settings.get("max_concurrent_statements"),
+            max_feed_bytes=self.settings.get("max_feed_bytes_per_device"),
+            queue_depth=1_000_000)
+
     def _execute_admitted(self, stmt: ast.Statement, activity=None):
         """Admission around the resilience envelope: classify the
         statement, hold a slot and its device-memory budget through
@@ -685,15 +741,16 @@ class Session:
         """Promote this follower data_dir to leader (leader-death
         failover): roll the shipped journal forward, bump the fencing
         epoch (stamping the old leader's dir so its late ships are
-        refused), flip the role record, then run 2PC recovery through
-        this session's own manager and adopt the rolled-forward
-        catalog.  Returns the new epoch; this session accepts writes
-        from its next statement on."""
+        refused), flip the role record, then run 2PC recovery and the
+        cleanup sweep through this session's own managers and adopt the
+        rolled-forward catalog.  Returns the new epoch; this session
+        accepts writes from its next statement on."""
         from .replication import promote
 
         epoch = promote(self.data_dir, counters=self.stats.counters,
                         store=self.store)
         self.txn_manager.recover()
+        cleanup_registry_for(self.data_dir).sweep(self.store, self.catalog)
         self.catalog.maybe_reload(os.path.join(self.data_dir,
                                                "catalog.json"))
         return epoch
@@ -949,7 +1006,141 @@ class Session:
             n = promote_node_replicas(self, str(args[0]))
             return ResultSet(["placements_demoted"],
                              {"placements_demoted": [n]}, 1)
+        else:
+            return self._operations_udf(e.name, args)
         return ResultSet(["ok"], {"ok": [True]}, 1)
+
+    def _operations_udf(self, name: str, args: list):
+        """The shard operations, job and integrity UDFs (operations/,
+        background/), with the JAX package's arguments and columns."""
+        if name == "rebalance_table_shards":
+            from .operations.rebalancer import rebalance_table_shards
+
+            moves = rebalance_table_shards(
+                self.catalog, self.store,
+                self.settings.get("rebalance_threshold"),
+                self.settings.get("rebalance_improvement_threshold"),
+                progress=self.stats.progress)
+            self._save_catalog()
+            return ResultSet(["moves"], {"moves": [len(moves)]}, 1)
+        if name == "citus_move_shard_placement":
+            from .operations.shard_transfer import move_shard_placement
+
+            move_shard_placement(self.catalog, self.store, int(args[0]),
+                                 str(args[1]))
+            self._save_catalog()
+        elif name == "citus_split_shard_by_split_points":
+            from .operations.shard_split import split_shard_by_split_points
+
+            points = [int(p) for p in str(args[1]).split(",")]
+            children = split_shard_by_split_points(self, int(args[0]),
+                                                   points)
+            return ResultSet(["new_shard_ids"],
+                             {"new_shard_ids":
+                              [",".join(map(str, children))]}, 1)
+        elif name == "isolate_tenant_to_node":
+            from .operations.shard_split import isolate_tenant_to_node
+
+            sid = isolate_tenant_to_node(self, str(args[0]), args[1])
+            return ResultSet(["shard_id"], {"shard_id": [sid]}, 1)
+        elif name == "citus_cleanup_orphaned_resources":
+            n = cleanup_registry_for(self.data_dir).sweep(self.store,
+                                                           self.catalog)
+            return ResultSet(["cleaned"], {"cleaned": [n]}, 1)
+        elif name == "citus_rebalance_start":
+            job_id = self._start_background_rebalance()
+            return ResultSet(["job_id"], {"job_id": [job_id]}, 1)
+        elif name in ("citus_rebalance_wait", "citus_job_wait"):
+            job_id = int(args[0]) if args else self._last_rebalance_job
+            if job_id == 0:  # nothing was scheduled (already balanced)
+                return ResultSet(["status"], {"status": ["done"]}, 1)
+            status = self.jobs.wait(job_id)
+            return ResultSet(["status"], {"status": [status.value]}, 1)
+        elif name == "citus_job_cancel":
+            self.jobs.cancel(int(args[0]))
+        elif name == "citus_job_list":
+            jobs = self.jobs.jobs()
+            return ResultSet(
+                ["job_id", "description", "status", "tasks"],
+                {"job_id": [j.job_id for j in jobs],
+                 "description": [j.description for j in jobs],
+                 "status": [j.status.value for j in jobs],
+                 "tasks": [len(j.tasks) for j in jobs]}, len(jobs))
+        elif name == "get_rebalance_progress":
+            mons = self.stats.progress.all()
+            return ResultSet(
+                ["operation", "target", "progress", "total", "detail"],
+                {"operation": [m.operation for m in mons],
+                 "target": [m.target for m in mons],
+                 "progress": [m.done_steps for m in mons],
+                 "total": [m.total_steps for m in mons],
+                 "detail": [m.detail for m in mons]}, len(mons))
+        elif name == "citus_create_restore_point":
+            from .operations.restore_point import create_restore_point
+
+            rp = create_restore_point(self, str(args[0]))
+            return ResultSet(["restore_point"], {"restore_point": [rp]}, 1)
+        elif name == "citus_check_cluster":
+            # the storage scrub as a background job: verify every
+            # placement copy, quarantine + re-replicate corrupt ones,
+            # GC crash debris.  Optional argument: the temp-file age
+            # floor in seconds (default scrub_temp_max_age_s)
+            from .operations.scrubber import scrub_session
+
+            rep = scrub_session(
+                self, temp_max_age_s=float(args[0]) if args else None)
+            cols = ("stripes_verified", "masks_verified",
+                    "corrupt_copies", "quarantined", "repaired",
+                    "unrepairable", "temps_removed",
+                    "replica_dirs_removed")
+            return ResultSet(list(cols),
+                             {c: [getattr(rep, c)] for c in cols}, 1)
+        return ResultSet(["ok"], {"ok": [True]}, 1)
+
+    def _start_background_rebalance(self) -> int:
+        """citus_rebalance_start: plan the moves and run them as a
+        dependency-chained background job with live progress
+        (get_rebalance_progress).  Returns the job id, 0 when the
+        cluster is already balanced."""
+        from .operations.rebalancer import plan_rebalance
+        from .operations.shard_transfer import move_shard_placement
+
+        moves = plan_rebalance(
+            self.catalog, self.store,
+            self.settings.get("rebalance_threshold"),
+            self.settings.get("rebalance_improvement_threshold"))
+        if not moves:
+            return 0
+        mon = self.stats.progress.create("rebalance", "background",
+                                         len(moves))
+
+        def make_move(mv):
+            def run():
+                target = self.catalog.nodes[mv.target_node]
+                move_shard_placement(self.catalog, self.store,
+                                     mv.shard_id, target.name)
+                self._save_catalog()
+                mon.advance(1, f"moved shard {mv.shard_id}")
+            return run
+
+        # parallel across nodes under a per-node concurrency cap of 1: a
+        # move depends only on the LAST earlier move touching either of
+        # its nodes (mv.source_node is the planner's simulated source,
+        # right even when one group moves twice in a plan)
+        tasks = []
+        last_on_node: dict[int, int] = {}
+        for i, mv in enumerate(moves):
+            deps = sorted({last_on_node[n]
+                           for n in (mv.source_node, mv.target_node)
+                           if n in last_on_node})
+            tasks.append((make_move(mv), f"move shard {mv.shard_id}",
+                          deps))
+            last_on_node[mv.source_node] = i
+            last_on_node[mv.target_node] = i
+        tasks.append((mon.finish, "finalize", list(range(len(moves)))))
+        job_id = self.jobs.submit_job("rebalance", tasks)
+        self._last_rebalance_job = job_id
+        return job_id
 
     def _stat_udf(self, name: str):
         """The citus_stat_* UDFs (the JAX package's columns); the
@@ -1171,6 +1362,8 @@ class Session:
         self._save_catalog()
 
     def close(self):
+        self.maintenance.stop()
+        self.jobs.shutdown()
         self._save_catalog()
         # give back this session's reference on the shared result
         # cache: the last one out drops the data_dir's cached results
@@ -1631,11 +1824,11 @@ class Session:
         in its order and format: Execution Time, Timing (from this
         statement's span trace; a dispatch's device_ms stays in the
         trace), Rows, Chunks Skipped, Device Rows Scanned, Streamed
-        Execution, Mesh, Memory, Resilience, Caches, Workload, Serving
-        and Replication.  Integrity (ROADMAP queue A item 10) comes with
-        its module, and so do the Caches line's exec-cache fields (item
-        7).  `target` and `params` are the explained SELECT and its
-        EXECUTE arguments (the Serving line's cache probe)."""
+        Execution, Mesh, Integrity, Memory, Resilience, Caches, Workload,
+        Serving and Replication.  The Caches line's exec-cache fields
+        come with the compiled form (ROADMAP queue A item 7).  `target`
+        and `params` are the explained SELECT and its EXECUTE arguments
+        (the Serving line's cache probe)."""
         import time
 
         from .planner.explain import explain_tag
@@ -1645,6 +1838,7 @@ class Session:
         snap0 = counters.snapshot()
         pc, fc = self.executor.plan_cache, self.executor.feed_cache
         cache0 = (pc.hits, pc.misses, fc.hits, fc.misses)
+        ibase0 = _integrity.snapshot()
         t0 = time.perf_counter()
         result = self.executor.execute_plan(plan)
         elapsed = time.perf_counter() - t0
@@ -1679,6 +1873,20 @@ class Session:
             f"{explain_tag('Mesh')}: devices={self.n_devices} "
             f"rows_in={rows_in if rows_in is not None else 'n/a'} "
             f"rows_out=n/a all_to_all_bytes={d(sc.SHUFFLE_BYTES_TOTAL)}")
+        # this execution's integrity traffic; it folds into the session
+        # counters only when the statement ends, so the totals add it
+        idelta = _integrity.delta(ibase0)
+        sv_total = (snap.get(sc.STRIPES_VERIFIED_TOTAL, 0)
+                    + idelta["stripes_verified"])
+        rr_total = (snap.get(sc.READ_REPAIRS_TOTAL, 0)
+                    + idelta["read_repairs"])
+        lines.append(
+            f"{explain_tag('Integrity')}: stripes verified="
+            f"{idelta['stripes_verified']} read repairs="
+            f"{idelta['read_repairs']} corruption detected="
+            f"{idelta['corruption_detected']} (session totals: "
+            f"stripes_verified_total={sv_total} "
+            f"read_repairs_total={rr_total})")
         msnap = self.executor.accountant.snapshot()
         lines.append(
             f"{explain_tag('Memory')}: "

@@ -10,9 +10,9 @@ without locking; snapshots sum across slots.  Slots are kept for the
 registry's lifetime (sessions are not expected to churn thousands of
 threads).
 
-Counters whose modules are not in the port yet (serving, WLM, the
-executable cache, the mesh, replication, the scrubber) are listed and
-read 0 until their module comes (ROADMAP queue A items 7, 9, 10, 11).
+Counters whose modules are not in the port yet (the executable cache,
+the mesh) are listed and read 0 until their module comes (ROADMAP queue
+A items 7, 9).
 """
 
 from __future__ import annotations

@@ -1,9 +1,8 @@
 """Progress monitors for long-running operations (Citus
 src/backend/distributed/progress/multi_progress.c CreateProgressMonitor
 backs these with dynamic shared memory other backends scan); here a
-per-session registry.  Counterpart of citus_tpu/stats/progress.py: the
-registry only — get_rebalance_progress() comes with the rebalancer
-(ROADMAP queue A item 10)."""
+per-session registry read by get_rebalance_progress().  Counterpart of
+citus_tpu/stats/progress.py."""
 
 from __future__ import annotations
 

@@ -44,6 +44,7 @@ import numpy as np
 from ..errors import CorruptStripe, StorageError
 from ..types import DataType
 from ..utils import io as dio
+from ..utils.faultinjection import fault_point
 from . import compression
 
 MAGIC = b"CTPS1\x00"
@@ -156,6 +157,9 @@ def write_stripe(path: str,
         f.write(np.uint32(len(raw_footer)).tobytes())
         f.write(np.uint32(zlib.crc32(comp_footer)).tobytes())
         f.write(END_MAGIC)
+        # named seam: a kill here leaves the streamed tmp torn and no
+        # visible stripe (the atomic_stream_writer discipline)
+        fault_point("storage.stripe_torn_write")
     return footer
 
 

@@ -22,8 +22,8 @@ and the lookup re-applies the CURRENT delete mask, the open
 transaction's staged one included (effective_delete_mask).  Rows staged
 by an open transaction are not in the index, so the fast path never
 asks it while the overlay holds records for the table
-(executor/fastpath.index_probe) and scans the shard instead.  Reads
-come from the primary stripe copy (no replica read-repair).
+(executor/fastpath.index_probe) and scans the shard instead.  Stripe
+reads go through the store's read-repair seam (`verified_read`).
 """
 
 from __future__ import annotations
@@ -58,20 +58,20 @@ def _load(path: str):
         return None
 
 
-def _reader(store, table: str, shard_id: int, fname: str) -> StripeReader:
-    return StripeReader(os.path.join(store.shard_dir(table, shard_id),
-                                     fname),
-                        verify=store._verify_enabled())
-
-
 def _build(store, table: str, shard_id: int, column: str, records):
     storage_col = store.storage_column_name(table, column)
     keys_parts, sidx_parts, pos_parts = [], [], []
     for i, rec in enumerate(records):
-        reader = _reader(store, table, shard_id, rec["file"])
-        if storage_col not in reader._by_name:
-            continue  # pre-ALTER stripe: column reads all-NULL
-        vals, mask, _n = reader.read([storage_col])
+        def read_one(path):
+            reader = StripeReader(path, verify=store._verify_enabled())
+            if storage_col not in reader._by_name:
+                return None  # pre-ALTER stripe: column reads all-NULL
+            return reader.read([storage_col])
+
+        got = store.verified_read(table, shard_id, rec["file"], read_one)
+        if got is None:
+            continue
+        vals, mask, _n = got
         v = np.asarray(vals[storage_col]).astype(np.int64)
         m = np.asarray(mask[storage_col])  # validity: NULL keys excluded
         pos = np.flatnonzero(m)
@@ -182,22 +182,28 @@ def read_rows_multi(store, table: str, shard_id: int, columns: list[str],
             continue
         pos_arr = np.asarray([p for _ri, p in live], dtype=np.int64)
         req_ids = np.asarray([ri for ri, _p in live], dtype=np.int64)
-        reader = _reader(store, table, shard_id, fname)
-        # chunk index per live position; read ONLY those chunks
-        bounds = np.cumsum(np.asarray(reader.footer["chunk_rows"]))
-        chunk_of = np.searchsorted(bounds, pos_arr, side="right")
-        starts = np.concatenate([[0], bounds[:-1]])
-        sel = sorted(set(int(c) for c in chunk_of))
-        # stripe position → position within the concatenated read
-        offset_of = {}
-        acc = 0
-        for ci in sel:
-            offset_of[ci] = acc - int(starts[ci])
-            acc += int(bounds[ci] - starts[ci])
-        present = [storage_of[c] for c in columns
-                   if storage_of[c] in reader._by_name]
-        v, m = ({}, {}) if not present else \
-            reader.read(present, chunks=sel)[:2]
+
+        def read_one(path, pos_arr=pos_arr):
+            reader = StripeReader(path, verify=store._verify_enabled())
+            # chunk index per live position; read ONLY those chunks
+            bounds = np.cumsum(np.asarray(reader.footer["chunk_rows"]))
+            chunk_of = np.searchsorted(bounds, pos_arr, side="right")
+            starts = np.concatenate([[0], bounds[:-1]])
+            sel = sorted(set(int(c) for c in chunk_of))
+            # stripe position → position within the concatenated read
+            offset_of = {}
+            acc = 0
+            for ci in sel:
+                offset_of[ci] = acc - int(starts[ci])
+                acc += int(bounds[ci] - starts[ci])
+            present = [storage_of[c] for c in columns
+                       if storage_of[c] in reader._by_name]
+            v, m = ({}, {}) if not present else \
+                reader.read(present, chunks=sel)[:2]
+            return v, m, chunk_of, offset_of
+
+        v, m, chunk_of, offset_of = store.verified_read(
+            table, shard_id, fname, read_one)
         local = pos_arr + np.asarray([offset_of[int(c)] for c in chunk_of],
                                      dtype=np.int64)
         for ri in np.unique(req_ids):

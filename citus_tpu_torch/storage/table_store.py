@@ -25,9 +25,10 @@ one flip (`apply_dml`), every flip journalled to the change feed
 (cdc/feed.py), fresh stripes copied to every other placement's replica
 dir before the flip (`_mirror_records`), and the named fault seams of
 utils/faultinjection.py.  An open transaction's staged records and
-masks (`overlay`, transaction/manager.py) fold into every read.  Reads
-come from the primary shard directory; the replica-failover read
-(`verified_read`) comes with the replication slice.
+masks (`overlay`, transaction/manager.py) fold into every read.  Every
+stripe read goes through `verified_read`: the routing placement's copy,
+and on a CorruptStripe another copy that verifies, with the damaged
+copy healed in place (read-repair).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import numpy as np
 
 from ..catalog import Catalog
 from ..cdc import ChangeLog
-from ..errors import StorageError
+from ..errors import CorruptStripe, StorageError
 from ..utils import io as dio
 from ..utils.faultinjection import fault_point
 from . import integrity
@@ -482,6 +483,90 @@ class TableStore:
                     out.append(p)
         return out
 
+    def _placement_of_copy(self, shard_id: int, path: str):
+        """The placement whose physical copy `path` is (suspect-marking
+        attribution for corrupt copies)."""
+        base = os.path.basename(os.path.dirname(path))
+        if base.startswith("replica_"):
+            node_id = int(base[len("replica_"):].split("__", 1)[0])
+            for p in self.catalog.all_shard_placements(shard_id):
+                if p.node_id == node_id:
+                    return p
+            return None
+        return self._primary_owner(shard_id)
+
+    def _maybe_bitflip(self, path: str) -> None:
+        """`storage.stripe_bitflip` seam: an armed injection corrupts
+        one byte of the file about to be read and lets the read proceed
+        — silent bit rot the CRC path must catch (detect + repair, or a
+        clean CorruptStripe, never wrong rows)."""
+        from ..utils.faultinjection import InjectedFault
+
+        try:
+            fault_point("storage.stripe_bitflip")
+        except InjectedFault:
+            try:
+                integrity.flip_one_bit(path)
+            except (OSError, CorruptStripe):
+                pass  # too small or unwritable: nothing to corrupt
+
+    def verified_read(self, table: str, shard_id: int, fname: str,
+                      reader_fn):
+        """Run `reader_fn(path)` against the routing placement's copy
+        with end-to-end corruption handling: a CorruptStripe from one
+        copy marks its placement suspect, the read answers from another
+        copy that fully verifies, and the damaged copy is healed in
+        place from the verified bytes (best effort: a failed heal leaves
+        the placement suspect for the scrubber).  Only when every copy
+        is damaged does CorruptStripe propagate — a clean error, never
+        wrong rows.  Healing matters beyond latency: replication factor
+        2 tolerates one dead copy at a time, so a corrupt copy left until
+        the next scrub plus a flip on the survivor would lose data."""
+        path = self.stripe_read_path(table, shard_id, fname)
+        self._maybe_bitflip(path)
+        verify = self._verify_enabled()
+        try:
+            result = reader_fn(path)
+            if verify:
+                integrity.note("stripes_verified")
+            return result
+        except CorruptStripe as first:
+            integrity.note("corruption_detected")
+            bad = self._placement_of_copy(shard_id, path)
+            if bad is not None:
+                self.catalog.mark_placement_suspect(bad.placement_id)
+            for alt in self._copy_paths(table, shard_id, fname):
+                if alt == path:
+                    continue
+                try:
+                    integrity.verify_stripe_file(alt)
+                    result = reader_fn(alt)
+                except CorruptStripe:
+                    integrity.note("corruption_detected")
+                    p = self._placement_of_copy(shard_id, alt)
+                    if p is not None:
+                        self.catalog.mark_placement_suspect(
+                            p.placement_id)
+                    continue
+                integrity.note("read_repairs")
+                self._heal_copy(path, alt, bad)
+                return result
+            raise first
+
+    def _heal_copy(self, dst: str, src: str, bad_placement) -> None:
+        """Rewrite a corrupt copy from verified bytes at read time; on
+        success the placement is trusted again.  Failures leave it
+        suspect — the scrubber's quarantine + re-replication pass is
+        the heavier fallback for corruption found at rest."""
+        try:
+            dio.copy_file_durable(src, dst)
+            integrity.verify_stripe_file(dst)
+        except (OSError, CorruptStripe):
+            return
+        if bad_placement is not None:
+            self.catalog.clear_placement_suspect(
+                bad_placement.placement_id)
+
     def commit_pending(self, table: str,
                        pending: list[tuple[int, dict]]) -> None:
         """Atomically make a batch of stripes visible: one manifest write.
@@ -632,11 +717,16 @@ class TableStore:
         columns = columns or meta.schema.names
         storage_of = {c: self.storage_column_name(table, c)
                       for c in columns}
-        reader = StripeReader(self.stripe_read_path(table, shard_id, fname),
-                              verify=self._verify_enabled())
-        present = [c for c in columns
-                   if storage_of[c] in reader._by_name]
-        v, m, n = reader.read([storage_of[c] for c in present])
+        verify = self._verify_enabled()
+
+        def read_one(path):
+            reader = StripeReader(path, verify=verify)
+            present = [c for c in columns
+                       if storage_of[c] in reader._by_name]
+            return present, reader.read([storage_of[c] for c in present])
+
+        present, (v, m, n) = self.verified_read(table, shard_id, fname,
+                                                read_one)
         vals = {c: v[storage_of[c]] for c in present}
         mask = {c: m[storage_of[c]] for c in present}
         for c in columns:
@@ -754,22 +844,29 @@ class TableStore:
         verify = self._verify_enabled()
         for rec in records:
             dmask = self.effective_delete_mask(table, shard_id, rec)
-            path = self.stripe_read_path(table, shard_id, rec["file"])
-            reader = StripeReader(path, verify=verify)
-            # columns added after this stripe was written read as NULL
-            present = [storage_of[c] for c in columns
-                       if storage_of[c] in reader._by_name]
-            missing = [c for c in columns
-                       if storage_of[c] not in reader._by_name]
-            if present or not missing:
-                # a stripe with deletions reads whole (positions must
-                # align with the bitmap)
-                v, m, n = reader.read(
-                    present, None if dmask is not None else chunk_filter)
-                v = {requested_of[s]: a for s, a in v.items()}
-                m = {requested_of[s]: a for s, a in m.items()}
-            else:
-                v, m, n = {}, {}, reader.row_count
+
+            def read_one(path, dmask=dmask):
+                reader = StripeReader(path, verify=verify)
+                # columns added after this stripe was written read as
+                # NULL
+                present = [storage_of[c] for c in columns
+                           if storage_of[c] in reader._by_name]
+                missing = [c for c in columns
+                           if storage_of[c] not in reader._by_name]
+                if present or not missing:
+                    # a stripe with deletions reads whole (positions
+                    # must align with the bitmap)
+                    v, m, n = reader.read(
+                        present,
+                        None if dmask is not None else chunk_filter)
+                    v = {requested_of[s]: a for s, a in v.items()}
+                    m = {requested_of[s]: a for s, a in m.items()}
+                else:
+                    v, m, n = {}, {}, reader.row_count
+                return v, m, n, missing
+
+            v, m, n, missing = self.verified_read(table, shard_id,
+                                                  rec["file"], read_one)
             for c in missing:
                 dt = meta.schema.column(c).dtype.numpy_dtype
                 v[c] = np.zeros(n, dtype=dt)

@@ -49,6 +49,11 @@ FAULT_POINTS: dict[str, str] = {
     "store.append_stripe": "storage/table_store.py — shard stripe write",
     "store.apply_dml": "storage/table_store.py — DML manifest flip",
     "store.read_shard": "storage/table_store.py — shard stripe read",
+    "storage.stripe_torn_write":
+        "storage/format.py — stripe streamed, not yet renamed in",
+    "storage.stripe_bitflip":
+        "storage/table_store.py — one flipped bit in the stripe about "
+        "to be read (verified_read)",
     "storage.manifest_flip":
         "storage/table_store.py — manifest visibility flip",
     "executor.overflow_retry": "executor/runner.py — capacity regrow",
@@ -67,6 +72,10 @@ FAULT_POINTS: dict[str, str] = {
     "txn.commit_record": "transaction/manager.py — prepared, no record",
     "txn.apply": "transaction/manager.py — record durable, not applied",
     "cdc.append": "cdc/feed.py — change-journal append",
+    "operations.shard_move": "operations/shard_transfer.py — mid-move",
+    "operations.shard_split":
+        "operations/shard_split.py — children written, catalog not "
+        "committed",
     "wlm.admit": "wlm/manager.py — admission gate entry",
     "serving.batch_dispatch":
         "serving/batcher.py — one coalesced point-lookup batch",

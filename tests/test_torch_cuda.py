@@ -646,3 +646,134 @@ def test_result_cache_hit_launches_no_kernel(tmp_path, cuda):
     counters = gpu.stats.counters.snapshot()
     assert counters["serving_cache_hits_total"] == 1
     assert counters["serving_cache_misses_total"] == 2
+
+
+def test_split_on_a_warm_cuda_session(tmp_path, cuda):
+    """Phase 14's O1 at sf 0.05: a cuda session warm on Q1, Q3 and the
+    high-cardinality GROUP BY (device scan mode) answers them again
+    after another session splits lineitem's first shard (and orders'
+    with it), as does a fresh one: equal to the port's CPU session, no
+    retries, K1, K2, K3 and K5 launched; the parents' directories are
+    gone and the ledger holds no transient bytes."""
+    import gc
+    import os
+
+    import citus_tpu_torch
+    import citus_tpu_torch.ops.join as pjoin
+    from citus_tpu_torch.ingest import tpch
+
+    data_dir = str(tmp_path / "d")
+    cpu = citus_tpu_torch.connect(data_dir, device="cpu",
+                                  serving_result_cache_bytes=0)
+    tpch.load_into_session(cpu, sf=0.05, seed=7,
+                           tables={"customer", "orders", "lineitem"})
+    queries = [tpch.QUERIES["Q1"], tpch.QUERIES["Q3"],
+               "select l_orderkey, count(*), sum(l_quantity) from lineitem "
+               "group by l_orderkey"]
+    want = [cpu.execute(q).rows() for q in queries]
+    saved = pjoin.PROBE_BUCKET_MIN_EXTENT
+    pjoin.PROBE_BUCKET_MIN_EXTENT = 1 << 10
+    try:
+        warm = citus_tpu_torch.connect(data_dir, scan_pipeline="device",
+                                       serving_result_cache_bytes=0)
+        for _ in range(2):
+            for q, w in zip(queries, want):
+                _close_rows(warm.execute(q).rows(), w)
+        shard = cpu.catalog.table_shards("lineitem")[0]
+        parent = os.path.join(data_dir, "tables", "lineitem",
+                              f"shard_{shard.shard_id}")
+        mid = (shard.min_value + shard.max_value) // 2
+        cpu.execute(f"select citus_split_shard_by_split_points("
+                    f"{shard.shard_id}, '{mid}')")
+        assert not os.path.isdir(parent)
+        fresh = citus_tpu_torch.connect(data_dir, scan_pipeline="device",
+                                        serving_result_cache_bytes=0)
+        hk.reset_launch_counts()
+        for sess in (warm, fresh):
+            for q, w in zip(queries, want):
+                r = sess.execute(q)
+                assert r.retries == 0, q
+                _close_rows(r.rows(), w)
+            assert len(sess.catalog.table_shards("orders")) == 9
+    finally:
+        pjoin.PROBE_BUCKET_MIN_EXTENT = saved
+    for k in ("dense_grid_sum", "bucketed_probe", "bucketed_groupby_sums",
+              "dict_decode"):
+        assert hk.LAUNCHES[k] > 0, hk.LAUNCHES
+    for s in (warm, fresh, cpu):
+        s.close()
+    gc.collect()
+    assert warm.executor.accountant.transient_bytes() == 0
+
+
+def test_read_repair_in_device_scan_mode(tmp_path, cuda):
+    """Phase 14's O3 at sf 0.05: a replication-factor-2 copy of the
+    nullable columns, the bitflip fault point armed once, the nullable
+    aggregate in device scan mode: the CPU session's answer, one read
+    repair, every copy verifying after, K4 and K5 launched, and EXPLAIN
+    ANALYZE's Integrity line counting the repair.  A flip in a
+    factor-1 table gives a clean CorruptStripe, with no transient
+    ledger bytes left."""
+    import gc
+
+    import citus_tpu_torch
+    from citus_tpu_torch.errors import CorruptStripe
+    from citus_tpu_torch.storage import integrity
+    from citus_tpu_torch.utils.faultinjection import inject
+
+    data_dir = str(tmp_path / "d")
+    cpu = citus_tpu_torch.connect(data_dir, device="cpu",
+                                  serving_result_cache_bytes=0)
+    cpu.execute("select citus_add_node('extra:1')")
+    cpu.execute("set shard_replication_factor = 2")
+    cpu.execute("create table r2 (d date, flag text, disc double "
+                "precision, tax double precision)")
+    cpu.create_distributed_table("r2", "d", shard_count=8)
+    cpu.execute("set shard_replication_factor = 1")
+    cpu.execute("create table r1 (d date, flag text, disc double "
+                "precision, tax double precision)")
+    cpu.create_distributed_table("r1", "d", shard_count=8)
+    from citus_tpu_torch.ingest.copy_from import _ingest_batch
+
+    rng = np.random.default_rng(5)
+    n = 300_000
+    cols = [rng.integers(8000, 10500, n).astype(np.int32),
+            [("A", "N", "R")[i] for i in rng.integers(0, 3, n)],
+            [None if x < 0.1 else round(x, 2) for x in rng.random(n)],
+            [None if x < 0.1 else round(x / 10, 2) for x in rng.random(n)]]
+    for t in ("r1", "r2"):
+        _ingest_batch(cpu, t, ["d", "flag", "disc", "tax"], cols,
+                      pre_typed=True)
+    # every column read, so the flipped bit lies in a chunk the
+    # statement verifies
+    sql = ("select flag, count(*), count(disc), sum(disc), sum(tax), "
+           "min(d) from {} group by flag order by 1")
+    want = cpu.execute(sql.format("r2")).rows()
+    gpu = citus_tpu_torch.connect(data_dir, scan_pipeline="device",
+                                  serving_result_cache_bytes=0,
+                                  max_statement_retries=0)
+    hk.reset_launch_counts()
+    with inject("storage.stripe_bitflip", require_fired=True):
+        got = gpu.execute(sql.format("r2")).rows()
+    _close_rows(got, want)
+    counters = gpu.stats.counters.snapshot()
+    assert counters["read_repairs_total"] == 1
+    for s in gpu.catalog.table_shards("r2"):
+        for rec in gpu.store.manifest("r2")["shards"][str(s.shard_id)]:
+            for p in gpu.store._copy_paths("r2", s.shard_id, rec["file"]):
+                integrity.verify_stripe_file(p)
+    assert hk.LAUNCHES["bit_unpack"] > 0 and hk.LAUNCHES["dict_decode"] > 0
+    fresh = citus_tpu_torch.connect(data_dir, scan_pipeline="device",
+                                    serving_result_cache_bytes=0)
+    with inject("storage.stripe_bitflip", require_fired=True):
+        lines = [r[0] for r in fresh.execute(
+            "explain analyze " + sql.format("r2")).rows()]
+    assert any(x.startswith("Integrity:") and "read repairs=1" in x
+               for x in lines), lines
+    with inject("storage.stripe_bitflip", require_fired=True):
+        with pytest.raises(CorruptStripe):
+            fresh.execute(sql.format("r1"))
+    for s in (gpu, fresh, cpu):
+        s.close()
+    gc.collect()
+    assert gpu.executor.accountant.transient_bytes() == 0

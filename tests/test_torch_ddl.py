@@ -284,12 +284,11 @@ def test_catalog_udfs_match_jax(pair):
 # the stats and health UDFs are answered since the observability slice
 # (tests/test_torch_stats.py), the workload, serving and replication
 # UDFs since the concurrent-statements slice (tests/test_torch_wlm.py,
-# _serving.py, _replication.py); these still wait for their modules
-UNPORTED = ["citus_drain_device", "rebalance_table_shards",
-            "citus_job_list", "citus_move_shard_placement",
-            "citus_create_restore_point", "citus_rebalance_mesh",
-            "citus_check_cluster", "citus_cleanup_orphaned_resources",
-            "citus_job_wait", "citus_stat_mesh"]
+# _serving.py, _replication.py), the shard operations and job UDFs since
+# the operations slice (tests/test_torch_operations.py,
+# _background.py, _integrity.py); these still wait for their module
+UNPORTED = ["citus_drain_device", "citus_rebalance_mesh",
+            "citus_stat_mesh"]
 
 
 def test_every_jax_udf_is_answered_or_named():
@@ -302,7 +301,7 @@ def test_every_jax_udf_is_answered_or_named():
     named = set(psession._UNPORTED_UDFS)
     assert not answered & named
     assert answered | named == set(jsession._UDFS)
-    assert len(answered) == 28
+    assert len(answered) == 41
 
 
 @pytest.mark.parametrize("udf", UNPORTED)

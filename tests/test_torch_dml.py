@@ -353,14 +353,12 @@ def test_dml_errors_match_jax(pair):
 
 # what this slice leaves for later: each refused naming its ROADMAP item
 # (item 8's UDFs and EXPLAIN ANALYZE are answered since the
-# observability slice, item 11's since the concurrent-statements slice)
+# observability slice, item 11's since the concurrent-statements slice,
+# item 10's since the operations slice)
 LATER = {
     "select citus_stat_mesh()": "queue A item 9",
     "select citus_drain_device()": "queue A item 9",
-    "select citus_job_list()": "queue A item 10",
     "select citus_rebalance_mesh()": "queue A item 9",
-    "select citus_job_wait()": "queue A item 10",
-    "select citus_create_restore_point()": "queue A item 10",
 }
 
 

@@ -54,10 +54,6 @@ torch.set_num_threads(1)
 # the module bumping them in the JAX package
 NOT_BUMPED = {
     **dict.fromkeys(
-        ("stripes_verified_total", "corruption_detected_total",
-         "read_repairs_total", "scrub_runs_total", "scrub_repairs_total"),
-        10),
-    **dict.fromkeys(
         ("exec_cache_hits_total", "exec_cache_misses_total",
          "exec_cache_rejects_total", "compiles_deduped_total",
          "warmup_compiles_total"), 7),
@@ -259,12 +255,7 @@ def test_statements_and_tenants_match_jax(ran):
     for q, (calls, rows) in pst.items():
         jcalls, jrows = jst[q]
         assert calls == jcalls, q
-        if q.startswith("explain analyze"):
-            # the JAX package's output has its unported module's line
-            # (Integrity) on top
-            assert jrows - rows == 1, q
-        else:
-            assert rows == jrows, q
+        assert rows == jrows, q
     assert pten == jten
     assert ("orders", "7", 1) in pten and ("acc", "1", 1) in pten
 

@@ -56,8 +56,8 @@ STREAM_ON = "set max_feed_bytes_per_device = 1; set stream_batch_rows = 512"
 GROUPED = ("select l_returnflag, count(*), sum(l_quantity) from lineitem "
            "group by l_returnflag")
 # EXPLAIN ANALYZE tags of modules the port does not have yet, by
-# ROADMAP queue A item
-UNPORTED_TAGS = {"Integrity": 10}
+# ROADMAP queue A item (none since the operations slice)
+UNPORTED_TAGS: dict[str, int] = {}
 SHARED_LINES = ("Rows", "Chunks Skipped", "Device Rows Scanned",
                 "Streamed Execution")
 
