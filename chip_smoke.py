@@ -38,9 +38,9 @@ Phases, each fatal on failure (no result line is printed then):
    statements in a fresh session on the card (a cold scan with device
    decode), then the best of --reps warm runs; per statement the walls,
    retries, rows, each kernel's launches and the rows and host seconds
-   of each intermediate result it stored.  Every answer is held against
-   the port's own CPU session on the same data_dir (float32 on both
-   sides), and Q4, Q13, Q18 and Q21 against numpy too.  Fails when an
+   of each intermediate result it stored.  Q4, Q13, Q18 and Q21 are held
+   against numpy, the other 18 against the port's own CPU session on the
+   same data_dir (float32 on both sides).  Fails when an
    answer differs, when the dense-grid sum, the bucketed group-by sums
    or the dictionary decode never launch on the 14 statements that
    plan recursively, or when an `__intermediate_` temp outlives its
@@ -1064,6 +1064,8 @@ def tpch22(ct, hk, data_dir, data, reps, ident) -> dict:
     cpu = rerun_connect(ct, data_dir, device="cpu", compute_dtype="float32")
     differ = []
     for q in names:
+        if q in want_np:
+            continue  # held against numpy above
         t0 = time.perf_counter()
         sql = tpch.QUERIES[q]
         want = cpu.execute(sql).rows()
@@ -2191,10 +2193,11 @@ def trace_figures(doc) -> dict:
     return out
 
 
-def host_syncs(sess, sql) -> dict:
+def host_syncs(sess, sql, within=None) -> dict:
     """Run `sql` warm with CUDA's sync debug mode on: each synchronizing
     call the statement made, by the innermost call site in the port's
-    package, with counts."""
+    package, with counts.  With `within` ((file name, function) pairs),
+    only the calls made inside one of those functions."""
     import collections
     import traceback
     import warnings
@@ -2207,8 +2210,12 @@ def host_syncs(sess, sql) -> dict:
     def show(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" not in str(message):
             return
-        frames = [f for f in traceback.extract_stack()
-                  if f.filename.startswith(pkg)]
+        stack = traceback.extract_stack()
+        if within is not None and not any(
+                (os.path.basename(f.filename), f.name) in within
+                for f in stack):
+            return
+        frames = [f for f in stack if f.filename.startswith(pkg)]
         f = frames[-1] if frames else None
         where = (f"{os.path.relpath(f.filename, HERE)}:{f.lineno}" if f
                  else f"{os.path.basename(filename)}:{lineno}")
@@ -3158,6 +3165,306 @@ def phase14(ct, hk, data_dir, data, li, queries, checks, want,
     return launched
 
 
+# -- phase 15: the compiled form ---------------------------------------------
+
+PHASE15_BUDGET_S = 150.0
+COMPILED_REPS = 6     # warm runs per arm, eager and replayed in turns
+FANIN_SESSIONS = 8
+ORDERS_SQL = ("select o_orderpriority, count(*), sum(o_totalprice) "
+              "from orders group by o_orderpriority order by 1")
+NEW_ORDER = ("insert into orders values (8000001, 1, 'O', 1234.5, "
+             "date '1998-01-01', '1-URGENT', 'Clerk#000000001', 0, "
+             "'phase15')")
+# the device dispatch of a resident run: the eager program or the replay
+DISPATCH = {("compiler.py", "_dispatch"), ("graphs.py", "replay")}
+# what a replayed resident query launches: K4 and K5 decode in the cold
+# feed build, which a warm run skips
+REPLAYED_KERNELS = ("dense_grid_sum", "bucketed_probe",
+                    "bucketed_groupby_sums")
+# a fresh process on the data_dir: connect, then the first statement
+FRESH_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+t0 = time.perf_counter()
+import torch
+import citus_tpu_torch as ct
+from citus_tpu_torch.stats import counters as sc
+sess = ct.connect(sys.argv[2], serving_result_cache_bytes=0,
+                  warmup_budget_ms=int(sys.argv[3]),
+                  warmup_top_shapes=4096)
+t1 = time.perf_counter()
+res = sess.execute(sys.argv[4])
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+snap = sess.stats.counters.snapshot()
+out = {"import_connect_s": t1 - t0, "first_statement_s": t2 - t1,
+       "retries": res.retries, "rows": res.row_count,
+       "dispatch": sess.executor.last_dispatch()[0],
+       "warmup_armed": snap.get(sc.WARMUP_COMPILES_TOTAL, 0),
+       "exec_cache_hits": snap.get(sc.EXEC_CACHE_HITS_TOTAL, 0)}
+sess.close()
+print(json.dumps(out))
+"""
+
+
+def numpy_orders(orders, extra=()) -> list:
+    """ORDERS_SQL over the generated orders plus `extra` (priority,
+    price) rows."""
+    import numpy as np
+
+    pr = np.concatenate([orders["o_orderpriority"].astype(str),
+                         np.asarray([p for p, _ in extra], dtype=str)])
+    price = np.concatenate([orders["o_totalprice"].astype(np.float64),
+                            np.asarray([x for _, x in extra],
+                                       dtype=np.float64)])
+    keys, inv = np.unique(pr, return_inverse=True)
+    cnt = np.bincount(inv, minlength=len(keys))
+    tot = np.bincount(inv, weights=price, minlength=len(keys))
+    return [(str(k), int(c), float(t)) for k, c, t in zip(keys, cnt, tot)]
+
+
+class eager_arm:
+    """Inside the block `sess` runs every resident plan through the
+    compiler's own eager dispatch: its captured graphs stay as they
+    are and are not replayed."""
+
+    def __init__(self, sess):
+        self.ex = sess.executor
+
+    def __enter__(self):
+        self.ex._graph_for = lambda *a, **k: None
+        return self
+
+    def __exit__(self, *exc):
+        del self.ex._graph_for
+        return False
+
+
+def phase15(ct, hk, data_dir, data, queries, checks, want,
+            ident) -> tuple[dict, dict]:
+    """Phase 15 (the compiled form).  Returns each kernel's launches
+    over the phase and under the replays of step G1."""
+    import gc
+    import threading
+
+    import torch
+
+    from citus_tpu_torch.executor.execcache import exec_cache_for
+    from citus_tpu_torch.executor.hbm import accountant_for
+    from citus_tpu_torch.stats import counters as sc
+
+    t_phase = time.perf_counter()
+    failures: list = []
+    acc = accountant_for(data_dir)
+    ec = exec_cache_for(data_dir)
+    # graphs of earlier phases' sessions go first: the phase's own
+    # captures are then all the ledger's `graph` bytes
+    acc.release_graphs()
+    gc.collect()
+    graph0 = acc.live_bytes("graph")
+    hk.reset_launch_counts()
+
+    def launches_of(fn):
+        before = dict(hk.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: hk.LAUNCHES[n] - before[n] for n in hk.KERNELS}
+
+    def wall(sess, sql):
+        t0 = time.perf_counter()
+        res = sess.execute(sql)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
+    # -- G1: eager against replayed, per main-path query ---------------------
+    sess = rerun_connect(ct, data_dir)
+    replayed_launches = {n: 0 for n in hk.KERNELS}
+    for q, sql in queries.items():
+        ordered = "order by" in sql.lower()
+        first, cold = launches_of(lambda: sess.execute(sql))
+        checks[q](first, want[q])
+        how_first = sess.executor.last_dispatch()[0]
+        res = sess.execute(sql)  # captures now, if the first run did not
+        rep, rl = launches_of(lambda: sess.execute(sql))
+        how = sess.executor.last_dispatch()
+        with eager_arm(sess):
+            eag = sess.execute(sql)
+            how_eager = sess.executor.last_dispatch()[0]
+        checks[q](rep, want[q])
+        checks[q](eag, want[q])
+        diff = same_rows(rep.rows(), eag.rows(), ordered)
+        if diff:
+            failures.append(f"G1 {q}: replayed against eager: {diff}")
+        if how[0] != "replayed" or how_eager != "eager":
+            failures.append(f"G1 {q}: dispatched {how} / {how_eager}, not "
+                            "replayed / eager")
+        for n in REPLAYED_KERNELS:
+            replayed_launches[n] += rl[n]
+        carried = [n for n, cq in CARRIER.items()
+                   if cq == q and n in REPLAYED_KERNELS]
+        for n in carried:
+            if rl[n] <= 0:
+                failures.append(f"G1 {q}: {n} not counted under replay")
+        best = {"eager": None, "replayed": None}
+        for i in range(COMPILED_REPS):
+            for arm in (("eager", "replayed") if i % 2 == 0
+                        else ("replayed", "eager")):
+                if arm == "eager":
+                    with eager_arm(sess):
+                        dt, _r = wall(sess, sql)
+                else:
+                    dt, _r = wall(sess, sql)
+                best[arm] = dt if best[arm] is None else min(best[arm], dt)
+        with eager_arm(sess):
+            prof_e = profile_query(sess, sql)
+            syn_e = host_syncs(sess, sql, within=DISPATCH)
+        prof_r = profile_query(sess, sql)
+        syn_r = host_syncs(sess, sql, within=DISPATCH)
+        if syn_r:
+            failures.append(f"G1 {q}: the replayed dispatch synchronizes "
+                            f"at {syn_r}")
+        log(f"phase15 G1 {q}: first run dispatched {how_first} (launches "
+            f"{cold}), warm best of {COMPILED_REPS} eager "
+            f"{best['eager'] * 1e3!r} ms, replayed "
+            f"{best['replayed'] * 1e3!r} ms; idle share eager "
+            f"{prof_e['device_idle_share']!r} (busy "
+            f"{prof_e['device_busy_ms']!r} of {prof_e['wall_ms']!r} ms), "
+            f"replayed {prof_r['device_idle_share']!r} (busy "
+            f"{prof_r['device_busy_ms']!r} of {prof_r['wall_ms']!r} ms); "
+            f"dispatch host syncs eager {syn_e}, replayed {syn_r}; "
+            f"launches under one replay {rl}; rows equal to eager and "
+            f"numpy ({ident})")
+    transient = acc.transient_bytes()
+    if transient:
+        failures.append(f"G1: {transient} transient ledger bytes left")
+
+    # -- G2: eight sessions on one cold key ----------------------------------
+    fan = [rerun_connect(ct, data_dir) for _ in range(FANIN_SESSIONS)]
+    want_o = numpy_orders(data["orders"])
+    compiles0 = ec.snapshot()["compiles_total"]
+    rows_seen: list = []
+    errors: list = []
+    start = threading.Barrier(FANIN_SESSIONS)
+    mu = threading.Lock()
+
+    def fan_in(s):
+        try:
+            for _ in range(3):
+                start.wait()
+                rows = s.execute(ORDERS_SQL).rows()
+                with mu:
+                    rows_seen.append(rows)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+            start.abort()
+
+    threads = [threading.Thread(target=fan_in, args=(s,)) for s in fan]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    fan_s = time.perf_counter() - t0
+    captures = ec.snapshot()["compiles_total"] - compiles0
+    deduped = sum(s.stats.counters.snapshot().get(
+        sc.COMPILES_DEDUPED_TOTAL, 0) for s in fan)
+    bad = [r for r in rows_seen if same_rows(r, want_o, True)]
+    if errors or bad or captures != 1 or deduped != FANIN_SESSIONS - 1:
+        failures.append(f"G2: {captures} captures, {deduped} deduped, "
+                        f"errors {errors}, {len(bad)} wrong answers")
+    log(f"phase15 G2: {FANIN_SESSIONS} sessions x 3 runs of one cold key "
+        f"in {fan_s!r} s: {captures} capture, compiles_deduped_total "
+        f"{deduped}, {len(rows_seen)} answers equal to numpy ({ident})")
+
+    # -- G3: an INSERT between two replays -----------------------------------
+    s = fan[0]
+    before_rows = s.execute(ORDERS_SQL).rows()
+    how_before = s.executor.last_dispatch()[0]
+    s.execute(NEW_ORDER)
+    # the new data version's feed keys run eager once, then capture
+    after_rows = s.execute(ORDERS_SQL).rows()
+    how_after = s.executor.last_dispatch()[0]
+    again_rows = s.execute(ORDERS_SQL).rows()
+    how_again = s.executor.last_dispatch()[0]
+    with eager_arm(s):
+        eager_rows = s.execute(ORDERS_SQL).rows()
+    want_new = numpy_orders(data["orders"], [("1-URGENT", 1234.5)])
+    diffs = [same_rows(after_rows, eager_rows, True),
+             same_rows(after_rows, want_new, True),
+             same_rows(again_rows, want_new, True)]
+    if how_before != "replayed" or how_after != "eager" or \
+            how_again != "captured" or any(diffs) or \
+            not same_rows(before_rows, after_rows, True):
+        failures.append(f"G3: before {how_before}, after {how_after} then "
+                        f"{how_again}, diffs {diffs}")
+    log(f"phase15 G3: replayed before the INSERT, {how_after} and then "
+        f"{how_again} after it; '1-URGENT' count {before_rows[0][1]} -> "
+        f"{after_rows[0][1]}, equal to the eager run and to numpy")
+    for f in fan:
+        f.close()
+    del fan, s
+
+    # -- G4: the OOM ladder's first rung releases the graph pools -------------
+    gc.collect()
+    live = acc.live_bytes("graph")
+    n_graphs = acc.graph_count()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    freed = sess.executor._evict_for_oom()
+    gc.collect()
+    torch.cuda.synchronize()
+    after = acc.live_bytes("graph")
+    reserved_after = torch.cuda.memory_reserved()
+    if not (live > graph0 and n_graphs and after == graph0
+            and acc.graph_count() == 0 and freed >= n_graphs):
+        failures.append(f"G4: graph bytes {graph0} -> {live} -> {after}, "
+                        f"{n_graphs} graphs, {acc.graph_count()} left")
+    # Q1 re-runs right; Q3 converges its key again: G3's order moved
+    # o_orderkey's range, which the join's fingerprint holds, and G5's
+    # fresh processes run this key
+    for q in ("Q1", "Q3"):
+        again, _l = launches_of(lambda: sess.execute(queries[q]))
+        checks[q](again, want[q])
+    log(f"phase15 G4: {n_graphs} graphs holding {live} bytes (ledger "
+        f"'graph', {graph0} before the phase) released by the ladder's "
+        f"first rung to {after}; allocator reserve {reserved} -> "
+        f"{reserved_after} bytes; Q1 and Q3 then re-run right")
+    sess.close()
+    del sess
+    gc.collect()
+
+    # -- G5: a fresh process, with and without the warmup --------------------
+    fresh = {}
+    for arm, budget in (("warmup", 60_000), ("no warmup", 0)):
+        out = subprocess.run(
+            [sys.executable, "-c", FRESH_CHILD, HERE, data_dir,
+             str(budget), queries["Q3"]],
+            capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"G5 {arm}: exit {out.returncode}\n"
+                                 f"{out.stderr[-3000:]}")
+        fresh[arm] = json.loads(out.stdout.strip().splitlines()[-1])
+        log(f"phase15 G5 {arm}: {fresh[arm]} ({ident})")
+    # a persisted key: no capacity retry, and captured at its first run
+    # (armed by the warmup, or resolved from the cache without it)
+    if any(f["retries"] or f["dispatch"] != "captured"
+           for f in fresh.values()) or \
+            not fresh["warmup"]["warmup_armed"] or \
+            fresh["warmup"]["exec_cache_hits"] or \
+            fresh["no warmup"]["exec_cache_hits"] != 1:
+        failures.append(f"G5: {fresh}")
+
+    wall_s = time.perf_counter() - t_phase
+    launched = dict(hk.LAUNCHES)
+    log(f"phase15: {wall_s!r} s (budget {PHASE15_BUDGET_S} s), launches "
+        f"{launched}, under G1's replays {replayed_launches}")
+    if wall_s > PHASE15_BUDGET_S:
+        failures.append(f"phase 15 took {wall_s!r} s")
+    if failures:
+        raise AssertionError("phase 15: " + "; ".join(failures))
+    return launched, replayed_launches
+
+
 def _spans_named(span, name):
     if span["name"] == name:
         yield span
@@ -3325,6 +3632,11 @@ def main() -> int:
         launched14 = phase14(ct, hk, os.path.join(tmp, "data"), data,
                              li_now, queries, checks, want14, ident)
         log(f"phase 14: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        launched15, replayed15 = phase15(ct, hk, os.path.join(tmp, "data"),
+                                         data, queries, checks, want14,
+                                         ident)
+        log(f"phase 15: {time.perf_counter() - t0:.3f} s")
         for rep in reports:
             rep["launches_tpch22"] = launched[rep["name"]]
             rep["launches_phase9"] = launched9[rep["name"]]
@@ -3333,6 +3645,8 @@ def main() -> int:
             rep["launches_phase12"] = launched12[rep["name"]]
             rep["launches_phase13"] = launched13[rep["name"]]
             rep["launches_phase14"] = launched14[rep["name"]]
+            rep["launches_phase15"] = launched15[rep["name"]]
+            rep["launches_replayed"] = replayed15[rep["name"]]
 
         log(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s")
         print(json.dumps({"kernels": reports}), flush=True)

@@ -114,6 +114,39 @@ _register(ConfigVar(
     "scans still use the device path.",
     int, min_value=0, max_value=1 << 24))
 _register(ConfigVar(
+    "exec_cache_enabled", True,
+    "Persistent compiled-plan cache + single-flight capture dedup "
+    "(executor/execcache.py): each converged plan key lands as a "
+    "checksummed JSON entry (the plan-cache key, its converged "
+    "capacities, unpack metadata) in <data_dir>/exec_cache/ through "
+    "the durable-io seam, a fresh process resolves a plan-cache miss "
+    "from it and captures its CUDA graph at once, and N sessions "
+    "racing a cold key produce ONE capture (followers wait under "
+    "their own statement_timeout_ms/cancel budget).  Corrupt/torn/"
+    "version-skewed entries are detected (CRC + environment stamp) "
+    "and resolve cleanly as a reject.  No reference GUC — the "
+    "analogue is an inference server's model-artifact store "
+    "(PystachIO, PAPERS.md).",
+    bool))
+_register(ConfigVar(
+    "warmup_budget_ms", 0,
+    "Warm-before-admit budget: a fresh session loads the kernels, "
+    "makes the CUDA context and arms the persisted cache's hottest "
+    "shapes (warmup_top_shapes) while the workload manager holds "
+    "non-exempt admissions, for at most this long — then the hold "
+    "auto-expires and the remainder resolves lazily (graceful "
+    "degradation, never an indefinite block).  0 disables the hold "
+    "(entries still resolve lazily on demand).  No reference GUC — "
+    "the analogue is a serving replica reporting ready only after "
+    "model load.",
+    int, min_value=0, max_value=600_000))
+_register(ConfigVar(
+    "warmup_top_shapes", 8,
+    "How many of the persisted cache's hottest entries (by hit "
+    "count, then recency) the warm-before-admit phase arms (see "
+    "warmup_budget_ms).",
+    int, min_value=1, max_value=4096))
+_register(ConfigVar(
     "max_cached_plans", 256,
     "Plan-cache entries; a structurally repeated query reuses its "
     "PlanCompiler (ref: planner/local_plan_cache.c:1-60).",

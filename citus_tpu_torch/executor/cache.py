@@ -20,6 +20,12 @@ queries (executor/adaptive_executor.c:962).  The port's analogues:
 Both caches are LRU-bounded (plans by entry count, feeds by device bytes).
 The feed cache is also an evictable of the data_dir's accountant: the
 OOM ladder's first rung evicts it coldest first (`evict_coldest`).
+
+The plan cache also holds each key's captured CUDA graph
+(executor/graphs.py).  A graph reads the feeds it was captured over, so
+the feed cache reports every entry it drops (`on_drop`): the executor
+releases the graphs reading those tensors, and a dropped graph reads as
+absent here.
 """
 
 from __future__ import annotations
@@ -138,6 +144,9 @@ class PlanCache:
     def __init__(self, max_entries: int = 256):
         self.max_entries = max_entries
         self._entries: OrderedDict[tuple, object] = OrderedDict()
+        # key → the CapturedPlan its runs replay (live while the feeds
+        # it reads are served)
+        self._graphs: dict[tuple, object] = {}
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
@@ -159,11 +168,31 @@ class PlanCache:
             self._entries[key] = fn
             self._entries.move_to_end(key)
             while len(self._entries) > self.max_entries:
-                self._entries.popitem(last=False)
+                old, _ = self._entries.popitem(last=False)
+                self._graphs.pop(old, None)
+
+    def graph(self, key: tuple):
+        """The key's live captured graph, or None."""
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is not None and not g.live:
+                del self._graphs[key]
+                g = None
+            return g
+
+    def put_graph(self, key: tuple, graph) -> None:
+        with self._lock:
+            if key in self._entries:
+                self._graphs[key] = graph
+
+    def drop_graph(self, key: tuple) -> None:
+        with self._lock:
+            self._graphs.pop(key, None)
 
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
+            self._graphs.clear()
 
     def __len__(self):
         return len(self._entries)
@@ -192,8 +221,13 @@ class FeedCache:
     evicted entry's tensors drops them.  Entries hold no views of placed
     tensors, so the charge never outlives or undercounts the memory."""
 
-    def __init__(self, max_bytes: int = 4 << 30):
+    def __init__(self, max_bytes: int = 4 << 30, on_drop=None):
         self.max_bytes = max_bytes
+        # called, outside the lock, with the ids of the tensors of every
+        # entry this cache dropped (the executor releases the graphs
+        # that read them)
+        self.on_drop = on_drop
+        self._dropped: list[CachedFeed] = []
         self._entries: OrderedDict[tuple, CachedFeed] = OrderedDict()
         # per-table key index (key layout: (table, version, ...)):
         # every DML bumps the written table's data version and calls
@@ -218,16 +252,33 @@ class FeedCache:
             return e
 
     def _pop_locked(self, key: tuple) -> None:
-        self._total_bytes -= self._entries.pop(key).nbytes
+        e = self._entries.pop(key)
+        self._total_bytes -= e.nbytes
+        if self.on_drop is not None:
+            self._dropped.append(e)
         keys = self._by_table.get(key[0])
         if keys is not None:
             keys.discard(key)
             if not keys:
                 del self._by_table[key[0]]
 
-    def put(self, key: tuple, feed: CachedFeed) -> None:
-        if self.max_bytes <= 0:
+    def _notify(self) -> None:
+        """Report the entries dropped since the last call (outside the
+        lock: a graph release takes the graph's own lock)."""
+        if self.on_drop is None:
             return
+        with self._lock:
+            dropped, self._dropped = self._dropped, []
+        if dropped:
+            self.on_drop(frozenset(
+                id(t) for e in dropped
+                for t in (*e.arrays.values(), *e.nulls.values(), e.valid)))
+
+    def put(self, key: tuple, feed: CachedFeed) -> bool:
+        """Cache `feed`; False when the cache holds nothing (a zero
+        byte budget)."""
+        if self.max_bytes <= 0:
+            return False
         with self._lock:
             if key in self._entries:
                 self._pop_locked(key)
@@ -237,6 +288,8 @@ class FeedCache:
             while self._total_bytes > self.max_bytes \
                     and len(self._entries) > 1:
                 self._pop_locked(next(iter(self._entries)))
+        self._notify()
+        return True
 
     def invalidate_table(self, table: str, keep_version: int | None = None
                          ) -> None:
@@ -251,6 +304,7 @@ class FeedCache:
             for k in stale:
                 self._pop_locked(k)
             self.invalidations += len(stale)
+        self._notify()
 
     def evict_coldest(self, target_bytes: int | None = None) -> int:
         """Evict entries coldest first (LRU order) until `target_bytes`
@@ -268,13 +322,16 @@ class FeedCache:
                 freed += self._entries[key].nbytes
                 self._pop_locked(key)
                 evicted += 1
-            return evicted
+        self._notify()
+        return evicted
 
     def clear(self) -> None:
         with self._lock:
-            self._entries.clear()
+            for key in list(self._entries):
+                self._pop_locked(key)
             self._by_table.clear()
             self._total_bytes = 0
+        self._notify()
 
     @property
     def total_bytes(self) -> int:

@@ -208,6 +208,17 @@ class PlanCompiler:
         # instance, and the plan cache hands one instance to every thread
         # of a session that runs the shape: runs take turns
         self._run_lock = threading.Lock()
+        # list constants uploaded once and kept (a CUDA graph captured
+        # later reads them), and a capture's `$n` parameter tensors
+        self._consts: dict = {}
+        self._params = None
+        # the feed keys of the last clean run at these capacities with
+        # nothing left to tighten (None: no such run yet): the runner
+        # captures the key's CUDA graph when the next run reads the same
+        # feed keys (executor/graphs.py); `armed` when the persisted cache
+        # already knew the key converged (its first run captures at once)
+        self.settled_feeds = None
+        self.armed = False
         if plan.n_devices != 1:
             raise ExecutionError("the port executes on one device")
         if plan.output_repart is not None:
@@ -215,20 +226,36 @@ class PlanCompiler:
                 "INSERT..SELECT device routing is not in this port yet")
 
     # ------------------------------------------------------------------
-    def run(self, plan: QueryPlan, feeds, caps: Capacities) -> tuple:
+    def run(self, plan: QueryPlan, feeds, caps: Capacities,
+            graph=None) -> tuple | None:
         """Execute against `feeds` (FeedSpec by scan-node id) with `caps`
         keyed by this plan's node ids: a cached instance serves every
         plan of its shape, and each statement plans anew.  Returns
         (packed [n_out, 1, cap] int64 numpy, counters [2 + n_stages]
         int64 numpy, out_meta, stage_keys): counters are [capacity
         overflow, dense_oob, *stage actuals] and stage_keys entries are
-        (walk_index, kind, width)."""
+        (walk_index, kind, width).  With `graph` (a CapturedPlan of this
+        key over these feeds) the dispatch is its replay; None when the
+        graph was released before it could replay."""
         from ..stats.tracing import (
             device_timeline,
             resolve_device_legs,
             trace_span,
         )
 
+        if graph is not None:
+            with self._run_lock, graph.lock:
+                if not graph.live:
+                    return None
+                with trace_span("mesh.dispatch", graph="replay") as sp, \
+                        device_timeline(sp, self.device):
+                    graph.replay(plan)
+                with trace_span("mesh.fetch"):
+                    packed = graph.packed.cpu().numpy()
+                    counters = graph.counters.cpu().numpy()
+            resolve_device_legs()
+            return (packed[:, None, :], counters, graph.out_meta,
+                    graph.stage_keys)
         with self._run_lock:
             self.plan = plan
             self.caps = caps
@@ -249,6 +276,12 @@ class PlanCompiler:
         # the fetch returned: every launch before it has completed
         resolve_device_legs()
         return packed[:, None, :], counters, meta, stage_keys
+
+    def _forget_run(self) -> None:
+        """Drop the last dispatch's stage counters."""
+        self._stage_actual = {}
+        self._stage_width = {}
+        self._overflow = self._dense_oob = None
 
     def _dispatch(self, plan: QueryPlan, feeds) -> tuple:
         """Enqueue the plan's launches; returns the packed outputs and
@@ -294,7 +327,7 @@ class PlanCompiler:
     # ------------------------------------------------------------------
     def _src(self, blk: Block) -> ColumnSource:
         return ColumnSource(blk.columns, blk.nulls, self.device,
-                            self.compute_dtype)
+                            self.compute_dtype, self._consts, self._params)
 
     def _record(self, nid: int, kind: str, count, width: int) -> None:
         """Track one capacity-consuming stage's actual row count (merged

@@ -13,6 +13,14 @@ treats NULL as false (`predicate_mask`).
 
 Float policy: SQL double precision evaluates in the session compute
 dtype on the device (`float_dtype`), exactly as the JAX executor does.
+
+Capture safety (executor/graphs.py): evaluation makes no synchronous
+host→device copy.  A scalar constant is a device fill; a list constant
+(an IN list, a string remap table) is uploaded once into the source's
+`consts` (the PlanCompiler's, kept across its runs) and a CUDA graph
+captured later reads it there; a `$n` parameter reads the source's
+`params` tensor when one is given (a captured plan refills it before
+each replay), else it is a fill like any scalar.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ class ColumnSource:
     """What the evaluator reads: column tensors + null masks by cid."""
 
     def __init__(self, columns: dict, nulls: dict | None = None,
-                 device=None, float_dtype=torch.float64):
+                 device=None, float_dtype=torch.float64, consts=None,
+                 params=None):
         self.columns = columns
         self.nulls = nulls or {}
         if device is None:
@@ -44,6 +53,10 @@ class ColumnSource:
                 else torch.device("cpu")
         self.device = device
         self.float_dtype = float_dtype
+        # list constants uploaded once (key → device tensor) and the $n
+        # parameter tensors of a captured plan (idx → 0-d tensor)
+        self.consts = {} if consts is None else consts
+        self.params = params
 
     def get(self, cid: str):
         if cid not in self.columns:
@@ -58,7 +71,48 @@ def _dt(e_dtype: DataType, src: ColumnSource):
 
 
 def _const(value, dtype, src: ColumnSource) -> torch.Tensor:
-    return torch.tensor(value, dtype=dtype, device=src.device)
+    """A 0-d constant as a device fill (no host→device copy)."""
+    return torch.full((), value, dtype=dtype, device=src.device)
+
+
+def _const_list(values, dtype, src: ColumnSource,
+                sort: bool = False) -> torch.Tensor:
+    """A list constant on the device, uploaded on first use and kept in
+    `src.consts`; `sort` keeps it in ascending order."""
+    key = (tuple(values), dtype, sort)
+    t = src.consts.get(key)
+    if t is None:
+        if src.device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            raise ExecutionError(
+                "a list constant first met under CUDA graph capture "
+                "(its warm-up run should have uploaded it)")
+        host = torch.tensor(list(values), dtype=dtype)
+        if sort:
+            host = torch.sort(host).values
+        t = src.consts[key] = host.to(src.device)
+    return t
+
+
+def _in_list(v: torch.Tensor, values, src: ColumnSource) -> torch.Tensor:
+    """Membership of each element of `v` in `values`, cast to v's dtype
+    first (torch.isin's semantics: equality, so NaN is in no list), by a
+    search of the sorted list — torch.isin takes a sort-and-unique path
+    that waits on the device past a few dozen values."""
+    # a NaN in the list matches nothing, and would break the search
+    cast = [x for x in torch.tensor(list(values), dtype=v.dtype).tolist()
+            if x == x]
+    if not cast:
+        return torch.zeros(v.shape, dtype=torch.bool, device=src.device)
+    if v.dtype == torch.bool:  # searchsorted takes no bools
+        has = set(cast)
+        if has == {True, False}:
+            return torch.ones(v.shape, dtype=torch.bool, device=src.device)
+        return v if True in has else ~v
+    s = _const_list(cast, v.dtype, src, sort=True)
+    pos = torch.clamp(torch.searchsorted(s, v.contiguous()),
+                      max=s.shape[0] - 1)
+    return s[pos] == v
 
 
 def evaluate(e: ir.BExpr, src: ColumnSource):
@@ -74,6 +128,8 @@ def evaluate(e: ir.BExpr, src: ColumnSource):
                     torch.ones((), dtype=torch.bool, device=src.device))
         return _const(e.value, _dt(e.dtype, src), src), None
     if isinstance(e, ir.BParam):
+        if src.params is not None and e.idx in src.params:
+            return src.params[e.idx], None
         return _const(e.value, _dt(e.dtype, src), src), None
     if isinstance(e, ir.BArith):
         lv, ln = evaluate(e.left, src)
@@ -145,8 +201,7 @@ def evaluate(e: ir.BExpr, src: ColumnSource):
         if len(e.values) == 0:
             out = torch.zeros(v.shape, dtype=torch.bool, device=src.device)
         else:
-            out = torch.isin(v, torch.tensor(list(e.values), dtype=v.dtype,
-                                             device=src.device))
+            out = _in_list(v, e.values, src)
         if e.negated:
             out = ~out
         return out, nmask
@@ -201,7 +256,7 @@ def evaluate(e: ir.BExpr, src: ColumnSource):
         m = len(e.lut)
         if m == 0:
             return v, nmask
-        lut = torch.tensor(list(e.lut), dtype=torch.int32, device=src.device)
+        lut = _const_list(e.lut, torch.int32, src)
         safe = torch.clamp(v, 0, m - 1).to(torch.int64)
         return torch.where((v >= 0) & (v < m), lut[safe], v), nmask
     if isinstance(e, ir.BCast):

@@ -54,6 +54,9 @@ class FeedSpec:
     capacity: int
     # rows the device owns (pre-padding; None for replicated feeds)
     dev_rows: list[int] | None = None
+    # the feed-cache key serving these tensors (None: not cache-resident,
+    # so no CUDA graph may read them — executor/graphs.py)
+    cache_key: tuple | None = None
 
 
 def walk_plan(node: PlanNode):
@@ -190,14 +193,17 @@ def _feed_scan_cached(node: ScanNode, catalog: Catalog, store: TableStore,
         nbytes = sum(t.numel() * t.element_size()
                      for t in list(spec.arrays.values())
                      + list(spec.nulls.values()) + [spec.valid])
-        cache.put(key, CachedFeed(sharded=spec.sharded, arrays=spec.arrays,
-                                  nulls=spec.nulls, valid=spec.valid,
-                                  capacity=spec.capacity, nbytes=nbytes,
-                                  dev_rows=spec.dev_rows))
+        if cache.put(key, CachedFeed(sharded=spec.sharded,
+                                     arrays=spec.arrays, nulls=spec.nulls,
+                                     valid=spec.valid,
+                                     capacity=spec.capacity, nbytes=nbytes,
+                                     dev_rows=spec.dev_rows)):
+            spec.cache_key = key
         return spec
     return FeedSpec(node=node, sharded=entry.sharded, arrays=entry.arrays,
                     nulls=entry.nulls, valid=entry.valid,
-                    capacity=entry.capacity, dev_rows=entry.dev_rows)
+                    capacity=entry.capacity, dev_rows=entry.dev_rows,
+                    cache_key=key)
 
 
 def _feed_scan(node: ScanNode, catalog: Catalog, store: TableStore,

@@ -34,6 +34,10 @@ Charge categories:
                  (executor/scanpipe.py); graduate to their final
                  category through `recharge` when adopted
 * ``plan``     — the leased buffer estimate of an executing plan
+* ``graph``    — the private memory pools of captured CUDA graphs
+                 (executor/graphs.py), measured after capture and
+                 released with the graph (not admission pressure: the
+                 ladder's first rung releases them before feeds)
 * ``other``    — anything else routed through the seam
 """
 
@@ -50,7 +54,10 @@ import torch
 from ..errors import DeviceMemoryExhausted
 from ..utils.faultinjection import fault_point
 
-CATEGORIES = ("feed", "cache", "stream", "prefetch", "plan", "other")
+CATEGORIES = ("feed", "cache", "stream", "prefetch", "plan", "graph",
+              "other")
+# resident by design: kept between statements, reclaimed by the ladder
+RESIDENT = ("cache", "graph")
 
 # substring MemSim (deliberately, like the XLA allocator in the JAX
 # package) puts in every simulated OOM message
@@ -114,6 +121,8 @@ class DeviceMemoryAccountant:
         # FeedCache): the device is shared, so the ladder's eviction
         # rung reclaims EVERY session's cache-resident bytes
         self._evictables: list = []
+        # every live captured graph on the data_dir's device
+        self._graphs: weakref.WeakSet = weakref.WeakSet()
 
     # -- the seam ----------------------------------------------------------
     def place(self, host, device, category: str = "feed") -> torch.Tensor:
@@ -186,6 +195,14 @@ class DeviceMemoryAccountant:
         finally:
             self._release(handle)
 
+    def charge(self, category: str, nbytes: int) -> int:
+        """Charge `nbytes` until `release(handle)` — a captured graph's
+        private pool."""
+        return self._charge(category, max(0, int(nbytes)))
+
+    def release(self, handle: int) -> None:
+        self._release(handle)
+
     # -- ledger ------------------------------------------------------------
     def _charge(self, category: str, nbytes: int) -> int:
         if category not in CATEGORIES:
@@ -249,14 +266,17 @@ class DeviceMemoryAccountant:
 
     def transient_bytes(self) -> int:
         """Live bytes that should return to zero between statements —
-        everything but the deliberately resident feed cache.  The OOM
-        tests assert this is 0 after every statement (no leaks)."""
+        everything but the deliberately resident feed cache and graph
+        pools.  The OOM tests assert this is 0 after every statement (no
+        leaks)."""
         with self._mu:
-            return self._live_total - self._live_by_cat["cache"]
+            return self._live_total - sum(self._live_by_cat[c]
+                                          for c in RESIDENT)
 
     def pressure_bytes(self) -> int:
-        """Live bytes that constrain a new allocation: cache bytes are
-        left out because the ladder's first rung reclaims them."""
+        """Live bytes that constrain a new allocation: cache and graph
+        bytes are left out because the ladder's first rung reclaims
+        them."""
         return self.transient_bytes()
 
     def budget_bytes(self, device=None, settings=None) -> int:
@@ -353,6 +373,37 @@ class DeviceMemoryAccountant:
                 if remaining <= 0:
                     break
         return evicted
+
+    # -- captured graphs ---------------------------------------------------
+    def register_graph(self, graph) -> None:
+        with self._mu:
+            self._graphs.add(graph)
+
+    def release_graphs(self, pred=None) -> int:
+        """Release every live captured graph (those `pred` accepts, when
+        given) — the ladder's first rung, and a feed cache dropping the
+        feeds a graph reads.  Returns graphs released.  Runs outside the
+        accountant lock: a release takes the graph's own lock, which a
+        replay holds while it fetches."""
+        with self._mu:
+            doomed = [g for g in self._graphs
+                      if g.live and (pred is None or pred(g))]
+        for g in doomed:
+            g.release()
+        return len(doomed)
+
+    def find_graph(self, key, feed_keys):
+        """A live graph another session captured for plan-cache `key`
+        over feeds of the same feed-cache keys, or None."""
+        with self._mu:
+            for g in self._graphs:
+                if g.key == key and g.valid_for(feed_keys):
+                    return g
+        return None
+
+    def graph_count(self) -> int:
+        with self._mu:
+            return sum(1 for g in self._graphs if g.live)
 
     # -- simulation --------------------------------------------------------
     def install_sim(self, sim: MemSim | None) -> None:

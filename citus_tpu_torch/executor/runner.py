@@ -26,9 +26,20 @@ streaming → multi-pass) before a clean ResourceExhausted.  An
 over-limit plan (max_plan_buffer_bytes) or a capacity regrow that can no
 longer fit the budget enters the same ladder when its shape can degrade.
 
-Converged capacities are memoized in memory per plan fingerprint; the
-JAX package's on-disk memo and executable cache are not part of the port
-(ROADMAP queue A item 7).
+Converged capacities are memoized per plan fingerprint and persisted in
+`<data_dir>/caps_memo.json` (the JAX package's file, version and JSON
+codec; each package's fingerprints have their own form, so neither ever
+matches the other's entries), so a new session starts from the converged
+sizes.  The compiled form (executor/graphs.py): a plan-cache key runs
+eagerly until it settles (one clean run with nothing left to tighten);
+its next run over the same feed keys captures its dispatch once as a
+CUDA graph — single-flight across the data_dir's sessions
+(executor/execcache.py's CompileGate) — and replayed.  A settled key
+lands in the persisted cache (`<data_dir>/exec_cache/`) with its
+converged capacities, so that a fresh process resolves it from disk and
+captures at its first run; the warm-before-admit phase
+(`warmup_from_cache`) arms the hottest entries before the workload
+manager admits traffic.
 
 Observability: the feed build, the host combine and (in PlanCompiler.run)
 the device program's dispatch and fetch are trace spans; the session's
@@ -78,6 +89,7 @@ from .cache import (
     plan_order,
 )
 from .compiler import Capacities, PlanCompiler, _round_cap, unpack_outputs
+from .execcache import exec_cache_for, key_from_json, key_to_json
 from .fastpath import try_execute_fast_path
 from .feed import build_feeds, walk_plan
 from .hbm import _TORCH_OOM, accountant_for
@@ -151,21 +163,36 @@ class Executor:
         # the owning session's StatCounters (None: nothing counted)
         self.counters = counters
         self.plan_cache = PlanCache(settings.get("max_cached_plans"))
-        self.feed_cache = FeedCache(settings.get("max_cached_feed_bytes"))
         # the data_dir's device-memory ledger (shared by every session on
-        # it) and this executor's pipelined-scan phase walls
+        # it) and this executor's pipelined-scan phase walls; a feed the
+        # cache drops releases the captured graphs that read it
         self.accountant = accountant_for(store.data_dir)
+        self.feed_cache = FeedCache(settings.get("max_cached_feed_bytes"),
+                                    on_drop=self._feeds_dropped)
         self.accountant.register_evictable(self.feed_cache)
         self.scan_stats = ScanPhaseStats()
         self.oom = OomState()
         # per-thread plan of the in-flight statement: the degradation
         # ladder peeks at it to skip rungs that cannot help its shape
         self._oom_tls = threading.local()
-        # fingerprint → walk-index-keyed converged capacities
-        self._caps_memo: dict = {}
+        # the data_dir's persisted plan cache and capture gate, and the
+        # keys the warmup armed from it (key → its persisted entry)
+        self.exec_cache = exec_cache_for(store.data_dir)
+        self._armed: dict = {}
+        # per thread: how the last resident run dispatched, and why
+        # (EXPLAIN ANALYZE's Caches line)
+        self._graph_tls = threading.local()
+        # fingerprint → walk-index-keyed converged capacities, persisted
+        # in caps_memo.json (debounced: see _caps_memo_insert)
+        self._caps_memo: dict = self._load_caps_memo()
+        self._memo_dirty = 0
+        self._memo_last_write = 0.0
         # fingerprints already tightened by feedback (at most once each)
         self._tightened_fps: set = set()
         self._caps_lock = threading.Lock()
+
+    def _feeds_dropped(self, tensor_ids) -> None:
+        self.accountant.release_graphs(lambda g: g.reads_any(tensor_ids))
 
     # ------------------------------------------------------------------
     def execute_plan(self, plan: QueryPlan, raw: bool = False) -> ResultSet:
@@ -173,6 +200,7 @@ class Executor:
             if isinstance(node, ScanNode):
                 self.store.refresh_if_stale(node.rel.table)
         self._oom_tls.plan = plan
+        self._graph_tls.last = ("eager", None)
         # the reference's single-shard router: below fast_path_max_rows
         # a pruned plan answers host-side by design (on the card too)
         fast = try_execute_fast_path(self, plan, raw)
@@ -276,14 +304,19 @@ class Executor:
 
     # ------------------------------------------------------------------
     def run_with_retry(self, plan: QueryPlan, feeds, caps: Capacities,
-                       fingerprint, compute_dtype, allow_tighten=True):
+                       fingerprint, compute_dtype, allow_tighten=True,
+                       allow_graph=True):
         """Run (with a cached PlanCompiler) + overflow-retry loop.
         Returns (packed, out_meta, converged_caps, retries).
 
         Capacity feedback: a clean execution whose recorded stage actuals
         sit far below their buffers tightens the capacities to
         actual×slack, re-executes once and memoizes; an over-tightened
-        buffer simply overflows and regrows through the retry path."""
+        buffer simply overflows and regrows through the retry path.
+
+        On the card a settled key replays its captured CUDA graph
+        (`_graph_for`); `allow_graph=False` (streamed batches, whose
+        buffers rotate) keeps every run eager."""
         limit = self.settings.get("max_plan_buffer_bytes")
         retries = 0
         tightened = False
@@ -307,20 +340,22 @@ class Executor:
                     "or extreme-fanout join; rewrite the query or "
                     "raise the limit")
             key = fingerprint + (caps_signature(plan, caps),)
-            compiler = self.plan_cache.get(key)
-            if compiler is None:
-                # named seam: a failure while building the compiler must
-                # leave the plan cache without a half-built entry
-                fault_point("executor.plan_cache_fill")
-                compiler = PlanCompiler(plan, compute_dtype, self.device)
-                self.plan_cache.put(key, compiler)
+            compiler = self._resolve(key, plan, compute_dtype)
             # the run allocates its intermediates where the placement
             # seam cannot see them: the lease makes the estimate visible
             # to the ledger (and to an armed MemSim) for the run's window
             try:
                 with self.accountant.lease("plan", est):
-                    packed, counters, out_meta, stage_keys = compiler.run(
-                        plan, feeds, caps)
+                    graph = (self._graph_for(key, compiler, plan, feeds,
+                                             caps)
+                             if allow_graph and self._graphs_on()
+                             else None)
+                    out = (compiler.run(plan, feeds, caps, graph=graph)
+                           if graph is not None else None)
+                    if out is None:
+                        graph = None
+                        out = compiler.run(plan, feeds, caps)
+                    packed, counters, out_meta, stage_keys = out
             except _TORCH_OOM as e:
                 raise self._classify_oom(
                     e, f"running the plan (~{est} intermediate bytes)",
@@ -328,6 +363,9 @@ class Executor:
             cap_overflow = int(counters[0])
             dense_oob = int(counters[1])
             if cap_overflow == 0 and dense_oob == 0:
+                if graph is not None:
+                    # a graph exists only for a settled key
+                    return packed, out_meta, caps, retries
                 first_tighten = False
                 if allow_tighten and not tightened and \
                         self.settings.get("enable_capacity_feedback"):
@@ -347,7 +385,14 @@ class Executor:
                         continue  # re-execute at the tight sizes
                 if retries or tightened:
                     self._memoize_caps(fingerprint, plan, caps)
+                self._settle(key, compiler, plan, feeds, caps, out_meta,
+                             stage_keys)
                 return packed, out_meta, caps, retries
+            if graph is not None:
+                # a replay overflowed: the graph no longer fits its data
+                self.plan_cache.drop_graph(key)
+                graph.release()
+            compiler.armed = False
             retries += 1
             # named seam: a failure while growing capacities must leave
             # the plan cache and capacity memo consistent
@@ -394,6 +439,155 @@ class Executor:
                         "degrading instead of retrying into an OOM")
 
     # ------------------------------------------------------------------
+    def _resolve(self, key, plan: QueryPlan, compute_dtype) -> PlanCompiler:
+        """The key's PlanCompiler: cached, or built on a plan-cache miss,
+        which first asks the persisted cache whether the key converged
+        before (a hit arms it: its first run captures at once)."""
+        compiler = self.plan_cache.get(key)
+        if compiler is not None:
+            return compiler
+        # named seam: a failure while building the compiler must leave
+        # the plan cache without a half-built entry
+        fault_point("executor.plan_cache_fill")
+        status = "miss"
+        armed = key in self._armed
+        if armed:
+            status = "hit"  # adopted by the warmup: counted there
+        elif self.settings.get("exec_cache_enabled"):
+            with trace_span("compile.cache_load"):
+                entry, status = self.exec_cache.load(key, self.device)
+            if self.counters is not None:
+                self.counters.increment({
+                    "hit": sc.EXEC_CACHE_HITS_TOTAL,
+                    "reject": sc.EXEC_CACHE_REJECTS_TOTAL,
+                    "miss": sc.EXEC_CACHE_MISSES_TOTAL}[status])
+            armed = entry is not None
+        with trace_span("compile", cache=status):
+            compiler = PlanCompiler(plan, compute_dtype, self.device)
+            compiler.armed = armed
+        self.plan_cache.put(key, compiler)
+        return compiler
+
+    def _settle(self, key, compiler: PlanCompiler, plan: QueryPlan, feeds,
+                caps: Capacities, out_meta, stage_keys) -> None:
+        """A clean run at `key` with nothing left to tighten: the key's
+        next run over the same feed keys captures; its first such run
+        persists the entry."""
+        first = compiler.settled_feeds is None
+        compiler.settled_feeds = _feed_keys(plan, feeds)
+        if first and not compiler.armed and \
+                self.settings.get("exec_cache_enabled") and \
+                not self.exec_cache.contains(key, self.device):
+            self.exec_cache.store(key, self.device,
+                                  self._caps_to_order(plan, caps),
+                                  out_meta, stage_keys)
+
+    def _graphs_on(self) -> bool:
+        """CUDA graphs exist on the card only: the CPU runs eagerly."""
+        return self.device.type == "cuda"
+
+    def last_dispatch(self) -> tuple[str, str | None]:
+        """(how this thread's last resident run dispatched — replayed,
+        captured, eager or uncapturable — and the reason it stayed
+        eager, if one was recorded)."""
+        return getattr(self._graph_tls, "last", ("eager", None))
+
+    def _graph_for(self, key, compiler: PlanCompiler, plan: QueryPlan,
+                   feeds, caps: Capacities):
+        """The CUDA graph this run replays, or None (eager).  A key
+        captures — once per data_dir, through the gate, whose followers
+        replay the leader's graph — when it is armed or its last clean
+        eager run read the same feed keys: a new `$n` pruning or a new
+        data version runs eager once first, as a new key does."""
+        from . import graphs
+
+        feed_keys = _feed_keys(plan, feeds)
+        g = self.plan_cache.graph(key)
+        if g is not None:
+            if g.valid_for(feed_keys):
+                self._graph_tls.last = ("replayed", None)
+                return g
+            self.plan_cache.drop_graph(key)
+        self._graph_tls.last = ("eager", None)
+        if not (compiler.armed or compiler.settled_feeds == feed_keys):
+            return None
+        if any(k is None for k in feed_keys):
+            with trace_span("compile", cache="uncapturable",
+                            reason=graphs.NOT_RESIDENT):
+                pass
+            self._graph_tls.last = ("uncapturable", graphs.NOT_RESIDENT)
+            return None
+
+        def capture():
+            # another session may have captured this key over the same
+            # feed keys since: adopt its graph
+            g = self.accountant.find_graph(key, feed_keys)
+            if g is not None:
+                return g, True
+            g = graphs.capture(key, compiler, plan, feeds, caps, feed_keys,
+                               self.accountant)
+            if g is not None:
+                self.exec_cache.note_compile()
+            return g, False
+
+        with trace_span("compile", cache="miss") as sp:
+            (g, adopted), joined = self.exec_cache.gate.run(
+                ("graph", key, feed_keys), capture)
+            deduped = adopted or joined
+            if deduped and sp is not None:
+                sp.meta["cache"] = "hit"
+        if deduped and self.counters is not None:
+            self.counters.increment(sc.COMPILES_DEDUPED_TOTAL)
+        # an armed key captures at once only for its first feed keys
+        compiler.armed = False
+        if g is None or not g.live:
+            return None  # the warm-up run overflowed: the retry path takes it
+        self.plan_cache.put_graph(key, g)
+        self._graph_tls.last = ("replayed" if deduped else "captured",
+                                None)
+        return g
+
+    # ------------------------------------------------------------------
+    def warmup_from_cache(self, deadline: float, top_n: int,
+                          stop=None) -> int:
+        """Warm-before-admit: what a fresh process lacks before its first
+        statement can capture at once — the kernel libraries (built and
+        loaded), the CUDA context, and the persisted cache's hottest
+        entries, armed (their converged capacities in the memo, their
+        keys marked).  Runs until the entries or the monotonic
+        `deadline` run out, or `stop` is set; a fault degrades to lazy
+        resolution.  Returns entries armed."""
+        import time as _time
+
+        if self.device.type == "cuda":
+            from ..ops import hopper_kernels
+
+            hopper_kernels.build_all()
+            torch.cuda.init()
+            torch.empty(1, device=self.device)
+        armed = 0
+        for h in self.exec_cache.top_hashes(max(0, top_n)):
+            if _time.monotonic() >= deadline or \
+                    (stop is not None and stop.is_set()):
+                break  # budget spent or the session is closing
+            try:
+                fault_point("wlm.warmup")
+                with trace_span("wlm.warmup"):
+                    key, entry = self.exec_cache.load_hash(h, self.device)
+            except Exception:  # a warmup failure (injected or real) degrades to lazy resolution by design; the admission hold releases in the caller's finally
+                break
+            if entry is None:
+                continue  # skewed (the JAX package's) or corrupt
+            with self._caps_lock:
+                self._caps_memo.setdefault(key[:-1], entry["caps"])
+                self._tightened_fps.add(key[:-1])
+            self._armed[key] = entry
+            armed += 1
+            if self.counters is not None:
+                self.counters.increment(sc.WARMUP_COMPILES_TOTAL)
+        return armed
+
+    # ------------------------------------------------------------------
     def _plan_degradable(self, plan: QueryPlan) -> bool:
         """Can the degradation ladder shrink this plan's footprint?
         (executor/multipass.py owns the shape rules; windows and
@@ -414,8 +608,9 @@ class Executor:
         allocation's size when known (bounds the eviction target).
 
         Rungs, cheapest first:
-          1. evict feed caches coldest first (frees device memory,
-             nothing recompiles) and empty the CUDA caching allocator;
+          1. release captured graphs, evict feed caches coldest first
+             (frees device memory, nothing recompiles) and empty the
+             CUDA caching allocator;
           2. halve the stream batch_cap;
           3. force the stream path even under the resident ceiling;
           4+. multi-pass execution, K doubling per rung.
@@ -467,9 +662,15 @@ class Executor:
         shared).  Frees at least 4× the failed allocation when its size
         is known, everything otherwise.  Then hands the CUDA caching
         allocator's free blocks back to CUDA: the ledger does not
-        see that reserve, and the retry needs it.  Also clears the
-        data_dir's serving result cache.  Returns feed-cache entries
-        evicted — only those mark the rung successful."""
+        see that reserve, and the retry needs it.  Captured CUDA graphs
+        are released before any feed, and their pools return to CUDA
+        with the same empty_cache.  Also clears the data_dir's serving
+        result cache.  Returns feed-cache entries evicted plus graphs
+        released — only those mark the rung successful."""
+        # captured graphs first (every session's on the data_dir): their
+        # pools hold a whole plan's intermediates, and a replay later
+        # re-captures
+        graphs = self.accountant.release_graphs()
         evicted = self.accountant.evict_evictable(
             nbytes * 4 if nbytes else None)
         if evicted and self.counters is not None:
@@ -488,7 +689,7 @@ class Executor:
             rcache.clear()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
-        return evicted
+        return evicted + graphs
 
     def count_groupby_bucketed(self, plan: QueryPlan,
                                caps: Capacities) -> None:
@@ -505,14 +706,92 @@ class Executor:
             self.counters.increment(sc.GROUPBY_BUCKETED_TOTAL, nbk)
 
     # ------------------------------------------------------------------
+    CAPS_MEMO_VERSION = 6  # the JAX package's: the same file and codec
+
+    def _memo_path(self) -> str:
+        import os
+
+        return os.path.join(self.store.data_dir, "caps_memo.json")
+
+    def _load_caps_memo(self) -> dict:
+        """The persisted memo (plain JSON: tuples and dicts of ints,
+        strings, bools and Nones through execcache's codec — never
+        pickle in a shared data_dir); an unreadable or other-version
+        file starts cold."""
+        import json as _json
+
+        try:
+            with open(self._memo_path()) as f:
+                obj = _json.load(f)
+            if obj.get("version") == self.CAPS_MEMO_VERSION:
+                return {key_from_json(k): key_from_json(v)
+                        for k, v in obj["memo"]}
+        except (OSError, ValueError, KeyError, TypeError,
+                AttributeError):
+            # unreadable/corrupt memo file (valid JSON that is not an
+            # object makes obj.get raise AttributeError): start cold
+            pass
+        return {}
+
+    # memo bounds + rewrite debounce (the JAX package's): overflow
+    # evicts the OLDEST HALF, and the whole-file rewrite coalesces under
+    # a burst of new shapes.  A lone memoization past the idle window
+    # still writes at once; close() drains the rest (flush_persistent)
+    CAPS_MEMO_MAX = 512
+    CAPS_MEMO_FLUSH_EVERY = 8
+    CAPS_MEMO_FLUSH_IDLE_S = 0.25
+
     def _memoize_caps(self, fingerprint, plan: QueryPlan,
                       caps: Capacities) -> None:
+        self._caps_memo_insert(fingerprint,
+                               self._caps_to_order(plan, caps))
+
+    def _caps_memo_insert(self, fingerprint, ordered) -> None:
+        import time as _time
+
         with self._caps_lock:
-            if len(self._caps_memo) >= 512:
-                for k in list(self._caps_memo)[:256]:
+            if fingerprint not in self._caps_memo and \
+                    len(self._caps_memo) >= self.CAPS_MEMO_MAX:
+                for k in list(self._caps_memo)[
+                        :len(self._caps_memo) // 2]:
                     del self._caps_memo[k]
+            # LRU: a re-memoized hot shape moves to the young end
             self._caps_memo.pop(fingerprint, None)
-            self._caps_memo[fingerprint] = self._caps_to_order(plan, caps)
+            self._caps_memo[fingerprint] = ordered
+            self._memo_dirty += 1
+            now = _time.monotonic()
+            if self._memo_dirty < self.CAPS_MEMO_FLUSH_EVERY and \
+                    now - self._memo_last_write < \
+                    self.CAPS_MEMO_FLUSH_IDLE_S:
+                return  # coalesce: a later insert or close() flushes
+        self._flush_caps_memo()
+
+    def _flush_caps_memo(self) -> None:
+        import time as _time
+
+        from ..utils.io import atomic_write_json
+
+        # snapshot under the lock, write the file outside it
+        with self._caps_lock:
+            if not self._memo_dirty:
+                return
+            self._memo_dirty = 0
+            self._memo_last_write = _time.monotonic()
+            payload = [[key_to_json(k), key_to_json(v)]
+                       for k, v in self._caps_memo.items()]
+        try:
+            atomic_write_json(self._memo_path(),
+                              {"version": self.CAPS_MEMO_VERSION,
+                               "memo": payload})
+        except (OSError, TypeError, ValueError):
+            pass  # persistence is best-effort; the in-memory memo serves
+
+    def flush_persistent(self) -> None:
+        """Drain debounced persistence (the caps memo, the persisted
+        cache's hotness index): Session.close() calls this so a clean
+        shutdown leaves the warm-start state current on disk."""
+        self._flush_caps_memo()
+        self.exec_cache.flush_index()
 
     # feedback sizing (the JAX package's thresholds): pure buffer sizes
     # tighten at 0.85; stages whose tightening installs a compaction pass
@@ -791,6 +1070,13 @@ class Executor:
                 col[out_nulls[c]] = None
                 out_cols[c] = col
         return ResultSet(names, out_cols, final_n, dtypes=out_dtypes)
+
+
+def _feed_keys(plan: QueryPlan, feeds) -> tuple:
+    """The feed-cache key of each scan's feed, in walk order (None for
+    a feed the cache does not serve)."""
+    return tuple(feeds[id(n)].cache_key for n in walk_plan(plan.root)
+                 if isinstance(n, ScanNode))
 
 
 def feed_device_rows(feeds) -> list[int] | None:

@@ -715,7 +715,7 @@ def try_execute_streamed(executor, plan: QueryPlan, raw: bool,
             with trace_span("stream.batch", batch=n_consumed - 1):
                 packed, out_meta, caps, r = executor.run_with_retry(
                     batch_plan, feeds, caps, fingerprint, compute_dtype,
-                    allow_tighten=False)
+                    allow_tighten=False, allow_graph=False)
                 del feeds[sid]
                 producer.slots.release()
                 retries_total += r

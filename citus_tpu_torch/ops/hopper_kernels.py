@@ -15,7 +15,10 @@ tensor takes the plain PyTorch version beside it (the CPU tests and the
 parity anchor), a CUDA tensor launches the kernel or raises — there is no
 fallback from a failed build or launch.  Every launch adds one to
 LAUNCHES[name]; chip_smoke.py zeroes the counts before the main path and
-reads them after, to show the path went through the kernels.
+reads them after, to show the path went through the kernels.  A launch
+made while a CUDA graph is captured (executor/graphs.py) runs nothing
+then: `recording_launches` collects it on the graph instead, and every
+replay of the graph adds those launches to LAUNCHES (`count_replay`).
 
 The sources build at first use with nvcc for sm_90a into plain C shared
 libraries (one nvcc per source, started together), loaded with ctypes.
@@ -24,6 +27,7 @@ The build directory, csrc/build/, is not part of the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -71,11 +75,39 @@ def reset_launch_counts() -> None:
             LAUNCHES[k] = 0
 
 
+# per thread: the launches of a CUDA graph being captured, or None
+_capture_tls = threading.local()
+
+
 def count_launch(name: str) -> None:
     """One launch of kernel `name`, counted exactly under concurrent
-    sessions (`+=` on a dict entry is not atomic across threads)."""
+    sessions (`+=` on a dict entry is not atomic across threads).  Under
+    `recording_launches` it is recorded for the graph instead."""
+    rec = getattr(_capture_tls, "rec", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + 1
+        return
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+def count_replay(launches: dict[str, int]) -> None:
+    """One replay of a captured graph: its recorded launches ran."""
+    with _count_lock:
+        for name, n in launches.items():
+            LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside the block this thread's launches are recorded into the
+    yielded dict, not counted: a capture enqueues nothing that runs."""
+    rec: dict[str, int] = {}
+    _capture_tls.rec = rec
+    try:
+        yield rec
+    finally:
+        _capture_tls.rec = None
 
 
 def _nvcc() -> str:

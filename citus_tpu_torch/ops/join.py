@@ -142,7 +142,11 @@ def _dense_bounds(build_key, build_matchable, probe_key, base: int,
     inb = build_matchable & (idx >= 0) & (idx < extent)
     oob = (build_matchable & ~inb).sum()
     slot = torch.where(inb, idx, torch.full_like(idx, extent))
-    per_slot = torch.bincount(slot, minlength=extent + 1)[:extent]
+    # a fixed-size count: bincount sizes its output from the data and
+    # so waits on the device
+    per_slot = torch.zeros(extent + 1, dtype=torch.int64,
+                           device=idx.device).scatter_add_(
+        0, slot, torch.ones_like(slot))[:extent]
     starts = torch.cat([torch.zeros(1, dtype=torch.int64,
                                     device=idx.device),
                         torch.cumsum(per_slot, 0)])

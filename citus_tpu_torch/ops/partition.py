@@ -53,7 +53,11 @@ def pack_by_target(columns: dict[str, torch.Tensor], valid: torch.Tensor,
         order = order[:n]
     else:
         order = torch.sort(t, stable=True).indices
-        counts = torch.bincount(t, minlength=n_targets + 1)[:n_targets]
+        # a fixed-size count (bincount sizes its output from the data
+        # and so waits on the device)
+        counts = torch.zeros(n_targets + 1, dtype=torch.int64,
+                             device=dev).scatter_add_(
+            0, t, torch.ones_like(t))[:n_targets]
         starts = torch.cumsum(counts, 0) - counts
 
     # slot (t, r) ← ordered position starts[t] + r (gather, no scatter)

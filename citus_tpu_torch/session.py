@@ -295,6 +295,36 @@ class Session:
         self._last_rebalance_job = 0
         self.maintenance = MaintenanceDaemon(self)
         self.maintenance.start()
+        # warm-before-admit (executor/runner.py warmup_from_cache): a
+        # fresh session over a populated persisted plan cache builds its
+        # kernels, makes the CUDA context and arms the hottest keys while
+        # the workload manager holds non-exempt admissions — for at most
+        # warmup_budget_ms (the hold expires: an overrun degrades to lazy
+        # resolution, never an admission block)
+        self._warmup_thread = None
+        self._warmup_stop = threading.Event()
+        warm_ms = self.settings.get("warmup_budget_ms")
+        if warm_ms > 0 and self.settings.get("exec_cache_enabled") \
+                and self.executor.exec_cache.has_entries():
+            import time as _time
+
+            deadline = _time.monotonic() + warm_ms / 1000.0
+            self.wlm.hold_admissions(deadline)
+            self._warmup_thread = threading.Thread(
+                target=self._run_warmup, args=(deadline,),
+                name="citus-warmup", daemon=True)
+            self._warmup_thread.start()
+
+    def _run_warmup(self, deadline: float) -> None:
+        """Warmup-thread body: arm persisted plans, then ALWAYS release
+        the hold on the shared workload manager (close() sets the stop
+        event and joins this thread)."""
+        try:
+            self.executor.warmup_from_cache(
+                deadline, self.settings.get("warmup_top_shapes"),
+                stop=self._warmup_stop)
+        finally:
+            self.wlm.release_admissions()
 
     # ------------------------------------------------------------------
     def execute(self, sql: str):
@@ -1362,9 +1392,20 @@ class Session:
         self._save_catalog()
 
     def close(self):
+        if self._warmup_thread is not None:
+            self._warmup_stop.set()  # stop between entries
+            self._warmup_thread.join(timeout=30.0)
+            self._warmup_thread = None
         self.maintenance.stop()
         self.jobs.shutdown()
         self._save_catalog()
+        # drain debounced warm-start persistence (the caps memo, the
+        # persisted cache's hotness index) so a clean shutdown leaves
+        # the restart state current on disk
+        self.executor.flush_persistent()
+        # this session's hold on its captured graphs: a graph no other
+        # session replays frees its pool now, not at garbage collection
+        self.executor.plan_cache.clear()
         # give back this session's reference on the shared result
         # cache: the last one out drops the data_dir's cached results
         with self._result_cache_mu:
@@ -1825,10 +1866,11 @@ class Session:
         statement's span trace; a dispatch's device_ms stays in the
         trace), Rows, Chunks Skipped, Device Rows Scanned, Streamed
         Execution, Mesh, Integrity, Memory, Resilience, Caches, Workload,
-        Serving and Replication.  The Caches line's exec-cache fields
-        come with the compiled form (ROADMAP queue A item 7).  `target`
-        and `params` are the explained SELECT and its EXECUTE arguments
-        (the Serving line's cache probe)."""
+        Serving and Replication.  The Caches line ends with how the run
+        dispatched (`graph=replayed|captured|eager|uncapturable`, with
+        the reason a run stayed eager).  `target` and `params` are the
+        explained SELECT and its EXECUTE arguments (the Serving line's
+        cache probe)."""
         import time
 
         from .planner.explain import explain_tag
@@ -1914,13 +1956,23 @@ class Session:
             f"{snap.get(sc.MESH_FAILOVERS_TOTAL, 0)} "
             "queries_rescued_total="
             f"{snap.get(sc.QUERIES_RESCUED_TOTAL, 0)})")
+        graph, why = self.executor.last_dispatch()
         lines.append(
             f"{explain_tag('Caches')}: plan-cache hits="
             f"{pc.hits - cache0[0]} misses={pc.misses - cache0[1]}  "
             f"feed-cache hits={fc.hits - cache0[2]} "
-            f"misses={fc.misses - cache0[3]} (session totals: plan "
+            f"misses={fc.misses - cache0[3]}  exec-cache hits="
+            f"{d(sc.EXEC_CACHE_HITS_TOTAL)} "
+            f"misses={d(sc.EXEC_CACHE_MISSES_TOTAL)} "
+            f"rejects={d(sc.EXEC_CACHE_REJECTS_TOTAL)} "
+            f"deduped={d(sc.COMPILES_DEDUPED_TOTAL)} (session totals: plan "
             f"{pc.hits}/{pc.misses}, feed {fc.hits}/{fc.misses} "
-            f"hits/misses, feed invalidations={fc.invalidations})")
+            f"hits/misses, feed invalidations={fc.invalidations}, "
+            f"exec-cache {snap.get(sc.EXEC_CACHE_HITS_TOTAL, 0)}/"
+            f"{snap.get(sc.EXEC_CACHE_MISSES_TOTAL, 0)} hits/misses, "
+            "warmup_compiles_total="
+            f"{snap.get(sc.WARMUP_COMPILES_TOTAL, 0)})  graph={graph}"
+            + (f" ({why})" if why else ""))
         lines.append(self._workload_line(snap))
         lines.append(self._serving_line(snap, snap0, target, params))
         rline = self._replication_line()

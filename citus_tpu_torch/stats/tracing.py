@@ -57,8 +57,7 @@ import time
 
 # -- span-name registry ------------------------------------------------------
 # Every named span the port records (the JAX package's names; its
-# compile and mesh.degrade spans come with their modules, ROADMAP queue
-# A items 7 and 9).
+# mesh.degrade span comes with its module, ROADMAP queue A item 9).
 SPAN_NAMES: dict[str, str] = {
     "statement": "root span: one executed statement, wall-clock",
     "parse": "lexer+parser",
@@ -66,6 +65,15 @@ SPAN_NAMES: dict[str, str] = {
     "execute": "one execution attempt under the resilience envelope",
     "plan": "recursive planning + bind + distributed planning",
     "feed": "device feed build (eager, pipelined or per-batch)",
+    "compile": "plan-cache resolution or CUDA-graph capture (meta "
+               "cache=hit|miss|uncapturable, with the reason a run "
+               "stays eager)",
+    "compile.cache_load": "persisted plan-cache probe: meta + stamp + "
+                          "CRC check of the key's entry",
+    "compile.single_flight_wait": "follower waiting on another "
+                                  "session's in-flight capture of the "
+                                  "same key (capture dedup)",
+    "wlm.warmup": "warm-before-admit: one persisted entry armed",
     "mesh.dispatch": "the eager device program's launches (device_ms: "
                      "its CUDA-event timeline)",
     "mesh.fetch": "device→host pull of outputs + overflow counters",

@@ -61,6 +61,17 @@ FAULT_POINTS: dict[str, str] = {
     "executor.hbm_exhausted":
         "executor/hbm.py — accounted placement seam (arm with "
         "error='oom' for a synthetic allocator OOM)",
+    "executor.exec_cache_load":
+        "executor/execcache.py — persisted plan adoption (an injected "
+        "fault models rot: a counted reject, never a crash)",
+    "executor.exec_cache_store":
+        "executor/execcache.py — persisted plan write (fires before the "
+        "best-effort catch, so an injected fault errors the statement "
+        "cleanly)",
+    "wlm.warmup":
+        "executor/runner.py — warm-before-admit arming (a fault "
+        "degrades the warmup to lazy resolution; the admission hold "
+        "always releases)",
     "executor.repartition_shuffle":
         "executor/insert_select.py — INSERT..SELECT repartition write",
     "executor.scan_prefetch":

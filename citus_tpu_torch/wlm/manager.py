@@ -32,8 +32,12 @@ fails fast with a clean ``AdmissionRejected``.  Queue waits run
 Invariant: every admission request resolves to exactly one of admitted /
 shed / timed-out / canceled.
 
-The JAX package's warm-before-admit hold (its executable cache's
-warmup) comes with the port's compiled form, ROADMAP queue A item 7.
+Warm-before-admit: while a fresh session's warmup arms the persisted
+plan cache (executor/runner.py `warmup_from_cache`), `hold_admissions`
+makes non-exempt admissions wait until `release_admissions` or the
+hold's deadline, whichever comes first; the wait runs `check_cancel`
+every slice, and the deadline means an overrun never blocks admission
+for good.
 """
 
 from __future__ import annotations
@@ -144,6 +148,12 @@ class WorkloadManager:
         # last-seen gate limits (display only — limits ride each request)
         self._last_max_slots = 0
         self._last_max_feed = 0
+        # warm-before-admit hold: while > 0 holds are active AND the
+        # deadline has not passed, non-exempt admissions wait.  The
+        # deadline is the graceful-degradation valve: an overrun never
+        # blocks admission for good (it expires even if the holder dies)
+        self._warm_holds = 0
+        self._warm_deadline = 0.0
         # measured device-byte pressure: workload_manager_for attaches
         # the data_dir's DeviceMemoryAccountant.pressure_bytes, so the
         # gate admits against max(planned, measured)
@@ -151,6 +161,43 @@ class WorkloadManager:
 
     def attach_measured(self, cb) -> None:
         self._measured_cb = cb
+
+    # -- warm-before-admit -------------------------------------------------
+    def hold_admissions(self, deadline: float) -> None:
+        """Gate non-exempt admissions behind a warmup until
+        release_admissions() or the monotonic `deadline`, whichever
+        comes first (warmup_budget_ms caps the hold)."""
+        with self._cv:
+            self._warm_holds += 1
+            self._warm_deadline = max(self._warm_deadline, deadline)
+
+    def release_admissions(self) -> None:
+        with self._cv:
+            self._warm_holds = max(0, self._warm_holds - 1)
+            if not self._warm_holds:
+                # the deadline resets with the last hold: a later hold
+                # must not inherit a stale larger one through max()
+                self._warm_deadline = 0.0
+                self._cv.notify_all()
+
+    def warming(self) -> bool:
+        with self._cv:
+            return bool(self._warm_holds and
+                        time.monotonic() < self._warm_deadline)
+
+    def _wait_warm(self) -> None:
+        """Block while a warmup hold is active (deadline- and
+        cancel-aware: check_cancel runs every slice, and the hold
+        expires at its deadline)."""
+        from ..utils.cancellation import check_cancel
+
+        while True:
+            with self._cv:
+                if not self._warm_holds or \
+                        time.monotonic() >= self._warm_deadline:
+                    return
+                self._cv.wait(0.02)
+            check_cancel()
 
     # -- admission ---------------------------------------------------------
     def admit(self, req: AdmissionRequest) -> Ticket:
@@ -163,6 +210,10 @@ class WorkloadManager:
         # the named seam, BEFORE any manager state changes: an injected
         # fault leaks neither a slot nor a queue entry
         fault_point("wlm.admit")
+        # warm-before-admit: a fresh session arms its persisted plans
+        # before non-exempt traffic lands on cold caches (exempt
+        # statements never reach admit(), so point reads flow)
+        self._wait_warm()
         with self._cv:
             self.requests_total += 1
             self._last_max_slots = req.max_slots
@@ -341,6 +392,8 @@ class WorkloadManager:
             return {
                 "slots_in_use": self._running,
                 "slots_total": self._last_max_slots,
+                "warming": bool(self._warm_holds and
+                                time.monotonic() < self._warm_deadline),
                 "feed_bytes_admitted": self._feed_inflight,
                 "feed_bytes_limit": self._last_max_feed,
                 "requests_total": self.requests_total,

@@ -7,6 +7,7 @@ and across a background rebalance (right answers, no retries), and no
 thread left after close().
 """
 
+import os
 import threading
 import time
 
@@ -160,6 +161,11 @@ class TestMaintenanceDaemon:
 
     def test_scrub_health_and_ship_duties_run_when_set(self, tmp_path):
         from citus_tpu_torch.replication import provision_replica
+        from citus_tpu_torch.replication.shipper import (
+            JOURNAL,
+            _committed_journal_size,
+        )
+        from citus_tpu_torch.replication.state import load_cursor
 
         sess = _port(tmp_path / "lead", scrub_interval_ms=50,
                      health_check_interval_ms=50,
@@ -169,12 +175,23 @@ class TestMaintenanceDaemon:
             sess.execute("select create_distributed_table('kv', 'id', 2)")
             provision_replica(sess.data_dir, str(tmp_path / "f"))
             sess.execute("insert into kv values (1, 2)")
+            # the daemon's first ship can land between the provisioning
+            # and the INSERT, so a non-zero ship_runs does not prove the
+            # row left: wait until a ship that read the journal after
+            # the INSERT committed is staged for the follower
+            journal = os.path.getsize(os.path.join(sess.data_dir,
+                                                   JOURNAL))
+            follower = str(tmp_path / "f")
             m = sess.maintenance
             deadline = time.monotonic() + 10
             while time.monotonic() < deadline and not (
-                    m.scrub_runs and m.health_sweeps and m.ship_runs):
+                    m.scrub_runs and m.health_sweeps and m.ship_runs
+                    and _committed_journal_size(
+                        follower, load_cursor(follower)) >= journal):
                 time.sleep(0.05)
             assert m.scrub_runs and m.health_sweeps and m.ship_runs
+            assert _committed_journal_size(
+                follower, load_cursor(follower)) >= journal > 0
             assert m.nodes_disabled == 0
         finally:
             sess.close()
@@ -201,8 +218,12 @@ class TestMaintenanceDaemon:
             monkeypatch.undo()
             assert parent.is_dir()
             assert CleanupRegistry(str(d)).pending()
-            deadline = time.monotonic() + 2
-            while parent.is_dir() and time.monotonic() < deadline:
+            # the daemon removes the parent inside its sweep and counts
+            # the run only after the sweep returns: wait for both
+            m = sess.maintenance
+            deadline = time.monotonic() + 10
+            while (parent.is_dir() or not m.cleanup_runs) and \
+                    time.monotonic() < deadline:
                 time.sleep(0.05)
             assert not parent.is_dir()
             assert sess.maintenance.cleanup_runs >= 1

@@ -777,3 +777,236 @@ def test_read_repair_in_device_scan_mode(tmp_path, cuda):
         s.close()
     gc.collect()
     assert gpu.executor.accountant.transient_bytes() == 0
+
+
+# -- the compiled form: CUDA graphs (executor/graphs.py) ------------------------
+
+NN_SQL = ("select g, count(*), count(v), sum(v) from nn group by g "
+          "order by g")
+
+
+def _graph_dir(tmp_path):
+    """A small TPC-H data_dir plus a table with NULLs, the CPU session's
+    answers, and the four main-path statements."""
+    import citus_tpu_torch
+    from citus_tpu_torch.ingest import tpch
+
+    data_dir = str(tmp_path / "d")
+    cpu = citus_tpu_torch.connect(data_dir, device="cpu",
+                                  serving_result_cache_bytes=0)
+    tpch.load_into_session(cpu, sf=0.01, seed=7,
+                           tables={"customer", "orders", "lineitem"})
+    cpu.execute("create table nn (k bigint, g int, v double precision)")
+    cpu.execute("select create_distributed_table('nn', 'k', 4)")
+    cpu.execute("insert into nn values " + ", ".join(
+        f"({i}, {i % 5}, {'null' if i % 3 == 0 else i * 0.5})"
+        for i in range(3000)))
+    queries = {"Q1": tpch.QUERIES["Q1"], "Q3": tpch.QUERIES["Q3"],
+               "groupby": "select l_orderkey, count(*), sum(l_quantity) "
+                          "from lineitem group by l_orderkey",
+               "nullable": NN_SQL}
+    want = {q: cpu.execute(sql).rows() for q, sql in queries.items()}
+    cpu.close()
+    return data_dir, queries, want
+
+
+class _Eager:
+    """Inside the block a session runs its plans through the compiler's
+    own eager dispatch."""
+
+    def __init__(self, sess):
+        self.ex = sess.executor
+
+    def __enter__(self):
+        self.ex._graph_for = lambda *a, **k: None
+
+    def __exit__(self, *exc):
+        del self.ex._graph_for
+
+
+@pytest.fixture
+def bucketed():
+    import citus_tpu_torch.ops.join as pjoin
+
+    saved = pjoin.PROBE_BUCKET_MIN_EXTENT
+    pjoin.PROBE_BUCKET_MIN_EXTENT = 1 << 10
+    yield
+    pjoin.PROBE_BUCKET_MIN_EXTENT = saved
+
+
+def test_replay_equals_eager_for_the_main_path(tmp_path, cuda, bucketed):
+    """Q1, Q3, the GROUP BY and a nullable aggregate: the first run
+    settles, the second captures, later runs replay; replayed rows equal
+    the eager run's and the CPU session's, and each replay counts the
+    launches its graph makes."""
+    import citus_tpu_torch
+
+    data_dir, queries, want = _graph_dir(tmp_path)
+    gpu = citus_tpu_torch.connect(data_dir, serving_result_cache_bytes=0)
+    for q, sql in queries.items():
+        seen = []
+        for _ in range(3):
+            _close_rows(gpu.execute(sql).rows(), want[q])
+            seen.append(gpu.executor.last_dispatch()[0])
+        assert seen == ["eager", "captured", "replayed"], (q, seen)
+        with _Eager(gpu):
+            eager = gpu.execute(sql).rows()
+            assert gpu.executor.last_dispatch()[0] == "eager"
+        hk.reset_launch_counts()
+        _close_rows(gpu.execute(sql).rows(), eager)
+        torch.cuda.synchronize()
+        carried = {"Q1": ["dense_grid_sum"], "Q3": ["bucketed_probe"],
+                   "groupby": ["bucketed_groupby_sums"],
+                   "nullable": ["dense_grid_sum"]}[q]
+        for k in carried:
+            assert hk.LAUNCHES[k] >= 1, (q, hk.LAUNCHES)
+    acc = gpu.executor.accountant
+    assert acc.graph_count() == 4 and acc.live_bytes("graph") > 0
+    assert acc.transient_bytes() == 0
+    gpu.close()
+
+
+def test_insert_between_replays_gives_the_new_answer(tmp_path, cuda):
+    import citus_tpu_torch
+
+    data_dir, _queries, _want = _graph_dir(tmp_path)
+    gpu = citus_tpu_torch.connect(data_dir, serving_result_cache_bytes=0)
+    for _ in range(3):
+        before = gpu.execute(NN_SQL).rows()
+    assert gpu.executor.last_dispatch()[0] == "replayed"
+    g = next(iter(gpu.executor.plan_cache._graphs.values()))
+    gpu.execute("insert into nn values (9001, 0, 1000.0)")
+    after = gpu.execute(NN_SQL).rows()
+    assert not g.live
+    with _Eager(gpu):
+        eager = gpu.execute(NN_SQL).rows()
+    _close_rows(after, eager)
+    assert after[0][1] == before[0][1] + 1
+    gpu.close()
+
+
+def test_oom_ladder_frees_the_graph_pools(tmp_path, cuda):
+    import citus_tpu_torch
+
+    data_dir, queries, want = _graph_dir(tmp_path)
+    gpu = citus_tpu_torch.connect(data_dir, serving_result_cache_bytes=0)
+    acc = gpu.executor.accountant
+    acc.release_graphs()
+    before = acc.live_bytes("graph")
+    for sql in (queries["Q1"], queries["groupby"]):
+        for _ in range(2):
+            gpu.execute(sql)
+    assert acc.live_bytes("graph") > before and acc.graph_count() == 2
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    assert gpu.executor._evict_for_oom() >= 2
+    torch.cuda.synchronize()
+    assert acc.live_bytes("graph") == before and acc.graph_count() == 0
+    assert torch.cuda.memory_reserved() < reserved
+    _close_rows(gpu.execute(queries["Q1"]).rows(), want["Q1"])
+    gpu.close()
+
+
+def test_two_threads_replaying_one_key_get_their_rows(tmp_path, cuda):
+    import threading
+
+    import citus_tpu_torch
+
+    data_dir, queries, want = _graph_dir(tmp_path)
+    sessions = [citus_tpu_torch.connect(data_dir,
+                                        serving_result_cache_bytes=0)
+                for _ in range(2)]
+    for s in sessions:
+        for _ in range(2):
+            s.execute(queries["Q1"])
+    errors = []
+
+    def run(s):
+        try:
+            for _ in range(20):
+                _close_rows(s.execute(queries["Q1"]).rows(), want["Q1"])
+        except BaseException as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(s,))
+               for s in sessions + sessions]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+        assert not t.is_alive()
+    assert not errors, errors
+    # one capture served both sessions
+    assert sessions[0].executor.accountant.graph_count() == 1
+    for s in sessions:
+        s.close()
+
+
+def test_an_adopted_graph_outlives_its_capturer(tmp_path, cuda):
+    """Session A captures a plan with IN lists (list constants its
+    compiler uploaded outside the graph's pool), session B adopts the
+    graph, A closes and fresh allocations take whatever memory was
+    freed: B's replays still equal its eager run and the CPU session."""
+    import gc
+
+    import citus_tpu_torch
+
+    data_dir, _queries, _want = _graph_dir(tmp_path)
+    sql = ("select o_orderstatus, count(*), sum(o_totalprice) from orders "
+           "where o_custkey in (" + ", ".join(
+               str(k) for k in range(1, 1500, 7)) + ") and "
+           "o_orderpriority in ('1-URGENT', '3-MEDIUM', '5-LOW') "
+           "group by 1 order by 1")
+    cpu = citus_tpu_torch.connect(data_dir, device="cpu",
+                                  serving_result_cache_bytes=0)
+    want = cpu.execute(sql).rows()
+    cpu.close()
+    a = citus_tpu_torch.connect(data_dir, serving_result_cache_bytes=0)
+    b = citus_tpu_torch.connect(data_dir, serving_result_cache_bytes=0)
+    for _ in range(2):
+        _close_rows(a.execute(sql).rows(), want)
+    assert a.executor.last_dispatch()[0] == "captured"
+    for _ in range(2):
+        _close_rows(b.execute(sql).rows(), want)
+    assert b.executor.last_dispatch()[0] == "replayed"  # adopted
+    g = next(iter(b.executor.plan_cache._graphs.values()))
+    assert g._consts  # the IN lists it reads
+    a.close()
+    del a
+    gc.collect()
+    torch.cuda.synchronize()
+    scribble = [torch.full((n,), -7, dtype=torch.int64, device="cuda")
+                for n in (64, 128, 256, 512, 1024) for _ in range(64)]
+    for _ in range(3):
+        got = b.execute(sql).rows()
+        assert b.executor.last_dispatch()[0] == "replayed"
+        _close_rows(got, want)
+    with _Eager(b):
+        _close_rows(b.execute(sql).rows(), got)
+    del scribble
+    b.close()
+
+
+def test_a_capture_that_fails_on_cuda_raises(tmp_path, cuda, monkeypatch):
+    """A host synchronization inside the dispatch is illegal under
+    capture: the statement raises, it does not fall back to eager."""
+    import citus_tpu_torch
+    from citus_tpu_torch.executor.compiler import PlanCompiler
+
+    data_dir, queries, _want = _graph_dir(tmp_path)
+    gpu = citus_tpu_torch.connect(data_dir, serving_result_cache_bytes=0,
+                                  max_statement_retries=0)
+    gpu.execute(NN_SQL)  # settles the key
+    real = PlanCompiler._dispatch
+
+    def syncing(self, plan, feeds):
+        out = real(self, plan, feeds)
+        out[1].sum().item()  # a host read of a device value
+        return out
+
+    monkeypatch.setattr(PlanCompiler, "_dispatch", syncing)
+    with pytest.raises(Exception, match="captur"):
+        gpu.execute(NN_SQL)
+    monkeypatch.setattr(PlanCompiler, "_dispatch", real)
+    torch.cuda.synchronize()
+    gpu.close()

@@ -301,6 +301,33 @@ def test_promote_serves_writes_and_fences_old_leader(pair):
         r.close()
 
 
+def test_promoted_follower_opens_with_its_memo_and_cache_warm(pair):
+    """The leader's caps_memo.json and exec_cache/ ship with its data: a
+    follower promoted later opens warm — its first run of a statement
+    the leader converged starts at the memoized sizes (no capacity
+    retry, one plan-cache key) and resolves from the persisted cache."""
+    s, lead, foll = pair
+    join = "select a.id, b.id from kv a, kv b where a.v % 2 = b.v % 2"
+    s.execute("set join_output_capacity_factor = 0.1")
+    first = s.execute(join)
+    assert first.retries == 1
+    s.executor.flush_persistent()
+    ship_all(lead, counters=s.stats.counters)
+    promote(foll)
+    assert os.path.exists(os.path.join(foll, "caps_memo.json"))
+    assert any(f.endswith(".meta.json")
+               for f in os.listdir(os.path.join(foll, "exec_cache")))
+    r = _port(foll, join_output_capacity_factor=0.1)
+    try:
+        again = r.execute(join)
+        assert again.retries == 0 and r.executor.plan_cache.misses == 1
+        assert sorted(again.rows()) == sorted(first.rows())
+        assert r.stats.counters.snapshot()[
+            sc.EXEC_CACHE_HITS_TOTAL] == 1
+    finally:
+        r.close()
+
+
 def test_zombie_batch_in_spool_rejected_by_applier(pair):
     s, lead, foll = pair
     promote(foll)

@@ -28,6 +28,7 @@ rides the micro-batcher.  Afterwards:
 Exact on every count.
 """
 
+import os
 import shutil
 
 import pytest
@@ -54,13 +55,15 @@ torch.set_num_threads(1)
 # the module bumping them in the JAX package
 NOT_BUMPED = {
     **dict.fromkeys(
-        ("exec_cache_hits_total", "exec_cache_misses_total",
-         "exec_cache_rejects_total", "compiles_deduped_total",
-         "warmup_compiles_total"), 7),
-    **dict.fromkeys(
         ("device_lost_total", "mesh_failovers_total",
          "queries_rescued_total", "shuffle_bytes_total"), 9),
 }
+# the persisted plan cache's counters: the script runs both packages
+# with it off (equal at 0); test_exec_cache_counters_bump_where_they_should
+# runs the statements that bump each one
+EXEC_CACHE_COUNTERS = ("exec_cache_hits_total", "exec_cache_misses_total",
+                       "exec_cache_rejects_total", "compiles_deduped_total",
+                       "warmup_compiles_total")
 
 STREAM_ON = "set max_feed_bytes_per_device = 1; set stream_batch_rows = 512"
 STREAM_OFF = ("set max_feed_bytes_per_device = 6442450944; "
@@ -158,7 +161,8 @@ def _jax(d):
 
 def _port(d):
     return citus_tpu_torch.connect(d, device="cpu",
-                                   serving_result_cache_bytes=0, **_COMMON)
+                                   serving_result_cache_bytes=0,
+                                   exec_cache_enabled=False, **_COMMON)
 
 
 def _run(sess, fi, err_timeout, repl):
@@ -246,6 +250,93 @@ def test_counters_match_jax_over_the_script(ran):
                  "serving_cache_misses_total", "log_batches_shipped_total",
                  "log_batches_applied_total"):
         assert pc[name] > 0, name
+
+
+def test_exec_cache_counters_bump_where_they_should(base, tmp_path,
+                                                    monkeypatch):
+    """Each of the persisted plan cache's counters, bumped by the
+    statement that should bump it: a plan-cache miss on a key never
+    persisted (misses), the same key in a fresh session (hits), a
+    rotten entry (rejects), a session joining another's capture of one
+    key (compiles_deduped_total, with a stand-in for the CUDA graph:
+    tests/test_torch_graphs.py) and the warmup arming an entry
+    (warmup_compiles_total)."""
+    import threading
+
+    from citus_tpu_torch.executor import graphs
+    from citus_tpu_torch.executor import runner as prunner
+
+    assert set(EXEC_CACHE_COUNTERS) <= set(psc.ALL_COUNTERS)
+    d = str(tmp_path / "d")
+    shutil.copytree(base, d)
+    sql = "select o_orderpriority, count(*) from orders group by 1"
+
+    def port(**kw):
+        return citus_tpu_torch.connect(d, device="cpu",
+                                       serving_result_cache_bytes=0,
+                                       **dict(_COMMON, **kw))
+
+    def delta(s, before):
+        now = s.stats.counters.snapshot()
+        return {k: now.get(k, 0) - before.get(k, 0)
+                for k in EXEC_CACHE_COUNTERS}
+
+    s = port()
+    b = s.stats.counters.snapshot()
+    s.execute(sql)
+    assert delta(s, b)["exec_cache_misses_total"] >= 1
+    assert delta(s, b)["exec_cache_hits_total"] == 0
+    s.close()
+    s = port()
+    b = s.stats.counters.snapshot()
+    s.execute(sql)
+    assert delta(s, b) == dict.fromkeys(EXEC_CACHE_COUNTERS, 0) | {
+        "exec_cache_hits_total": 1}
+    s.close()
+    ec = os.path.join(d, "exec_cache")
+    for f in os.listdir(ec):
+        if f.endswith(".bin"):
+            with open(os.path.join(ec, f), "r+b") as fh:
+                fh.truncate(4)
+    s = port()
+    b = s.stats.counters.snapshot()
+    s.execute(sql)
+    assert delta(s, b)["exec_cache_rejects_total"] == 1
+    s.close()
+    s = port(warmup_budget_ms=30_000)
+    s._warmup_thread.join(30)
+    assert delta(s, {})["warmup_compiles_total"] >= 1
+    s.close()
+
+    captured = threading.Event()
+
+    def capture(key, compiler, plan, feeds, caps, feed_keys, accountant):
+        class G:
+            def replay(self):
+                pass
+
+        out = compiler.run(plan, feeds, caps)
+        packed = torch.from_numpy(out[0][:, 0, :].copy())
+        g = graphs.CapturedPlan(key, G(), packed,
+                                torch.from_numpy(out[1].copy()), out[2],
+                                out[3], feed_keys, [], {}, {}, {}, 0,
+                                accountant)
+        captured.set()
+        return g
+
+    monkeypatch.setattr(graphs, "capture", capture)
+    monkeypatch.setattr(prunner.Executor, "_graphs_on", lambda self: True)
+    a, b2 = port(), port()
+    for _ in range(2):
+        a.execute(sql)  # settles, then captures (at once when armed)
+    assert captured.is_set()
+    for _ in range(2):
+        b2.execute(sql)  # adopts a's capture
+    assert delta(a, {})["compiles_deduped_total"] == 0
+    assert delta(b2, {})["compiles_deduped_total"] == 1
+    assert b2.executor.last_dispatch()[0] == "replayed"
+    a.close()
+    b2.close()
 
 
 def test_statements_and_tenants_match_jax(ran):

@@ -27,6 +27,7 @@ float64.  The contracts:
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -341,8 +342,38 @@ def test_explain_analyze_lines_match_jax(base, tmp_path, name, streamed):
             assert x in jl, x
     timing = next(x for x in pl if x.startswith("Timing: "))
     assert "plan=" in timing and "device=" in timing
+    # the Caches line carries the JAX package's fields, exec-cache ones
+    # included, then how the run dispatched (the CPU never captures)
+    jc = next(x for x in jl if tag(x) == "Caches")
+    pc = next(x for x in pl if tag(x) == "Caches")
+    head, _sep, graph = pc.partition("  graph=")
+    assert re.findall(r"([a-z_-]+)=", head) == \
+        re.findall(r"([a-z_-]+)=", jc)
+    assert "exec-cache hits=" in head and "warmup_compiles_total=" in head
+    assert graph == "eager"
     if streamed and name != "fast_path":
         assert any(x.startswith("Streamed Execution:") for x in pl)
+    assert open_span_count() == 0
+
+
+def test_compile_spans_tell_a_persisted_key_from_a_new_one(base, tmp_path):
+    """A plan-cache miss resolves under a `compile` span: its
+    `compile.cache_load` probe of the persisted plan cache, cache=miss
+    for a key never persisted, cache=hit in a fresh session once the
+    key converged."""
+    d = _copy(base, tmp_path, "p")
+    metas = []
+    for _ in range(2):
+        p = _port(d, trace_fast_statement_ms=0)
+        p.execute(GROUPED)
+        doc = p.stats.tracing.last_trace()
+        compiles = _find(doc["root"], "compile")
+        assert compiles and _find(doc["root"], "compile.cache_load")
+        metas.append([c["meta"]["cache"] for c in compiles])
+        _assert_tiles_wall(doc, abs_ms=8.0)
+        p.close()
+    assert set(metas[0]) == {"miss"}
+    assert metas[1] == ["hit"]
     assert open_span_count() == 0
 
 
