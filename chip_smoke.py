@@ -39,8 +39,11 @@ Phases, each fatal on failure (no result line is printed then):
    decode), then the best of --reps warm runs; per statement the walls,
    retries, rows, each kernel's launches and the rows and host seconds
    of each intermediate result it stored.  Q4, Q13, Q18 and Q21 are held
-   against numpy, the other 18 against the port's own CPU session on the
-   same data_dir (float32 on both sides).  Fails when an
+   against numpy, the other 18 against the port's own CPU session
+   (float32 on both sides): on the same data_dir, but for Q8 and Q9
+   (CHECK_SMALL), which run again on a second, smaller data_dir (SF
+   CHECK_SF, loaded by a card session) in a card session and in the CPU
+   session.  Fails when an
    answer differs, when the dense-grid sum, the bucketed group-by sums
    or the dictionary decode never launch on the 14 statements that
    plan recursively, or when an `__intermediate_` temp outlives its
@@ -182,8 +185,28 @@ Phases, each fatal on failure (no result line is printed then):
     data_dir, 'pre_ops'), lineitem back at 8 shards and Q1 and Q3 equal
     to numpy.  Walls and launches per step; fails past its 150 s budget
     or when a kernel never launches in the phase;
-15. print the kernels line (with each kernel's launches in phases 8,
-    9, 10, 11, 12, 13 and 14), then the device line last.
+15. the compiled form: warm resident plans replayed as CUDA graphs,
+    the persisted capacity memo, single-flight captures across sessions
+    and warm-before-admit (see phase15);
+16. the mesh, last, with every launch count at 0, on the SF1 data_dir
+    (shard_count 8): M0 a 2-position session fits the node set to 2
+    (citus_rebalance_mesh) and copies orders into orders_m, whose
+    shards then sit on 2 nodes; M1 a 4-position session on cuda:0 runs
+    Q3 over orders_m on 2 of its 4 positions, then citus_rebalance_mesh
+    spreads every table over 4 nodes and Q3 over orders_m runs again;
+    M2 Q1, Q3, the high-cardinality GROUP BY and the nullable aggregate
+    at 4 positions, each against numpy and against a one-position
+    session's rows; M3 a device-routed INSERT..SELECT into a 4-shard
+    table (one shard per position) with its per-position row counts
+    against numpy; M4 citus_drain_device(3) and Q3 over orders_m again
+    (position 3 feeds no rows); M5 a replication-factor-2 data_dir at
+    SF RF2_SF on 4 positions, a MeshSim kill of position 2 in the middle
+    of Q3, failing over to 3 positions with Q3 equal to numpy.  Per
+    step the wall, the all_to_all bytes, the rows per position and the
+    launches per kernel; fails past its 150 s budget or when K1, K2 or
+    K3 never launch at 4 positions;
+17. print the kernels line (with each kernel's launches in phases 8
+    to 16), then the device line last.
 
 Exits non-zero without a result when no GPU is visible or the port's
 package is not next to this script.  Imports nothing of JAX.
@@ -820,6 +843,12 @@ RECURSIVE_QUERIES = ("Q2", "Q4", "Q7", "Q8", "Q9", "Q11", "Q13", "Q15",
 # kernels that must launch on the recursive statements
 TPCH22_KERNELS = ("dense_grid_sum", "bucketed_groupby_sums", "dict_decode")
 PROFILED = ("Q4", "Q13", "Q18", "Q21")
+# the statements whose card answers phase 8 holds against the CPU session
+# on a second data_dir at CHECK_SF (their CPU runs over SF1 took most of
+# the phase); the other statements without a numpy answer are held to the
+# CPU session over SF1
+CHECK_SMALL = ("Q8", "Q9")
+CHECK_SF = 0.1
 TEMP_PREFIX = "__intermediate_"
 
 
@@ -1061,11 +1090,15 @@ def tpch22(ct, hk, data_dir, data, reps, ident) -> dict:
         if not sum(first[q][n] for q in RECURSIVE_QUERIES):
             raise AssertionError(f"{n} never launched on the recursive "
                                  "TPC-H statements")
+    # the other 18 statements: the card's SF1 answers against the CPU
+    # session on the same data_dir, but for CHECK_SMALL, whose CPU runs
+    # over SF1 took most of the phase: those run again, on the card and
+    # on the CPU, on a second, smaller data_dir
     cpu = rerun_connect(ct, data_dir, device="cpu", compute_dtype="float32")
     differ = []
     for q in names:
-        if q in want_np:
-            continue  # held against numpy above
+        if q in want_np or q in CHECK_SMALL:
+            continue  # held against numpy above, or at CHECK_SF below
         t0 = time.perf_counter()
         sql = tpch.QUERIES[q]
         want = cpu.execute(sql).rows()
@@ -1078,6 +1111,33 @@ def tpch22(ct, hk, data_dir, data, reps, ident) -> dict:
                 f"CPU {want[:5]}")
         else:
             log(f"  {q} matches the CPU session ({dt!r} s on the CPU)")
+    cpu.close()
+    t0 = time.perf_counter()
+    small_dir = data_dir + "_check"
+    card = rerun_connect(ct, small_dir)
+    tpch.load_tables(card, tpch.generate_tables(CHECK_SF, seed=1))
+    cpu = rerun_connect(ct, small_dir, device="cpu", compute_dtype="float32")
+    log(f"tpch22 check data_dir SF{CHECK_SF}: loaded in "
+        f"{time.perf_counter() - t0!r} s")
+    for q in CHECK_SMALL:
+        sql = tpch.QUERIES[q]
+        t0 = time.perf_counter()
+        got = card.execute(sql).rows()
+        t1 = time.perf_counter()
+        want = cpu.execute(sql).rows()
+        t2 = time.perf_counter()
+        check_no_temps(cpu, accountant_for(small_dir), f"{q} on the CPU")
+        diff = same_rows(got, want, "order by" in sql.lower())
+        if diff:
+            differ.append(q)
+            log(f"  {q}: card against CPU at SF{CHECK_SF}: {diff}; card "
+                f"{got[:5]}, CPU {want[:5]}")
+        else:
+            log(f"  {q} matches the CPU session at SF{CHECK_SF} (card "
+                f"{t1 - t0!r} s, CPU {t2 - t1!r} s)")
+    card.close()
+    cpu.close()
+    shutil.rmtree(small_dir, ignore_errors=True)
     if differ:
         raise AssertionError(f"card against CPU: {differ} differ")
     return {n: sum(first[q][n] for q in names) for n in hk.KERNELS}
@@ -3465,6 +3525,194 @@ def phase15(ct, hk, data_dir, data, queries, checks, want,
     return launched, replayed_launches
 
 
+# -- phase 16: the mesh -------------------------------------------------------
+
+PHASE16_BUDGET_S = 150.0
+MESH_POSITIONS = 4
+# phase 16's replication-factor-2 data_dir (step M5)
+RF2_SF = 0.1
+# what a 4-position session must launch on Q1, Q3 and the GROUP BY
+MESH_KERNELS = ("dense_grid_sum", "bucketed_probe", "bucketed_groupby_sums")
+ROUTE_WHERE = "l_quantity < 10"
+
+
+def _orders_m(sql: str) -> str:
+    import re
+
+    return re.sub(r"\borders\b", "orders_m", sql)
+
+
+def phase16(ct, hk, data_dir, data, li, queries, checks, want,
+            ident) -> dict:
+    """Phase 16 (the mesh).  Returns each kernel's launches over the
+    phase."""
+    import numpy as np
+    import torch
+
+    from citus_tpu_torch.executor.insert_select import _device_shard_map
+    from citus_tpu_torch.ingest import tpch
+    from citus_tpu_torch.planner.plan import table_placement
+    from citus_tpu_torch.stats import counters as sc
+    from citus_tpu_torch.utils.faultinjection import simulate_mesh
+
+    t_phase = time.perf_counter()
+    n = MESH_POSITIONS
+    launched = {k: 0 for k in hk.KERNELS}
+    mesh_launched = {k: 0 for k in hk.KERNELS}
+    hk.reset_launch_counts()
+
+    def step(sess, label, fn, mesh=True):
+        snap0 = sess.stats.counters.snapshot()
+        before = dict(hk.LAUNCHES)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d = {k: hk.LAUNCHES[k] - before[k] for k in hk.KERNELS}
+        for k, v in d.items():
+            launched[k] += v
+            if mesh:
+                mesh_launched[k] += v
+        shuffled = (sess.stats.counters.snapshot().get(
+            sc.SHUFFLE_BYTES_TOTAL, 0) - snap0.get(sc.SHUFFLE_BYTES_TOTAL, 0))
+        log(f"phase16 {label}: wall {dt!r} s, all_to_all bytes {shuffled}, "
+            f"rows per position in {getattr(res, 'device_rows_in', None)} "
+            f"out {getattr(res, 'device_rows', None)}, launches {d} "
+            f"({ident})")
+        return res, shuffled
+
+    # -- M0: orders_m laid out for 2 positions -----------------------------
+    s2 = rerun_connect(ct, data_dir, n_devices=2)
+    step(s2, "M0 citus_rebalance_mesh() at 2 positions",
+         lambda: s2.execute("select citus_rebalance_mesh()"), mesh=False)
+    s2.execute(tpch.SCHEMAS["orders"].replace("create table orders",
+                                              "create table orders_m", 1))
+    s2.execute("select create_distributed_table('orders_m', 'o_orderkey', "
+               "8)")
+    step(s2, "M0 insert into orders_m select * from orders",
+         lambda: s2.execute("insert into orders_m select * from orders"),
+         mesh=False)
+    s2.close()
+
+    # -- M1: a 4-position session; rebalance over 4 nodes ------------------
+    s4 = rerun_connect(ct, data_dir, n_devices=n)
+    used = sorted(set(table_placement(s4.catalog, "orders_m", n)))
+    if used != [0, 1]:
+        raise AssertionError(f"M1: orders_m on positions {used}, not 2")
+    q3m = _orders_m(queries["Q3"])
+    res, _ = step(s4, "M1 Q3 over orders_m on 2 of 4 positions",
+                  lambda: s4.execute(q3m))
+    checks["Q3"](res, want["Q3"])
+    res, _ = step(s4, "M1 citus_rebalance_mesh() at 4 positions",
+                  lambda: s4.execute("select citus_rebalance_mesh()"))
+    log(f"phase16 M1 rebalance: {dict(zip(res.column_names, res.rows()[0]))}"
+        f"; orders_m on positions "
+        f"{sorted(set(table_placement(s4.catalog, 'orders_m', n)))}")
+    res, _ = step(s4, "M1 Q3 over orders_m after the rebalance",
+                  lambda: s4.execute(q3m))
+    checks["Q3"](res, want["Q3"])
+    if min(res.device_rows_in) <= 0:
+        raise AssertionError(f"M1: a position fed no rows: "
+                             f"{res.device_rows_in}")
+
+    # -- M2: the main path at 4 positions ----------------------------------
+    s1 = rerun_connect(ct, data_dir)
+    for q, sql in queries.items():
+        res, shuffled = step(s4, f"M2 {q} at {n} positions",
+                             lambda: s4.execute(sql))
+        checks[q](res, want[q])
+        one = s1.execute(sql)
+        diff = same_rows(res.rows(), one.rows(), "order by" in sql.lower())
+        if diff:
+            raise AssertionError(f"M2 {q}: {n} positions against one: "
+                                 f"{diff}")
+        if q == "Q3" and shuffled <= 0:
+            raise AssertionError("M2 Q3: the repartition moved no bytes")
+        step(s4, f"M2 {q} warm", lambda: s4.execute(sql))
+    s1.close()
+    missing = [k for k in MESH_KERNELS if mesh_launched[k] <= 0]
+    if missing:
+        raise AssertionError(f"M2: {missing} never launched at {n} "
+                             "positions")
+
+    # -- M3: a device-routed INSERT..SELECT --------------------------------
+    s4.execute("create table li_route (l_orderkey bigint, "
+               "l_quantity double precision)")
+    s4.execute(f"select create_distributed_table('li_route', 'l_orderkey', "
+               f"{n})")
+    if _device_shard_map(s4, s4.catalog.table("li_route")) is None:
+        raise AssertionError("M3: li_route is not one shard per position")
+    res, shuffled = step(
+        s4, "M3 insert into li_route select ... from lineitem",
+        lambda: s4.execute("insert into li_route select l_orderkey, "
+                           f"l_quantity from lineitem where {ROUTE_WHERE}"))
+    if shuffled <= 0:
+        raise AssertionError("M3: the output shuffle moved no bytes")
+    per_pos = [s4.store.shard_row_count("li_route", sh.shard_id)
+               for sh in s4.catalog.table_shards("li_route")]
+    from citus_tpu_torch.catalog.distribution import (
+        hash_token,
+        shard_index_for_token_ranges,
+    )
+
+    keys = np.asarray(li["l_orderkey"])[np.asarray(li["l_quantity"]) < 10]
+    want_pos = np.bincount(shard_index_for_token_ranges(
+        hash_token(keys.astype(np.int64)),
+        s4.catalog.shard_mins("li_route")), minlength=n).tolist()
+    log(f"phase16 M3 rows per position {per_pos}, numpy {want_pos}")
+    if per_pos != want_pos:
+        raise AssertionError(f"M3: rows per position {per_pos} against "
+                             f"numpy {want_pos}")
+
+    # -- M4: drain position 3 ----------------------------------------------
+    res, _ = step(s4, "M4 citus_drain_device(3)",
+                  lambda: s4.execute("select citus_drain_device(3)"))
+    log(f"phase16 M4 drain: {dict(zip(res.column_names, res.rows()[0]))}")
+    res, _ = step(s4, "M4 Q3 over orders_m after the drain",
+                  lambda: s4.execute(q3m))
+    checks["Q3"](res, want["Q3"])
+    if res.device_rows_in[3] != 0:
+        raise AssertionError(f"M4: the drained position fed "
+                             f"{res.device_rows_in[3]} rows")
+    s4.execute("drop table li_route")
+    s4.execute("drop table orders_m")
+    s4.close()
+
+    # -- M5: a position killed in the middle of Q3 (replication 2) ---------
+    rf_dir = data_dir + "_rf2"
+    small = tpch.generate_tables(RF2_SF, seed=3)
+    want_small = numpy_q3(small["customer"], small["orders"],
+                          small["lineitem"])
+    rf = rerun_connect(ct, rf_dir, n_devices=n, shard_replication_factor=2)
+    t0 = time.perf_counter()
+    tpch.load_tables(rf, small)
+    log(f"phase16 M5 load SF{RF2_SF} at replication 2: "
+        f"{time.perf_counter() - t0!r} s")
+    res, _ = step(rf, "M5 Q3 at 4 positions",
+                  lambda: rf.execute(queries["Q3"]))
+    check_q3(res, want_small)
+    with simulate_mesh(kill={2}, after=2) as sim:
+        res, _ = step(rf, "M5 Q3 with position 2 killed mid-statement",
+                      lambda: rf.execute(queries["Q3"]))
+    check_q3(res, want_small)
+    snap = rf.stats.counters.snapshot()
+    log(f"phase16 M5: {sim.trips} MeshSim trips, positions now "
+        f"{rf.mesh.ids}, mesh_failovers {snap[sc.MESH_FAILOVERS_TOTAL]}, "
+        f"queries_rescued {snap[sc.QUERIES_RESCUED_TOTAL]}")
+    if rf.mesh.ids != (0, 1, 3) or snap[sc.MESH_FAILOVERS_TOTAL] != 1:
+        raise AssertionError(f"M5: positions {rf.mesh.ids}, failovers "
+                             f"{snap[sc.MESH_FAILOVERS_TOTAL]}")
+    rf.close()
+    shutil.rmtree(rf_dir, ignore_errors=True)
+
+    total = time.perf_counter() - t_phase
+    log(f"phase16: {total!r} s, launches {launched} ({ident})")
+    if total > PHASE16_BUDGET_S:
+        raise AssertionError(f"phase 16 took {total:.1f} s, over its "
+                             f"{PHASE16_BUDGET_S} s budget")
+    return launched
+
+
 def _spans_named(span, name):
     if span["name"] == name:
         yield span
@@ -3637,6 +3885,10 @@ def main() -> int:
                                          data, queries, checks, want14,
                                          ident)
         log(f"phase 15: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        launched16 = phase16(ct, hk, os.path.join(tmp, "data"), data,
+                             li_now, queries, checks, want14, ident)
+        log(f"phase 16: {time.perf_counter() - t0:.3f} s")
         for rep in reports:
             rep["launches_tpch22"] = launched[rep["name"]]
             rep["launches_phase9"] = launched9[rep["name"]]
@@ -3647,6 +3899,7 @@ def main() -> int:
             rep["launches_phase14"] = launched14[rep["name"]]
             rep["launches_phase15"] = launched15[rep["name"]]
             rep["launches_replayed"] = replayed15[rep["name"]]
+            rep["launches_phase16"] = launched16[rep["name"]]
 
         log(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s")
         print(json.dumps({"kernels": reports}), flush=True)

@@ -38,9 +38,14 @@ __all__ = [
 ]
 
 
-def connect(data_dir: str | None = None, device=None, **settings):
+def connect(data_dir: str | None = None, device=None,
+            n_devices: int | None = None, devices=None, **settings):
     """Open a Session.  `device=None` picks cuda and raises when no GPU is
-    visible; pass device="cpu" to run the plain formulations."""
+    visible; pass device="cpu" to run the plain formulations.
+    `n_devices=N` runs every statement as N hash-sharded mesh positions
+    on that device; `devices=[...]` maps the positions onto the listed
+    devices instead (one per position, a device may repeat)."""
     from .session import Session
 
-    return Session(data_dir=data_dir, device=device, **settings)
+    return Session(data_dir=data_dir, device=device, n_devices=n_devices,
+                   devices=devices, **settings)

@@ -57,6 +57,20 @@ _register(ConfigVar(
     "(ref: citus.shard_replication_factor, shared_library_init.c).",
     int, min_value=1, max_value=64))
 _register(ConfigVar(
+    "mesh_failover", True,
+    "Query-level failover on device loss: when a mesh position dies, "
+    "hangs or errors mid-statement (DeviceLostError), rebuild the mesh "
+    "from the survivors, mark the lost position's nodes dead in the "
+    "catalog health ledger, re-route shard reads onto surviving replica "
+    "placements (shard_replication_factor >= 2) and re-execute the "
+    "statement.  Off = a DeviceLostError surfaces immediately.",
+    bool))
+_register(ConfigVar(
+    "repartition_capacity_factor", 1.5,
+    "Static all_to_all buffer headroom over expected rows per partition "
+    "on a mesh.  Overflow triggers a retry with doubled capacity.",
+    float, min_value=1.0, max_value=64.0))
+_register(ConfigVar(
     "enable_repartition_joins", True,
     "Allow dual/single repartition (all_to_all) joins "
     "(ref: citus.enable_repartition_joins, shared_library_init.c:1609).",

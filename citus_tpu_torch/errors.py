@@ -86,6 +86,41 @@ class ExecutionError(CitusTpuError):
     """Runtime failure during distributed execution."""
 
 
+class DeviceLostError(ExecutionError):
+    """A mesh position's device died, hung past its deadline, or errored
+    mid-statement (the reference's "connection to worker lost").
+
+    Raised at the mesh seams (``mesh.device_put`` per-position transfer,
+    ``mesh.collective`` exchange, ``mesh.fetch`` result pull) by the
+    armed MeshSim (utils/faultinjection.py) or by wrapping a CUDA error
+    that matches the device-loss signature (distributed/mesh.py
+    is_device_loss).  The session's retry envelope marks the position
+    suspect, rebuilds the mesh from the survivors, re-plans through the
+    node↔device map (replicated placements fail over) and re-runs.
+    ``device_id`` is the lost position's id when known (None for an
+    opaque collective failure: the session then probes every position);
+    ``seam`` names where it died."""
+
+    def __init__(self, message: str, device_id: int | None = None,
+                 seam: str | None = None):
+        self.device_id = device_id
+        self.seam = seam
+        super().__init__(message)
+
+
+class MeshDegradedError(DeviceLostError):
+    """Device loss that cannot be failed over: no surviving position, a
+    shard whose only placement sits on a lost position, or the failover
+    budget is spent — the clean, client-facing terminal error."""
+
+
+class StaleMeshPlan(ExecutionError):
+    """A plan built for a mesh width the executor no longer has (a
+    failover, drain or shrink narrowed it between planning and
+    execution).  No device was lost: the session's retry envelope
+    re-plans at the current width without counting a device loss."""
+
+
 class ResourceExhausted(ExecutionError):
     """Device memory could not be made to fit even after the OOM
     degradation ladder (cache eviction → stream-batch shrink → forced

@@ -128,11 +128,19 @@ def feeds_signature(plan: QueryPlan, feeds) -> tuple:
             f = feeds[id(node)]
             sig.append((
                 f.sharded, f.capacity,
-                tuple((cid, str(f.arrays[cid].dtype), f.arrays[cid].shape)
+                tuple((cid,) + _tensor_sig(f.arrays[cid])
                       for cid in sorted(f.arrays)),
                 tuple(sorted(f.nulls)),
             ))
     return tuple(sig)
+
+
+def _tensor_sig(t) -> tuple:
+    """(dtype, shape) of a feed tensor; a per-position list (a mesh over
+    several cards) reads as its stacked shape."""
+    if isinstance(t, (list, tuple)):
+        return (str(t[0].dtype), (len(t),) + tuple(t[0].shape))
+    return (str(t.dtype), t.shape)
 
 
 class PlanCache:

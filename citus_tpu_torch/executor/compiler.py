@@ -1,4 +1,4 @@
-"""Run a QueryPlan eagerly on one device: the port's PlanCompiler.
+"""Run a QueryPlan eagerly, on one device or a mesh: the port's PlanCompiler.
 
 Counterpart of citus_tpu/executor/compiler.py.  The JAX package traces
 the whole plan into one shard_map program; PyTorch runs eagerly, so this
@@ -15,8 +15,14 @@ unchanged, which keeps the runner's retry and feedback logic valid:
   counter vector — two device→host copies per execution — and unpack
   through `unpack_outputs`.
 
-On one device every repartition, psum and all_gather is the identity.
-The dense aggregate's per-slot sums run in one dense_grid_sum kernel call
+A plan for N positions (a mesh session, distributed/mesh.py) runs the
+same per-position program once per position, in lockstep, from the
+statement's own thread: the plan-walking methods are generators, and each
+collective — the repartition's all_to_all, the psum/pmin/pmax combines,
+the broadcast all_gather — is a `yield` of the position's tensors that
+the driver (`_lockstep`) answers once every position has reached it.  At
+one position every collective is the identity and no shuffle buffer
+exists.  The dense aggregate's per-slot sums run in one dense_grid_sum kernel call
 on the card, reading the columns where they lie, where the JAX executor
 takes its one-hot branch (f32 sums, and counts while n < 2^24, over at
 most DENSE_ONEHOT_MAX_SLOTS slots).
@@ -25,22 +31,23 @@ Window functions run as the JAX executor's partition-sorted segmented
 scans: one stable multi-key sort per ORDER BY spec, running scans that
 reset at partition starts, results scattered back to the input rows.
 
-Not in this port yet (raises UnsupportedQueryError): INSERT..SELECT
-routing.
 """
 
 from __future__ import annotations
 
 import math
 import threading
+from contextlib import nullcontext as _nullcontext
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..errors import ExecutionError, PlanningError, UnsupportedQueryError
+from ..errors import ExecutionError, PlanningError
 from ..ops.aggregate import segment_aggregate
+from ..ops.hashing import hash_token, shard_index_from_token
 from ..ops.join import expand_join_outer, expand_join_pairs
+from ..ops.partition import pack_by_target
 from ..planner.plan import (
     AggregateNode,
     JoinNode,
@@ -55,6 +62,15 @@ from .exprs import ColumnSource, evaluate, predicate_mask
 
 _TORCH_FLOAT = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
+
+# packed-column prefix of a null mask riding a repartition
+NULL_PREFIX = "__null__"
+INT32_MIN = -(1 << 31)
+
+# the per-position state the lockstep driver swaps in before stepping a
+# position's program and saves after
+_POS_ATTRS = ("_pos", "device", "_consts", "_overflow", "_dense_oob",
+              "_stage_actual")
 
 
 def _round_cap(n: int) -> int:
@@ -198,7 +214,7 @@ class PlanCompiler:
     DENSE_ONEHOT_MAX_SLOTS = 4096
 
     def __init__(self, plan: QueryPlan, compute_dtype=np.float32,
-                 device="cpu"):
+                 device="cpu", mesh=None):
         self.caps = None
         self.compute_dtype = _TORCH_FLOAT[np.dtype(compute_dtype)]
         self.device = torch.device(device)
@@ -219,11 +235,23 @@ class PlanCompiler:
         # already knew the key converged (its first run captures at once)
         self.settled_feeds = None
         self.armed = False
-        if plan.n_devices != 1:
-            raise ExecutionError("the port executes on one device")
-        if plan.output_repart is not None:
-            raise UnsupportedQueryError(
-                "INSERT..SELECT device routing is not in this port yet")
+        # the mesh the plan's positions run on (one position: the device)
+        self.n_dev = int(plan.n_devices)
+        if mesh is None:
+            from ..distributed.mesh import make_mesh
+
+            mesh = make_mesh(self.n_dev, default_device=self.device)
+        if mesh.size != self.n_dev:
+            raise ExecutionError(
+                f"a plan for {self.n_dev} positions cannot run on a mesh "
+                f"of {mesh.size}")
+        self.mesh = mesh
+        self._pos = 0
+        self._consts_by_dev: dict = {}
+        # all_to_all bytes the last run moved across the mesh (every
+        # position's whole [N, cap] packs, as the JAX package counts)
+        self.shuffle_bytes = 0
+        self._shuffle_bytes = 0
 
     # ------------------------------------------------------------------
     def run(self, plan: QueryPlan, feeds, caps: Capacities,
@@ -263,19 +291,33 @@ class PlanCompiler:
                 # the eager program's launches, timed on the card by a
                 # CUDA event pair (the span's device_ms), then the two
                 # blocking copies back to the host
-                with trace_span("mesh.dispatch") as sp, \
-                        device_timeline(sp, self.device):
+                dspan = (trace_span("mesh.dispatch") if self.n_dev == 1
+                         else trace_span("mesh.dispatch",
+                                         graph="eager: mesh"))
+                with dspan as sp, device_timeline(sp, self.device):
                     packed, counters, meta, stage_keys = self._dispatch(
                         plan, feeds)
                 with trace_span("mesh.fetch"):
-                    packed = packed.cpu().numpy()
-                    counters = counters.cpu().numpy()
+                    self._mesh_seam("mesh.fetch")
+                    try:
+                        packed = packed.cpu().numpy()
+                        counters = counters.cpu().numpy()
+                    except Exception as e:
+                        from ..distributed.mesh import (
+                            _reraise_if_device_loss,
+                        )
+
+                        _reraise_if_device_loss(e, "mesh.fetch")
+                        raise
             finally:
                 self.plan = self.caps = None
             self.out_meta, self.stage_keys = meta, stage_keys
+            self.shuffle_bytes = self._shuffle_bytes
         # the fetch returned: every launch before it has completed
         resolve_device_legs()
-        return packed[:, None, :], counters, meta, stage_keys
+        if packed.ndim == 2:
+            packed = packed[:, None, :]
+        return packed, counters, meta, stage_keys
 
     def _forget_run(self) -> None:
         """Drop the last dispatch's stage counters."""
@@ -284,19 +326,192 @@ class PlanCompiler:
         self._overflow = self._dense_oob = None
 
     def _dispatch(self, plan: QueryPlan, feeds) -> tuple:
-        """Enqueue the plan's launches; returns the packed outputs and
-        counters still on the device, with out_meta and stage_keys."""
+        """Enqueue the plan's launches for every position; returns the
+        packed outputs ([n_out, cap] at one position, [n_out, N, cap]
+        on a mesh) and counters still on the device, with out_meta and
+        stage_keys.  Counters combine across positions as the JAX
+        runner does: overflow and dense_oob add, stage actuals take
+        the largest position's."""
         from .cache import plan_order
 
         self._walk_order = plan_order(plan)
-        self._stage_actual = {}
         self._stage_width = {}
-        zero = torch.zeros((), dtype=torch.int64, device=self.device)
-        self._overflow = zero
-        self._dense_oob = zero
-        blocks = {nid: Block(dict(f.arrays), f.valid, dict(f.nulls))
-                  for nid, f in feeds.items()}
-        out = self._exec(plan.root, blocks)
+        self._shuffle_bytes = 0
+        home = self.device
+        # the dispatch onto the mesh: a lost position kills it here
+        self._mesh_seam("mesh.collective")
+        states, bodies = [], []
+        for i in range(self.n_dev):
+            dev = home if self.n_dev == 1 else self.mesh.devices[i]
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            states.append({"_pos": i, "device": dev,
+                           "_consts": self._consts_for(dev),
+                           "_overflow": zero, "_dense_oob": zero,
+                           "_stage_actual": {}})
+            bodies.append(self._body(plan,
+                                     self._position_blocks(feeds, i, dev)))
+        try:
+            outs = self._lockstep(bodies, states)
+        finally:
+            self.device, self._pos = home, 0
+            self._consts = self._consts_for(home)
+        meta = outs[0][1]
+        if self.n_dev == 1:
+            packed = torch.stack(outs[0][0])
+        else:
+            packed = torch.stack([torch.stack(rows).to(home)
+                                  for rows, _m in outs], dim=1)
+        overflow = sum(st["_overflow"].to(home) for st in states)
+        dense_oob = sum(st["_dense_oob"].to(home) for st in states)
+        actual: dict = {}
+        for st in states:
+            for k, v in st["_stage_actual"].items():
+                v = v.to(home)
+                actual[k] = v if k not in actual else torch.maximum(
+                    actual[k], v)
+        self._overflow, self._dense_oob = overflow, dense_oob
+        self._stage_actual = actual
+        skeys = sorted(actual,
+                       key=lambda k: (self._walk_order.get(
+                           k[0], 1 << 30), k[1]))
+        stage_keys = [(self._walk_order.get(nid, -1), kind,
+                       self._stage_width[(nid, kind)])
+                      for nid, kind in skeys]
+        counters = torch.stack([overflow, dense_oob]
+                               + [actual[k] for k in skeys])
+        return packed, counters, meta, stage_keys
+
+    def _consts_for(self, dev) -> dict:
+        """The list-constant cache of `dev` (the compiler's own dict for
+        its home device, which a captured graph holds)."""
+        if dev == self.device or self.n_dev == 1:
+            return self._consts
+        return self._consts_by_dev.setdefault(str(dev), {})
+
+    def _position_blocks(self, feeds, i: int, dev) -> dict:
+        """Position i's Blocks: its own row of every sharded feed, and
+        the replicated feeds whole (copied to its device when it is
+        another card)."""
+        if self.n_dev == 1:
+            return {nid: Block(dict(f.arrays), f.valid, dict(f.nulls))
+                    for nid, f in feeds.items()}
+        blocks = {}
+        for nid, f in feeds.items():
+            if f.sharded:
+                blocks[nid] = Block({c: a[i] for c, a in f.arrays.items()},
+                                    f.valid[i],
+                                    {c: m[i] for c, m in f.nulls.items()})
+            else:
+                def on(t):
+                    return t if t.device == dev else t.to(dev)
+
+                blocks[nid] = Block({c: on(a) for c, a in f.arrays.items()},
+                                    on(f.valid),
+                                    {c: on(m) for c, m in f.nulls.items()})
+        return blocks
+
+    def _lockstep(self, bodies: list, states: list) -> list:
+        """Step every position's program to its next collective, answer
+        the collective for all of them, and repeat until every program
+        returns.  Returns each program's return value, by position."""
+        n = len(bodies)
+        sends: list = [None] * n
+        results: list = [None] * n
+        while True:
+            reqs, done = [], 0
+            for i, gen in enumerate(bodies):
+                st = states[i]
+                for a in _POS_ATTRS:
+                    setattr(self, a, st[a])
+                try:
+                    ctx = (torch.cuda.device(self.device)
+                           if self.device.type == "cuda"
+                           else _nullcontext())
+                    with ctx:
+                        reqs.append(gen.send(sends[i]))
+                except StopIteration as stop:
+                    results[i] = stop.value
+                    reqs.append(None)
+                    done += 1
+                finally:
+                    for a in _POS_ATTRS:
+                        st[a] = getattr(self, a)
+            if done == n:
+                return results
+            if done:
+                raise ExecutionError(
+                    "mesh positions diverged: some finished while others "
+                    "wait at a collective")
+            sends = self._collective(reqs)
+
+    def _mesh_seam(self, seam: str) -> None:
+        from ..utils.faultinjection import fault_point, mesh_device_check
+
+        fault_point(seam)
+        mesh_device_check(seam, tuple(self.mesh.ids))
+
+    def _collective(self, reqs: list) -> list:
+        """Answer one collective: reqs[i] = (kind, ops, tensors) from
+        position i; returns each position's list of result tensors."""
+        from ..distributed import mesh as dm
+
+        kind, ops, first = reqs[0]
+        for r in reqs:
+            if r[0] != kind or r[1] != ops or len(r[2]) != len(first):
+                raise ExecutionError(
+                    "mesh positions diverged at a collective")
+        self._mesh_seam("mesh.collective")
+        devs = self.mesh.devices
+        outs: list = [[] for _ in reqs]
+        try:
+            for t in range(len(first)):
+                parts = [r[2][t] for r in reqs]
+                if kind == "all_to_all":
+                    res = dm.all_to_all(devs, parts)
+                elif kind == "all_reduce":
+                    res = dm.all_reduce(devs, parts, ops[t])
+                elif kind == "all_gather":
+                    res = dm.all_gather(devs, parts)
+                else:
+                    raise ExecutionError(f"bad collective {kind!r}")
+                for i, r in enumerate(res):
+                    outs[i].append(r)
+        except Exception as e:
+            dm._reraise_if_device_loss(e, "mesh.collective")
+            raise
+        return outs
+
+    def _allreduce(self, tensors: list, ops: list):
+        """psum / pmin / pmax of each tensor across the positions (ops[i]
+        is 'sum', 'min' or 'max'); the identity at one position."""
+        if self.n_dev == 1:
+            return list(tensors)
+        out = yield ("all_reduce", tuple(ops), list(tensors))
+        return out
+
+    def _is_first(self, shape) -> torch.Tensor:
+        """[shape] bool: True on position 0 only (the JAX package's
+        `axis_index == 0` emit gate)."""
+        return torch.full(shape, self._pos == 0, dtype=torch.bool,
+                          device=self.device)
+
+    def _body(self, plan: QueryPlan, blocks: dict):
+        """One position's program: the plan, the INSERT..SELECT output
+        shuffle, the replicated-root gate and the device top-k, then the
+        output rows for the packed transfer."""
+        out = yield from self._exec(plan.root, blocks)
+        if plan.output_repart is not None:
+            # INSERT..SELECT device routing: shuffle the final block to
+            # the TARGET table's sharding, so the host writes each
+            # position's rows without re-hashing
+            shard_count, placement, bounds, key_expr = plan.output_repart
+            out = yield from self._repartition(
+                out, [key_expr], shard_count, placement,
+                self.caps.output_repart, keep_null_rows=True,
+                bounds=bounds or None)
+        if self.n_dev > 1 and plan.root.dist.kind == "replicated":
+            # every position holds identical rows: emit from position 0
+            out = out.with_filter(self._is_first(out.valid.shape))
         topk = plan.device_topk
         if topk is not None and out.valid.shape[0] > topk:
             out = self._device_topk(out, topk)
@@ -313,16 +528,7 @@ class PlanCompiler:
             meta.append(("null", cid, np.dtype(np.bool_)))
         rows.append(out.valid.to(torch.int64))
         meta.append(("valid", "", np.dtype(np.bool_)))
-        skeys = sorted(self._stage_actual,
-                       key=lambda k: (self._walk_order.get(
-                           k[0], 1 << 30), k[1]))
-        stage_keys = [(self._walk_order.get(nid, -1), kind,
-                       self._stage_width[(nid, kind)])
-                      for nid, kind in skeys]
-        counters = torch.stack(
-            [self._overflow, self._dense_oob]
-            + [self._stage_actual[k] for k in skeys])
-        return torch.stack(rows), counters, meta, stage_keys
+        return rows, meta
 
     # ------------------------------------------------------------------
     def _src(self, blk: Block) -> ColumnSource:
@@ -342,7 +548,9 @@ class PlanCompiler:
         self._stage_width[key] = max(int(width),
                                      self._stage_width.get(key, 0))
 
-    def _exec(self, node: PlanNode, feeds: dict[int, Block]) -> Block:
+    def _exec(self, node: PlanNode, feeds: dict[int, Block]):
+        """Run `node` for the current position: a generator that yields
+        at each collective and returns the node's Block."""
         if isinstance(node, ScanNode):
             blk = feeds[id(node)]
             if node.filter is not None:
@@ -355,13 +563,14 @@ class PlanCompiler:
                     blk = self._compact(blk, k)
             return blk
         if isinstance(node, ProjectNode):
-            return self._project(self._exec(node.input, feeds), node.exprs)
+            blk = yield from self._exec(node.input, feeds)
+            return self._project(blk, node.exprs)
         if isinstance(node, JoinNode):
-            return self._exec_join(node, feeds)
+            return (yield from self._exec_join(node, feeds))
         if isinstance(node, WindowNode):
-            return self._exec_window(node, feeds)
+            return (yield from self._exec_window(node, feeds))
         if isinstance(node, AggregateNode):
-            return self._exec_aggregate(node, feeds)
+            return (yield from self._exec_aggregate(node, feeds))
         raise ExecutionError(f"unknown plan node {type(node).__name__}")
 
     def _compact(self, blk: Block, k: int) -> Block:
@@ -482,14 +691,17 @@ class PlanCompiler:
         return (int(base), int(extent))
 
     def _join_inputs(self, node: JoinNode, feeds):
-        """Both sides + key evaluation.  On one device the repartition
-        strategies and the cartesian all_gather are the identity."""
+        """Both sides, their repartition stages and key evaluation
+        (generator).  At one position the repartition strategies and
+        the cartesian all_gather are the identity."""
         if node.strategy not in ("local", "broadcast", "cartesian_gather",
                                  "repart_right", "repart_left",
                                  "repart_both"):
             raise ExecutionError(f"bad join strategy {node.strategy}")
-        lblk = self._exec(node.left, feeds)
-        rblk = self._exec(node.right, feeds)
+        lblk = yield from self._exec(node.left, feeds)
+        rblk = yield from self._exec(node.right, feeds)
+        if self.n_dev > 1:
+            lblk, rblk = yield from self._join_shuffles(node, lblk, rblk)
         key_int32 = getattr(node, "key_int32", ())
         lkeys, lmatch = self._eval_keys(lblk, node.left_keys, key_int32)
         rkeys, rmatch = self._eval_keys(rblk, node.right_keys, key_int32)
@@ -500,6 +712,119 @@ class PlanCompiler:
             rmatch = rmatch & predicate_mask(node.right_match_filter,
                                              self._src(rblk))
         return lblk, rblk, lkeys, lmatch, rkeys, rmatch
+
+    def _join_shuffles(self, node: JoinNode, lblk: Block, rblk: Block):
+        """The join's collectives on a mesh: the cartesian all_gather of
+        the build side, or the repartition of one or both sides toward
+        the partner's sharding (generator)."""
+        # probe side preserved: left/full null-extend; anti KEEPS null-key
+        # probe rows (they match nothing, so NOT EXISTS holds for them)
+        keep_l = node.join_type in ("left", "full", "anti")
+        keep_r = node.join_type in ("right", "full")  # build preserved
+        if node.strategy == "cartesian_gather":
+            # sharded × sharded keyless product: replicate the build side
+            # on every position, then cross it with the local probe shard
+            names = sorted(rblk.columns)
+            nnames = sorted(rblk.nulls)
+            got = yield ("all_gather", None,
+                         [rblk.columns[c] for c in names]
+                         + [rblk.nulls[c] for c in nnames] + [rblk.valid])
+            rblk = Block(dict(zip(names, got[:len(names)])), got[-1],
+                         dict(zip(nnames, got[len(names):-1])))
+        elif node.strategy == "repart_right":
+            # hash ONLY the key aligned with the partner's distribution
+            # column — extra equi-keys don't participate in routing
+            rblk = yield from self._repartition(
+                rblk, [node.right_keys[node.repart_key_idx]],
+                node.left.dist.shard_count, node.left.dist.placement,
+                self.caps.repartition[id(node)], keep_null_rows=keep_r,
+                bounds=node.left.dist.bounds or None, record_nid=id(node))
+        elif node.strategy == "repart_left":
+            lblk = yield from self._repartition(
+                lblk, [node.left_keys[node.repart_key_idx]],
+                node.right.dist.shard_count, node.right.dist.placement,
+                self.caps.repartition[id(node)], keep_null_rows=keep_l,
+                bounds=node.right.dist.bounds or None, record_nid=id(node))
+        elif node.strategy == "repart_both":
+            cap = self.caps.repartition[id(node)]
+            identity = tuple(range(self.n_dev))
+            lblk = yield from self._repartition(
+                lblk, node.left_keys, self.n_dev, identity, cap,
+                keep_null_rows=keep_l, record_nid=id(node))
+            rblk = yield from self._repartition(
+                rblk, node.right_keys, self.n_dev, identity, cap,
+                keep_null_rows=keep_r, record_nid=id(node))
+        return lblk, rblk
+
+    def _repartition(self, blk: Block, keys, shard_count: int,
+                     placement: tuple, capacity: int,
+                     key_arrays: list | None = None,
+                     valid: torch.Tensor | None = None,
+                     keep_null_rows: bool = False,
+                     bounds: tuple | None = None,
+                     record_nid: int | None = None):
+        """pack → all_to_all → flatten (generator; the identity at one
+        position).  Toward a TABLE's sharding the single key hashes
+        exactly like host ingest routing (hash_token); multi-key
+        shuffles (repart_both, the aggregate and window combines) only
+        need internal consistency and fold a 64-bit combine into token
+        space.  Each position's [N, capacity] pack moves whole."""
+        if self.n_dev == 1:
+            return blk
+        dev = self.device
+        if key_arrays is None:
+            key_arrays, valid = self._eval_keys(blk, keys)
+            if keep_null_rows:
+                # outer-preserved side: NULL-key rows ride the shuffle
+                # (routed by their zeroed storage value); they match
+                # nothing but must still emit null-extended
+                valid = blk.valid
+        if len(key_arrays) == 1:
+            token = hash_token(key_arrays[0])
+        else:
+            h = _combine_hash64(key_arrays)
+            token = ((h & 0xFFFFFFFF) + INT32_MIN).to(torch.int32)
+        if bounds is not None:
+            # range-aware routing: shard bounds are arbitrary after splits
+            mins = torch.as_tensor(np.asarray(bounds, dtype=np.int64),
+                                   device=dev)
+            shard = torch.clamp(torch.searchsorted(
+                mins, token.to(torch.int64), right=True) - 1,
+                0, shard_count - 1)
+        else:
+            shard = shard_index_from_token(token, shard_count).to(
+                torch.int64)
+        placement_t = torch.as_tensor(np.asarray(placement,
+                                                 dtype=np.int64),
+                                      device=dev)
+        target = placement_t[shard]
+        if record_nid is not None:
+            # the binding constraint on this buffer is the largest
+            # (source position → target position) bucket
+            sent = torch.zeros(self.n_dev, dtype=torch.int64,
+                               device=dev).index_add_(
+                0, target, valid.to(torch.int64))
+            self._record(record_nid, "repartition", sent.max(), capacity)
+        all_cols = dict(blk.columns)
+        for cid, nmask in blk.nulls.items():
+            all_cols[NULL_PREFIX + cid] = nmask
+        packed, pvalid, overflow = pack_by_target(
+            all_cols, valid, target, self.n_dev, capacity)
+        self._overflow = self._overflow + overflow
+        names = sorted(packed)
+        parts = [packed[c] for c in names] + [pvalid]
+        self._shuffle_bytes += sum(t.numel() * t.element_size()
+                                   for t in parts)
+        got = yield ("all_to_all", None, parts)
+        flat_n = self.n_dev * capacity
+        cols, nulls = {}, {}
+        for cid, arr in zip(names, got[:-1]):
+            flat = arr.reshape(flat_n)
+            if cid.startswith(NULL_PREFIX):
+                nulls[cid[len(NULL_PREFIX):]] = flat
+            else:
+                cols[cid] = flat
+        return Block(cols, got[-1].reshape(flat_n), nulls)
 
     def _exec_lookup_join(self, node: JoinNode, lblk, rblk, lkeys, lmatch,
                           rkeys, rmatch) -> Block:
@@ -571,12 +896,12 @@ class PlanCompiler:
                 nulls[cid] = gathered
         return Block(cols, out_valid, nulls)
 
-    def _exec_join(self, node: JoinNode, feeds) -> Block:
+    def _exec_join(self, node: JoinNode, feeds):
         lblk, rblk, lkeys, lmatch, rkeys, rmatch = \
-            self._join_inputs(node, feeds)
+            yield from self._join_inputs(node, feeds)
         if node.join_type in ("semi", "anti"):
-            return self._exec_semi_join(node, lblk, rblk, lkeys, lmatch,
-                                        rkeys, rmatch)
+            return (yield from self._exec_semi_join(
+                node, lblk, rblk, lkeys, lmatch, rkeys, rmatch))
         if getattr(node, "fuse_lookup", False) and not self.caps.dense_off:
             blk = self._exec_lookup_join(node, lblk, rblk, lkeys, lmatch,
                                          rkeys, rmatch)
@@ -592,8 +917,8 @@ class PlanCompiler:
             return blk
         out_cap = self.caps.join_out[id(node)]
         if node.join_type != "inner":
-            blk = self._exec_outer_expand(node, lblk, rblk, lkeys, lmatch,
-                                          rkeys, rmatch, out_cap)
+            blk = yield from self._exec_outer_expand(
+                node, lblk, rblk, lkeys, lmatch, rkeys, rmatch, out_cap)
         else:
             if getattr(node, "build_side", "right") == "left":
                 bkeys, bmatch, bblk = lkeys, lmatch, lblk
@@ -626,15 +951,16 @@ class PlanCompiler:
         return blk
 
     def _exec_semi_join(self, node: JoinNode, lblk: Block, rblk: Block,
-                        lkeys, lmatch, rkeys, rmatch) -> Block:
+                        lkeys, lmatch, rkeys, rmatch):
         """Semi/anti join (decorrelated EXISTS / NOT EXISTS): the output
         rows are the probe (left) rows.  Without a residual, one
         directory or binary-search bounds pass gives each probe its match
         count.  With a cross-side residual (Q21's `l2.l_suppkey <>
         l1.l_suppkey`) candidate pairs expand, only the residual's
         columns are gathered at pair capacity, and a scatter-max ORs the
-        surviving pairs back onto their probe rows.  On one device the
-        JAX package's flag combine across the mesh is the identity."""
+        surviving pairs back onto their probe rows.  With `flag_combine`
+        (probe replicated over a sharded build) the per-position flags
+        psum across the mesh (generator)."""
         from ..ops.join import _bounds
         from ..planner.expr import expr_columns
 
@@ -672,6 +998,10 @@ class PlanCompiler:
                 flags.scatter_reduce_(0, pidx, ok.to(torch.int32),
                                       reduce="amax", include_self=True)
             matched = flags > 0
+        if getattr(node, "flag_combine", False) and self.n_dev > 1:
+            (m,) = yield from self._allreduce([matched.to(torch.int32)],
+                                              ["sum"])
+            matched = m > 0
         if node.join_type == "anti":
             valid = lblk.valid & ~matched
         else:
@@ -679,13 +1009,14 @@ class PlanCompiler:
         return Block(dict(lblk.columns), valid, dict(lblk.nulls))
 
     def _exec_outer_expand(self, node: JoinNode, lblk: Block, rblk: Block,
-                           lkeys, lmatch, rkeys, rmatch,
-                           out_cap: int) -> Block:
+                           lkeys, lmatch, rkeys, rmatch, out_cap: int):
         """LEFT/RIGHT/FULL pair emission with null extension.  LEFT:
         unmatched probe (left) rows emit once with the build columns
         NULL.  RIGHT/FULL: unmatched build rows append as a second
         segment of the build side's capacity with the probe columns
-        NULL."""
+        NULL; a replicated (broadcast) build side psums its matched
+        flags across the mesh and emits its unmatched rows on position
+        0 only (generator)."""
         probe_outer = node.join_type in ("left", "full")
         build_outer = node.join_type in ("right", "full")
         dense = self._dense_for(getattr(node, "right_key_extents", ()),
@@ -697,6 +1028,12 @@ class PlanCompiler:
         self._overflow = self._overflow + overflow
         self._dense_oob = self._dense_oob + dense_oob
         self._record(id(node), "join_out", pair_valid.sum(), out_cap)
+        if build_outer and node.strategy == "broadcast" and self.n_dev > 1:
+            matched = rblk.valid & ~unmatched_b
+            (m,) = yield from self._allreduce([matched.to(torch.int32)],
+                                              ["sum"])
+            unmatched_b = rblk.valid & (m == 0) & \
+                self._is_first(rblk.valid.shape)
         cols, nulls = {}, {}
         for cid, arr in lblk.columns.items():
             cols[cid] = arr[pidx]
@@ -734,19 +1071,44 @@ class PlanCompiler:
                      out_nulls)
 
     # -- window functions -----------------------------------------------
-    def _exec_window(self, node: WindowNode, feeds) -> Block:
+    def _exec_window(self, node: WindowNode, feeds):
         """Partition-sorted segmented scans (the WindowAgg analogue).
 
         Per distinct ORDER BY spec: one stable lexicographic sort
         (validity, then the partition keys, then each ORDER BY key with
         its NULL rank) and running segmented scans over it.  Results
         scatter back to the pre-sort row positions, so the input block
-        passes through with the window columns appended.  On one device
-        combine='repartition' (the JAX executor's partition-key
-        shuffle) is the identity."""
+        passes through with the window columns appended.  combine=
+        'repartition' first shuffles rows by partition key so each
+        partition lies on one position (the identity at one position;
+        generator)."""
         from ..ops.join import lexsort
 
-        blk = self._exec(node.input, feeds)
+        blk = yield from self._exec(node.input, feeds)
+        if node.combine == "repartition" and self.n_dev > 1:
+            # routing keys with explicit NULL flags (zeroed value +
+            # flag), as the aggregate combine: a NULL partition's rows
+            # must land on ONE position
+            karr = []
+            bsrc = self._src(blk)
+            for p in node.partition_by:
+                v, nm = evaluate(p, bsrc)
+                v = torch.broadcast_to(v, blk.valid.shape)
+                v = _routing_int64(v)
+                if nm is not None:
+                    nmb = torch.broadcast_to(nm, blk.valid.shape)
+                    karr.append(torch.where(nmb, torch.zeros_like(v), v))
+                    karr.append(nmb.to(torch.int64))
+                else:
+                    karr.append(v)
+            if not karr:
+                # one global partition: constant routing key
+                karr = [torch.zeros(blk.valid.shape, dtype=torch.int64,
+                                    device=self.device)]
+            blk = yield from self._repartition(
+                blk, None, self.n_dev, tuple(range(self.n_dev)),
+                self.caps.repartition[id(node)], key_arrays=karr,
+                valid=blk.valid, record_nid=id(node))
         n = blk.valid.shape[0]
         src = self._src(blk)
         dev = self.device
@@ -1018,10 +1380,17 @@ class PlanCompiler:
             agg_side = side
         return True
 
+    # psum'd count directories stay worthwhile while the collective
+    # volume (extent × 4 B) is small next to the all_to_all volume it
+    # replaces (the whole input, twice); the JAX package's bound
+    PSUM_DIRECTORY_MAX_SLOTS = 1 << 22
+
     def _try_join_agg_pushdown(self, node: AggregateNode, feeds):
         """count/sum/min/max over an inner join weighted by per-probe
-        match counts (the JAX executor's pushdown; on one device its
-        psum-directory variant and the plain one coincide)."""
+        match counts (the JAX executor's pushdown), or None when the
+        shape does not qualify (generator).  On a mesh a repartition
+        join with a dense build key takes the psum-directory variant,
+        which needs no shuffle; at one position both coincide."""
         from ..ops.join import _bounds
         from ..planner import expr as ir
 
@@ -1038,8 +1407,14 @@ class PlanCompiler:
         if agg_side is None:
             agg_side = ("left" if getattr(j, "build_side", "right")
                         == "right" else "right")
+        if self.n_dev > 1 and j.strategy in ("repart_both", "repart_left",
+                                             "repart_right"):
+            pushed = yield from self._agg_pushdown_psum_directory(
+                node, j, agg_side, feeds)
+            if pushed is not None:
+                return pushed
         lblk, rblk, lkeys, lmatch, rkeys, rmatch = \
-            self._join_inputs(j, feeds)
+            yield from self._join_inputs(j, feeds)
         if agg_side == "left":
             pblk, pkeys, pmatch = lblk, lkeys, lmatch
             bkeys, bmatch = rkeys, rmatch
@@ -1052,49 +1427,134 @@ class PlanCompiler:
         _order, lo, hi, dense_oob = _bounds(bkeys, bmatch, pkeys, dense)
         self._dense_oob = self._dense_oob + dense_oob
         counts = torch.where(pmatch, hi - lo, torch.zeros_like(lo))
+        return (yield from self._agg_from_match_counts(node, pblk, counts))
+
+    def _agg_pushdown_psum_directory(self, node: AggregateNode, j,
+                                     agg_side: str, feeds):
+        """Global aggregate over a repartition join without a shuffle:
+        each position scatter-adds its build rows into an [extent]
+        count directory keyed by the dense join key, ONE psum makes it
+        global, and every probe row reads its global match count
+        locally (generator).  None when ineligible (multi-key join, no
+        dense extent, directory too wide, or a dense_oob retry)."""
+        if self.caps.dense_off:
+            return None
+        if len(j.left_keys) != 1 or len(j.right_keys) != 1:
+            return None
+        extents = (getattr(j, "right_key_extents", ())
+                   if agg_side == "left"
+                   else getattr(j, "left_key_extents", ()))
+        if not extents or extents[0] is None:
+            return None
+        base, extent = int(extents[0][0]), int(extents[0][1])
+        if not (0 < extent + 1 <= self.PSUM_DIRECTORY_MAX_SLOTS):
+            return None
+        lblk = yield from self._exec(j.left, feeds)
+        rblk = yield from self._exec(j.right, feeds)
+        key_int32 = getattr(j, "key_int32", ())
+        lkeys, lmatch = self._eval_keys(lblk, j.left_keys, key_int32)
+        rkeys, rmatch = self._eval_keys(rblk, j.right_keys, key_int32)
+        if j.left_match_filter is not None:
+            lmatch = lmatch & predicate_mask(j.left_match_filter,
+                                             self._src(lblk))
+        if j.right_match_filter is not None:
+            rmatch = rmatch & predicate_mask(j.right_match_filter,
+                                             self._src(rblk))
+        if agg_side == "left":
+            pblk, pkeys, pmatch = lblk, lkeys, lmatch
+            bkeys, bmatch = rkeys, rmatch
+        else:
+            pblk, pkeys, pmatch = rblk, rkeys, rmatch
+            bkeys, bmatch = lkeys, lmatch
+        # build rows outside the planned extent would miss the
+        # directory: count them into dense_oob (stale statistics retry
+        # on the repartition path); probe keys outside match nothing
+        raw_b = bkeys[0].to(torch.int64) - base
+        b_in = (raw_b >= 0) & (raw_b < extent)
+        self._dense_oob = self._dense_oob + (bmatch & ~b_in).sum()
+        idx = torch.where(bmatch & b_in, raw_b,
+                          torch.full_like(raw_b, extent))
+        dirc = torch.zeros(extent + 1, dtype=torch.int32,
+                           device=self.device).index_add_(
+            0, idx, torch.ones_like(idx, dtype=torch.int32))[:extent]
+        (dirc,) = yield from self._allreduce([dirc], ["sum"])
+        raw_p = pkeys[0].to(torch.int64) - base
+        p_in = (raw_p >= 0) & (raw_p < extent)
+        pidx = torch.clamp(raw_p, 0, extent - 1)
+        counts = torch.where(pmatch & p_in, dirc[pidx].to(torch.int64),
+                             torch.zeros_like(raw_p))
+        return (yield from self._agg_from_match_counts(node, pblk, counts))
+
+    def _agg_from_match_counts(self, node: AggregateNode, pblk: Block,
+                               counts):
+        """Finish an aggregate pushdown from per-probe-row match counts:
+        each probe row lives on one position, so the positions' partials
+        combine by psum / pmin / pmax, and position 0 emits the row
+        (generator)."""
         values = self._agg_values(node, pblk)
-        cols, nulls = {}, {}
+        locals_, ops, slots = [], [], []
         for (_a, cid), (v, kind, vv) in zip(node.aggs, values):
             contrib = pblk.valid if vv is None else (pblk.valid & vv)
             w = torch.where(contrib, counts, torch.zeros_like(counts))
             if kind == "count":
-                cols[cid] = w.sum().reshape(1)
+                slots.append((cid, kind, None, len(locals_), None))
+                locals_.append(w.sum())
+                ops.append("sum")
                 continue
             if kind == "sum":
                 total = (torch.where(contrib, v, torch.zeros_like(v))
                          * w.to(v.dtype)).sum()
+                op = "sum"
             elif kind == "min":
                 total = torch.where(contrib & (w > 0), v,
                                     torch.full_like(v, _big(v.dtype))).min()
+                op = "min"
             elif kind == "max":
                 total = torch.where(contrib & (w > 0), v,
                                     torch.full_like(v, _small(v.dtype))).max()
+                op = "max"
             else:
                 raise ExecutionError(f"bad agg kind {kind}")
-            cols[cid] = total.reshape(1).to(v.dtype)
-            nulls[cid] = (w.sum() == 0).reshape(1)
-        return Block(cols, torch.ones(1, dtype=torch.bool,
-                                      device=self.device), nulls)
+            slots.append((cid, kind, v.dtype, len(locals_),
+                          len(locals_) + 1))
+            locals_.extend([total, w.sum()])
+            ops.extend([op, "sum"])
+        combined = yield from self._allreduce(locals_, ops)
+        cols, nulls = {}, {}
+        for cid, kind, dt, vi, ni in slots:
+            if kind == "count":
+                cols[cid] = combined[vi].reshape(1).to(torch.int64)
+                continue
+            cols[cid] = combined[vi].reshape(1).to(dt)
+            nulls[cid] = (combined[ni] == 0).reshape(1)
+        return Block(cols, self._is_first((1,)), nulls)
 
-    def _exec_aggregate(self, node: AggregateNode, feeds) -> Block:
-        pushed = self._try_join_agg_pushdown(node, feeds)
+    def _exec_aggregate(self, node: AggregateNode, feeds):
+        pushed = yield from self._try_join_agg_pushdown(node, feeds)
         if pushed is not None:
             return pushed
-        blk = self._exec(node.input, feeds)
+        blk = yield from self._exec(node.input, feeds)
+        if self.n_dev > 1 and node.input.dist.kind == "replicated":
+            # replicated rows exist on every position: aggregate once
+            blk = blk.with_filter(self._is_first(blk.valid.shape))
         if node.dense_keys is not None and not self.caps.dense_off and \
                 node.combine in ("local", "repartition"):
-            return self._exec_dense_aggregate(node, blk)
+            return (yield from self._exec_dense_aggregate(node, blk))
         if self.agg_bucket_shape(node, self.caps.dense_off) and \
                 id(node) in self.caps.agg_bucket:
-            return self._exec_bucketed_aggregate(node, blk)
+            return (yield from self._exec_bucketed_aggregate(node, blk))
         key_arrays, key_meta, values = self._agg_inputs(node, blk)
 
         if node.combine == "global":
-            cols, nulls = {}, {}
+            # no GROUP BY: one row per position, combined by psum / pmin
+            # / pmax; position 0 emits it
+            locals_, ops, slots = [], [], []
             for (_a, cid), (v, kind, vv) in zip(node.aggs, values):
                 contrib = blk.valid if vv is None else (blk.valid & vv)
                 if kind == "count":
-                    cols[cid] = contrib.to(torch.int64).sum().reshape(1)
+                    slots.append((cid, kind, None, len(locals_)))
+                    locals_.append(contrib.to(torch.int64).sum())
+                    ops.append("sum")
                     continue
                 if kind == "sum":
                     total = torch.where(contrib, v, torch.zeros_like(v)).sum()
@@ -1106,11 +1566,19 @@ class PlanCompiler:
                         v, _small(v.dtype))).max()
                 else:
                     raise ExecutionError(f"bad agg kind {kind}")
-                cols[cid] = total.reshape(1).to(v.dtype)
+                slots.append((cid, kind, v.dtype, len(locals_)))
+                locals_.extend([total, contrib.to(torch.int64).sum()])
+                ops.extend([kind, "sum"])
+            combined = yield from self._allreduce(locals_, ops)
+            cols, nulls = {}, {}
+            for cid, kind, dt, i in slots:
+                if kind == "count":
+                    cols[cid] = combined[i].reshape(1)
+                    continue
+                cols[cid] = combined[i].reshape(1).to(dt)
                 # COUNT of zero rows is 0; the others are NULL on empty
-                nulls[cid] = (contrib.sum() == 0).reshape(1)
-            return Block(cols, torch.ones(1, dtype=torch.bool,
-                                          device=self.device), nulls)
+                nulls[cid] = (combined[i + 1] == 0).reshape(1)
+            return Block(cols, self._is_first((1,)), nulls)
 
         if node.combine not in ("local", "repartition"):
             raise ExecutionError(f"bad combine mode {node.combine}")
@@ -1124,16 +1592,77 @@ class PlanCompiler:
         partial = self._partial_block(node, key_meta, gk,
                                       res[:len(values)], gvalid)
         comp_res = iter(res[len(values):])
+        comp_cids = []
         for (_a, cid), comp in zip(node.aggs, companions):
             if comp is not None:
-                partial.nulls[cid] = next(comp_res) == 0
-        # combine='repartition' shuffles partial groups by key so one
-        # device owns each group; on one device the partials are final
-        return partial
+                cnt = next(comp_res)
+                partial.nulls[cid] = cnt == 0
+                partial.columns[f"__cnt_{cid}"] = cnt
+                comp_cids.append(cid)
+        if node.combine == "local" or self.n_dev == 1:
+            # one position (or groups that never span positions): the
+            # partials are final
+            for cid in comp_cids:
+                partial.columns.pop(f"__cnt_{cid}")
+            return partial
+        return (yield from self._combine_partials(node, key_meta, partial,
+                                                  comp_cids))
 
-    def _exec_dense_aggregate(self, node: AggregateNode, blk: Block) -> Block:
+    def _combine_partials(self, node: AggregateNode, key_meta,
+                          partial: Block, comp_cids: list):
+        """combine='repartition' on a mesh: shuffle the partial groups by
+        key hash, then merge them, so one position owns each group
+        (generator).  The key arrays carry the null flags, so NULL
+        groups route consistently; `repart_keys` (the DISTINCT rewrite)
+        restricts the ROUTING to a key subset while co-routed rows
+        still merge by the full key set."""
+        route_idx = (set(node.repart_keys)
+                     if getattr(node, "repart_keys", None) is not None
+                     else None)
+        shuffle_keys = []
+        for ki, (cid, has_null) in enumerate(key_meta):
+            if route_idx is not None and ki not in route_idx:
+                continue
+            v = _routing_int64(partial.columns[cid])
+            if has_null:
+                nm = partial.null_mask(cid)
+                shuffle_keys.append(torch.where(nm, torch.zeros_like(v), v))
+                shuffle_keys.append(nm.to(torch.int64))
+            else:
+                shuffle_keys.append(v)
+        shuffled = yield from self._repartition(
+            partial, None, self.n_dev, tuple(range(self.n_dev)),
+            self.caps.repartition[id(node)], key_arrays=shuffle_keys,
+            valid=partial.valid, record_nid=id(node))
+        key_arrays2 = []
+        for cid, has_null in key_meta:
+            key_arrays2.append(shuffled.columns[cid])
+            if has_null:
+                key_arrays2.append(shuffled.null_mask(cid).to(torch.int32))
+        values2 = []
+        for a, cid in node.aggs:
+            kind = {"count": "count", "count_star": "count", "sum": "sum",
+                    "avg": "sum", "min": "min", "max": "max"}[a.kind]
+            # a partial count merges by summing: `sum` keeps its int64
+            values2.append((shuffled.columns[cid],
+                            "sum" if kind == "count" else kind, None))
+        for cid in comp_cids:
+            values2.append((shuffled.columns[f"__cnt_{cid}"], "sum", None))
+        gk2, res2, gvalid2, ngroups2 = self._segment_aggregate_maybe_packed(
+            node, key_arrays2, key_meta, values2, shuffled.valid)
+        gk2, res2, gvalid2 = self._slice_groups(node, gk2, res2, gvalid2,
+                                                ngroups2)
+        final = self._partial_block(node, key_meta, gk2,
+                                    res2[:len(node.aggs)], gvalid2)
+        for cid, cnt in zip(comp_cids, res2[len(node.aggs):]):
+            final.nulls[cid] = cnt == 0
+        return final
+
+    def _exec_dense_aggregate(self, node: AggregateNode, blk: Block):
         """Dense-grid aggregation: group keys with small known ranges map
-        to one slot id; sums reduce unsorted over [total] slots."""
+        to one slot id; sums reduce unsorted over [total] slots, and the
+        positions' grids combine by psum / pmin / pmax (`_combine_grid`;
+        generator)."""
         specs = node.dense_keys
         total = node.dense_total
         n = blk.valid.shape[0]
@@ -1210,7 +1739,9 @@ class PlanCompiler:
                                 include_self=True)
             for j, (i, _a) in enumerate(items):
                 results[i] = ext[:total, j]
-        out_valid = rows_per_slot > 0
+        results, companions, rows_per_slot, out_valid = \
+            yield from self._combine_grid(node, values, results,
+                                          companions, rows_per_slot)
 
         # reconstruct key columns from the slot grid
         iota = torch.arange(total, dtype=torch.int64, device=self.device)
@@ -1232,13 +1763,18 @@ class PlanCompiler:
                 nulls[cid] = companions[i] == 0
         return Block(cols, out_valid, nulls)
 
-    def _exec_bucketed_aggregate(self, node: AggregateNode,
-                                 blk: Block) -> Block:
+    def _exec_bucketed_aggregate(self, node: AggregateNode, blk: Block):
         """Bucketed dense-grid aggregation (ops/groupby.py): the packed
         composite slot radix-partitions into 4096-slot tiles, each summed
         sort-free; stale ranges → dense_oob, hot buckets overflow and
-        regrow."""
+        regrow.  The positions' grids combine like the flat dense grid's
+        (`_combine_grid`; generator)."""
         from ..ops.groupby import bucketed_grid_aggregate
+        from ..utils.faultinjection import fault_point
+
+        # named seam: a failure while building the bucketed pack must
+        # leave the plan cache without a half-built entry
+        fault_point("executor.agg_bucket_fill")
 
         specs = node.bucket_keys
         total = node.bucket_total
@@ -1284,8 +1820,11 @@ class PlanCompiler:
             results.append(res[pos])
             ci = comp_idx[i]
             companions.append(None if ci is None else res[ci])
-        out_valid = rows_per_slot > 0
-        self._record(id(node), "agg_grid", out_valid.sum(), total)
+        results, companions, rows_per_slot, out_valid = \
+            yield from self._combine_grid(node, values, results,
+                                          companions, rows_per_slot)
+        self._record(id(node), "agg_grid", (rows_per_slot > 0).sum(),
+                     total)
 
         # reconstruct key columns from the packed slot (first key most
         # significant; lane 0 of each key's width is NULL)
@@ -1311,6 +1850,35 @@ class PlanCompiler:
         if k is not None and k < total:
             out = self._compact(out, k)
         return out
+
+    def _combine_grid(self, node: AggregateNode, values, results,
+                      companions, rows_per_slot):
+        """Cross-position combine shared by the flat and bucketed dense
+        grids: combine='repartition' psums / pmins / pmaxes the slot
+        grids and position 0 emits; 'local' keeps each position's slots
+        (generator; the identity at one position).  Returns (results,
+        companions, rows_per_slot, out_valid)."""
+        if node.combine != "repartition" or self.n_dev == 1:
+            return results, companions, rows_per_slot, rows_per_slot > 0
+        tensors, ops = [rows_per_slot], ["sum"]
+        for i, (_v, kind, _vv) in enumerate(values):
+            tensors.append(results[i])
+            ops.append("sum" if kind in ("count", "sum") else kind)
+        comp_at = []
+        for c in companions:
+            if c is not None:
+                comp_at.append(len(tensors))
+                tensors.append(c)
+                ops.append("sum")
+            else:
+                comp_at.append(None)
+        got = yield from self._allreduce(tensors, ops)
+        rows_per_slot = got[0]
+        results = got[1:1 + len(values)]
+        companions = [None if j is None else got[j] for j in comp_at]
+        out_valid = (rows_per_slot > 0) & self._is_first(
+            rows_per_slot.shape)
+        return results, companions, rows_per_slot, out_valid
 
     def _dense_sums(self, arrays: list, slot: torch.Tensor,
                     total: int) -> list:
@@ -1435,3 +2003,23 @@ def _small(dtype):
     if dtype.is_floating_point:
         return float("-inf")
     return torch.iinfo(dtype).min
+
+
+def _routing_int64(v: torch.Tensor) -> torch.Tensor:
+    """A shuffle routing key as int64: floats by their bit pattern."""
+    if v.dtype == torch.float32:
+        return v.contiguous().view(torch.int32).to(torch.int64)
+    if v.dtype == torch.float64:
+        return v.contiguous().view(torch.int64)
+    return v.to(torch.int64)
+
+
+def _combine_hash64(parts: list) -> torch.Tensor:
+    """Mix several key columns into one 64-bit key (the JAX package's
+    combine_hash64, in int64 with wrapping arithmetic)."""
+    acc = torch.zeros(parts[0].shape, dtype=torch.int64,
+                      device=parts[0].device)
+    for p in parts:
+        h = hash_token(p).to(torch.int64) & 0xFFFFFFFF
+        acc = (acc * 0x100000001B3) ^ h
+    return acc

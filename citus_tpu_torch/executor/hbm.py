@@ -1,6 +1,6 @@
 """Device-memory accountant: the ONE host→device placement seam.
 
-Counterpart of citus_tpu/executor/hbm.py, pruned to one device.  Every
+Counterpart of citus_tpu/executor/hbm.py.  Every
 feed tensor the port puts on its device flows through
 `DeviceMemoryAccountant.place` (or `adopt`, for tensors a device decode
 produced), which charges a measured ledger of live bytes, turns an
@@ -13,6 +13,15 @@ release the charge while the memory is still live.  A plan's own
 intermediates (join, grid and compaction buffers the compiler allocates
 as it runs) charge through `lease` for the duration of each run, at the
 same worst-buffer estimate the ``max_plan_buffer_bytes`` guard trusts.
+
+Per-position ledgers (a mesh session, distributed/mesh.py): a sharded
+feed places through `place_sharded_slices`, which charges each position
+its own slice; every other charge spreads evenly over the positions of
+the widest mesh seen (`resize_mesh` narrows it after a failover).  When
+N positions share one card, the card's budget splits evenly among them:
+an armed MemSim refuses a charge when the total would exceed the budget
+OR the hottest position would exceed budget / N, so a skew-placed table
+shows up as the hot-position pressure it is.
 
 `MemSim` arms a simulated byte budget (or a fail-at-allocation-N
 trigger) at the seam, so tests sweep OOMs on hardware that never runs
@@ -108,8 +117,11 @@ class DeviceMemoryAccountant:
         # handle's entry)
         self._mu = threading.RLock()
         self._next_handle = 0
-        self._live: dict[int, tuple[str, int]] = {}
+        self._live: dict[int, tuple[str, int, tuple]] = {}
         self._live_total = 0
+        # per mesh position: live bytes, over the widest mesh seen
+        self._n_dev = 1
+        self._live_by_dev: list[int] = [0]
         self._live_by_cat: dict[str, int] = {c: 0 for c in CATEGORIES}
         self._peak_by_cat: dict[str, int] = {c: 0 for c in CATEGORIES}
         self.peak_bytes = 0
@@ -168,12 +180,89 @@ class DeviceMemoryAccountant:
             entry = self._live.get(handle)
             if entry is None:
                 return
-            old_cat, nbytes = entry
+            old_cat, nbytes, applied = entry
             if old_cat == category:
                 return
-            self._live[handle] = (category, nbytes)
+            self._live[handle] = (category, nbytes, applied)
             self._live_by_cat[old_cat] -= nbytes
             self._live_by_cat[category] += nbytes
+
+    def place_sharded_slices(self, mesh, slices, category: str = "feed"):
+        """Place per-position host slices (one capacity each) for a mesh
+        (distributed/mesh.py): an [N, cap] plane on the positions' one
+        card, or one tensor per position across cards.  Each position is
+        charged its own slice's bytes."""
+        out, _handle = self.place_sharded_slices_tracked(mesh, slices,
+                                                         category)
+        return out
+
+    def place_sharded_slices_tracked(self, mesh, slices,
+                                     category: str = "feed"):
+        from ..distributed.mesh import (
+            _reraise_if_device_loss,
+            put_sharded_slices,
+        )
+        from ..utils.faultinjection import mesh_device_check
+
+        fault_point("executor.hbm_exhausted")
+        self._note_mesh(mesh.size)
+        host = [_host_tensor(s) for s in slices]
+        per_dev = tuple(t.numel() * t.element_size() for t in host)
+        handle = self._charge(category, sum(per_dev), per_dev=per_dev)
+        try:
+            if mesh.single_device():
+                fault_point("mesh.device_put")
+                for pid in mesh.ids:
+                    # per-position seam: a dying position refuses its slice
+                    mesh_device_check("mesh.device_put", (pid,))
+                plane = torch.stack(host)
+                try:
+                    out = plane.to(mesh.devices[0])
+                except Exception as e:
+                    _reraise_if_device_loss(e, "mesh.device_put")
+                    raise
+                weakref.finalize(out, self._release, handle)
+            else:
+                out = put_sharded_slices(mesh, host)
+                for t in out:
+                    weakref.finalize(t, self._release, handle)
+        except Exception as e:
+            self._release(handle)
+            if is_resource_exhausted(e):
+                self._count_oom()
+                err = DeviceMemoryExhausted(
+                    f"device allocator OOM placing {max(per_dev)} bytes "
+                    f"on the hottest position (category {category!r}): "
+                    f"{e}")
+                err.nbytes = max(per_dev)
+                raise err from e
+            raise
+        return out, handle
+
+    def _note_mesh(self, n_dev: int) -> None:
+        """Learn the mesh width so uniform charges span every position."""
+        n = max(1, int(n_dev))
+        with self._mu:
+            if n > self._n_dev:
+                self._n_dev = n
+            if n > len(self._live_by_dev):
+                self._live_by_dev.extend([0] * (n - len(self._live_by_dev)))
+
+    def resize_mesh(self, n_dev: int) -> None:
+        """Re-size the per-position axis after a device-loss failover or
+        a drain: hot-position enforcement now spans the surviving width.
+        The ledger keeps its old tail, so charges recorded under the
+        wider mesh still release exactly what they added."""
+        n = max(1, int(n_dev))
+        with self._mu:
+            self._n_dev = n
+            if n > len(self._live_by_dev):
+                self._live_by_dev.extend([0] * (n - len(self._live_by_dev)))
+
+    def live_bytes_by_device(self) -> list[int]:
+        """Live bytes per mesh position (citus_stat_mesh's view)."""
+        with self._mu:
+            return list(self._live_by_dev[:self._n_dev])
 
     def adopt(self, tensor: torch.Tensor, category: str = "feed") -> None:
         """Charge a device tensor the seam did NOT place (the output of
@@ -204,10 +293,18 @@ class DeviceMemoryAccountant:
         self._release(handle)
 
     # -- ledger ------------------------------------------------------------
-    def _charge(self, category: str, nbytes: int) -> int:
+    def _charge(self, category: str, nbytes: int,
+                per_dev: tuple | None = None) -> int:
         if category not in CATEGORIES:
             category = "other"
         with self._mu:
+            n = self._n_dev
+            applied = (tuple(per_dev) if per_dev is not None
+                       else tuple(nbytes // n + (1 if i < nbytes % n else 0)
+                                  for i in range(n)))
+            if len(applied) > len(self._live_by_dev):
+                self._live_by_dev.extend(
+                    [0] * (len(applied) - len(self._live_by_dev)))
             sim = self._sim
             if sim is not None:
                 sim.allocs += 1
@@ -215,6 +312,11 @@ class DeviceMemoryAccountant:
                 fail = sim.fail_at is not None and sim.allocs == sim.fail_at
                 would = self._live_total + nbytes
                 over = sim.budget is not None and would > sim.budget
+                if sim.budget is not None and len(applied) > 1:
+                    # the card's budget splits evenly among its positions
+                    hot = max(self._live_by_dev[d] + b
+                              for d, b in enumerate(applied))
+                    over = over or hot > sim.budget // len(applied)
                 if fail or over:
                     sim.oom_raised += 1
                     self.oom_total += 1
@@ -229,8 +331,10 @@ class DeviceMemoryAccountant:
                     raise err
             self._next_handle += 1
             handle = self._next_handle
-            self._live[handle] = (category, nbytes)
+            self._live[handle] = (category, nbytes, applied)
             self._live_total += nbytes
+            for d, b in enumerate(applied):
+                self._live_by_dev[d] += b
             self._live_by_cat[category] += nbytes
             if self._live_by_cat[category] > self._peak_by_cat[category]:
                 self._peak_by_cat[category] = self._live_by_cat[category]
@@ -244,8 +348,10 @@ class DeviceMemoryAccountant:
             entry = self._live.pop(handle, None)
             if entry is None:
                 return
-            category, nbytes = entry
+            category, nbytes, applied = entry
             self._live_total -= nbytes
+            for d, b in enumerate(applied):
+                self._live_by_dev[d] -= b
             self._live_by_cat[category] -= nbytes
             self.releases_total += 1
 
@@ -319,6 +425,8 @@ class DeviceMemoryAccountant:
         with self._mu:
             snap = {
                 "live_bytes": self._live_total,
+                "live_bytes_hot_device": max(
+                    self._live_by_dev[:self._n_dev], default=0),
                 "peak_bytes": self.peak_bytes,
                 "charges_total": self.charges_total,
                 "releases_total": self.releases_total,

@@ -10,13 +10,17 @@ shards:
 
 * colocated — the source plan's output distribution already matches the
   target's sharding on the inserted distribution column (the pushdown
-  mode).  On one GPU the rows hash-route on the host, exactly as the JAX
-  package does at one device; slicing a device-major result straight
-  into each device's shard comes with multi-GPU (ROADMAP queue A item 9).
+  mode).  When each mesh position holds exactly one target shard
+  (`_device_shard_map`), the position-major result slices straight into
+  each position's shard by `ResultSet.device_rows`, with no hashing;
+  otherwise the rows hash-route on the host.
+* repartition, device-routed — when the target has one shard per
+  position and a non-string distribution key, the plan gains an OUTPUT
+  shuffle (QueryPlan.output_repart: pack_by_target + all_to_all in the
+  compiler), so rows arrive partitioned and the write slices per
+  position like the colocated path.
 * repartition, host-routed — a vectorized numpy hash-route over the raw
-  result arrays.  The JAX package's device-routed output shuffle
-  (QueryPlan.output_repart) comes with multi-GPU (ROADMAP queue A item
-  9): on one device it is the identity, and the compiler refuses it.
+  result arrays (string keys, other layouts, or a streamed source).
 
 The reference's pull-to-coordinator mode is the session's fallback for
 source shapes the raw path refuses (Session._execute_insert_select).
@@ -101,8 +105,18 @@ def execute_insert_select(session, stmt):
                 f"INSERT..SELECT arity mismatch: {len(columns)} target "
                 f"columns, {len(plan.host_select)} select items")
         mode = choose_mode(session, plan, meta, columns)
+        if mode == "repartition":
+            rp = _plan_output_repart(session, plan, meta, columns)
+            if rp is not None:
+                plan.output_repart = rp
         result = session.executor.execute_plan(plan, raw=True)
-        n = _write_result(session, meta, columns, result)
+        if plan.output_repart is not None and result.device_rows is None:
+            # source streamed (or order disturbed): rows were not
+            # position-partitioned end to end — host routing below
+            plan.output_repart = None
+        n = _write_result(session, meta, columns, result, mode,
+                          device_routed=plan.output_repart is not None,
+                          plan_catalog_version=plan.catalog_version)
         from ..stats import counters as sc
 
         session.stats.counters.increment(
@@ -196,7 +210,57 @@ def _target_arrays(session, meta, columns, result):
     return typed, validity
 
 
-def _write_result(session, meta, columns, result) -> int:
+def _plan_output_repart(session, plan: QueryPlan, meta, columns):
+    """(shard_count, placement, bounds, key_expr) when the repartition
+    write can route on the device: hash-distributed source, one target
+    shard per position, and a non-string distribution key whose source
+    expression the device program outputs.  None → host route."""
+    if meta.method != DistributionMethod.HASH or \
+            plan.root.dist.kind != "hash":
+        return None
+    if _device_shard_map(session, meta) is None:
+        return None
+    if meta.schema.column(meta.distribution_column).dtype == \
+            DataType.STRING:
+        # device blocks hold per-source dictionary codes; the ingest
+        # token hash needs the string bytes — host route
+        return None
+    try:
+        di = columns.index(meta.distribution_column)
+    except ValueError:
+        return None
+    key_expr, _name = plan.host_select[di]
+    # the key must be computable from the device block alone
+    for n_ in ir.walk(key_expr):
+        if isinstance(n_, ir.BAgg):
+            return None
+    from ..planner.plan import table_placement
+
+    placement = table_placement(session.catalog, meta.name,
+                                session.n_devices)
+    bounds = tuple(session.catalog.shard_mins(meta.name))
+    shards = session.catalog.table_shards(meta.name)
+    return (len(shards), placement, bounds, key_expr)
+
+
+def _device_shard_map(session, meta):
+    """position → shard_id when each mesh position holds EXACTLY one
+    shard of the target (the 1:1 layout where a position-partitioned
+    result writes without hashing); None otherwise."""
+    from ..planner.plan import table_placement
+
+    shards = session.catalog.table_shards(meta.name)
+    placement = table_placement(session.catalog, meta.name,
+                                session.n_devices)
+    if len(shards) != session.n_devices or \
+            sorted(placement) != list(range(session.n_devices)):
+        return None
+    return {dev: shards[i].shard_id for i, dev in enumerate(placement)}
+
+
+def _write_result(session, meta, columns, result, mode="repartition",
+                  device_routed: bool = False,
+                  plan_catalog_version: int | None = None) -> int:
     n = result.row_count
     if n == 0:
         return 0
@@ -205,14 +269,24 @@ def _write_result(session, meta, columns, result) -> int:
     # holds them while it flips the catalog), with _dml_locks' reload
     # loop adopting the committed catalog before we route — otherwise a
     # split committing between routing and append sends rows into the
-    # dropped parent shard (lost).
+    # dropped parent shard (lost).  Position-partitioned writes trust
+    # routing derived at plan time: if the catalog moved since, demote
+    # to host hash-routing against the current shard map.
     table = meta.name
     with session._dml_locks(
             table, lambda: session.catalog.table_shards(table)):
-        return _route_and_write(session, meta, typed, validity, n)
+        if (device_routed or mode == "colocated") and \
+                plan_catalog_version is not None and \
+                session.catalog.version != plan_catalog_version:
+            mode, device_routed = "repartition", False
+        return _route_and_write(session, meta, typed, validity, n,
+                                result.device_rows
+                                if (mode == "colocated" or device_routed)
+                                else None)
 
 
-def _route_and_write(session, meta, typed, validity, n) -> int:
+def _route_and_write(session, meta, typed, validity, n,
+                     device_rows=None) -> int:
     from ..utils.faultinjection import fault_point
 
     # named seam: a failure while shuffling INSERT..SELECT rows to their
@@ -225,7 +299,30 @@ def _route_and_write(session, meta, typed, validity, n) -> int:
     pending: list[tuple[int, dict]] = []
     table = meta.name
     try:
-        if meta.method == DistributionMethod.HASH:
+        dev_map = (_device_shard_map(session, meta) if device_rows
+                   else None)
+        if dev_map is not None:
+            # position-partitioned rows, each position holding one target
+            # shard: slice the position-major result per position and
+            # write each block directly, no hash, no routing masks
+            dist_col = meta.distribution_column
+            if not validity[dist_col].all():
+                raise IngestError(
+                    f"NULL distribution column value in {table!r}")
+            off = 0
+            for dev, cnt in enumerate(device_rows):
+                if cnt == 0:
+                    continue
+                sl = slice(off, off + cnt)
+                off += cnt
+                rec = session.store.append_stripe(
+                    table, dev_map[dev],
+                    {c: typed[c][sl] for c in typed},
+                    {c: validity[c][sl] for c in validity},
+                    codec=codec, level=level, chunk_rows=chunk_rows,
+                    commit=False)
+                pending.append((dev_map[dev], rec))
+        elif meta.method == DistributionMethod.HASH:
             dist_col = meta.distribution_column
             if not validity[dist_col].all():
                 raise IngestError(

@@ -1,7 +1,7 @@
 """Multi-pass partitioned execution: the Grace-hash move for a too-big
 NON-stream side.
 
-Counterpart of citus_tpu/executor/multipass.py, on one device.  The
+Counterpart of citus_tpu/executor/multipass.py.  The
 stream pipeline (executor/stream.py) bounds the residency of ONE scan —
 the probe side — but a join whose build side alone exceeds device
 memory still cannot run.  The classic answer is Grace hash join:
@@ -23,6 +23,10 @@ Eligibility is stricter than streaming: every join between the split
 scan and the root must be INNER with keys (disjoint build partitions ⇒
 each output row materializes in exactly one pass), aggregates only at
 the root and distributive, windows never.
+
+On a mesh each pass's pruned split scan feeds each position only the
+shards of the pass's group that the node↔device map gives it, so every
+position runs its own slice of the pass.
 
 Multi-pass execution is a rung of the OOM degradation ladder
 (Executor.degrade_for_oom): it runs only after eviction, batch shrink

@@ -41,6 +41,14 @@ captures at its first run; the warm-before-admit phase
 (`warmup_from_cache`) arms the hottest entries before the workload
 manager admits traffic.
 
+A mesh session (distributed/mesh.py) runs each plan over its N
+positions (`self.mesh`): the feeds are device-owned slices, capacities
+are per position with the JAX package's repartition buffers
+(`_initial_capacities`), the packed output is [n_out, N, cap] and
+`ResultSet.device_rows` counts each position's output rows.  A mesh plan
+runs eagerly (its MeshSim seams are host checks a replay would skip).
+`adopt_mesh` narrows the executor to the survivors of a device loss.
+
 Observability: the feed build, the host combine and (in PlanCompiler.run)
 the device program's dispatch and fetch are trace spans; the session's
 StatCounters (`counters`) count bucketed group-bys, the ladder's cache
@@ -134,7 +142,10 @@ class ResultSet:
     envelope_retries: int = 0
     # result-transfer volume in row slots
     device_rows_scanned: int = 0
+    # rows each mesh position fed in, and (where the result keeps the
+    # position-major order: no HAVING, ORDER BY or LIMIT) returned
     device_rows_in: list[int] | None = None
+    device_rows: list[int] | None = None
     # answered host-side by the fast-path router (executor/fastpath.py)
     fast_path: bool = False
     streamed_batches: int = 0  # >0 ⇒ executed via the stream pipeline
@@ -155,11 +166,17 @@ class ResultSet:
 
 class Executor:
     def __init__(self, catalog: Catalog, store: TableStore,
-                 settings: Settings, device, counters=None):
+                 settings: Settings, device, counters=None, mesh=None):
+        from ..distributed.mesh import make_mesh
+
         self.catalog = catalog
         self.store = store
         self.settings = settings
         self.device = device
+        # the session's mesh of positions (one position on `device`
+        # unless the session asked for more)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            1, default_device=device)
         # the owning session's StatCounters (None: nothing counted)
         self.counters = counters
         self.plan_cache = PlanCache(settings.get("max_cached_plans"))
@@ -191,6 +208,31 @@ class Executor:
         self._tightened_fps: set = set()
         self._caps_lock = threading.Lock()
 
+    def adopt_mesh(self, mesh) -> None:
+        """Run later plans on `mesh` (the survivors after a device loss,
+        or a drained mesh): compiled plans and feeds laid out for the
+        old mesh are dropped, and the ledger's per-position axis
+        narrows.  The caps memo and the persisted cache key on the
+        width and the positions' ids, so no entry of the old mesh is
+        adopted."""
+        self.mesh = mesh
+        self.plan_cache.clear()
+        self.feed_cache.clear()
+        self.accountant.resize_mesh(mesh.size)
+
+    def _mesh_for(self, plan: QueryPlan):
+        """The mesh a plan runs on (its seams check the positions' ids,
+        at one position too)."""
+        if self.mesh.size != plan.n_devices:
+            from ..errors import StaleMeshPlan
+
+            # planned for a mesh this executor no longer has (a
+            # concurrent failover shrank it): re-plan
+            raise StaleMeshPlan(
+                f"plan for {plan.n_devices} positions, mesh has "
+                f"{self.mesh.size}")
+        return self.mesh
+
     def _feeds_dropped(self, tensor_ids) -> None:
         self.accountant.release_graphs(lambda g: g.reads_any(tensor_ids))
 
@@ -200,7 +242,9 @@ class Executor:
             if isinstance(node, ScanNode):
                 self.store.refresh_if_stale(node.rel.table)
         self._oom_tls.plan = plan
-        self._graph_tls.last = ("eager", None)
+        # a mesh plan runs eagerly (see `_graph_for`)
+        self._graph_tls.last = ("eager",
+                                "mesh" if plan.n_devices > 1 else None)
         # the reference's single-shard router: below fast_path_max_rows
         # a pruned plan answers host-side by design (on the card too)
         fast = try_execute_fast_path(self, plan, raw)
@@ -244,11 +288,12 @@ class Executor:
         """Resident-feed execution core: build the feeds, resolve the
         capacity memo, run the overflow-retry loop.  Shared by
         execute_plan and each multi-pass pass."""
+        mesh = self._mesh_for(plan)
         with trace_span("feed"):
             feeds = build_feeds(plan, self.catalog, self.store,
                                 self.device, compute_dtype, self.feed_cache,
                                 self.accountant, self.scan_stats,
-                                no_cache_nodes, self.counters)
+                                no_cache_nodes, self.counters, mesh)
         topk_sig = (plan.device_topk, tuple(
             (repr(e), d, nf) for e, d, nf in plan.host_order_by)
             if plan.device_topk is not None else ())
@@ -258,6 +303,11 @@ class Executor:
         fingerprint = (node_fingerprint(plan.root), plan.n_devices,
                        str(compute_dtype), feeds_signature(plan, feeds),
                        topk_sig, str(self.device))
+        if plan.n_devices > 1:
+            # the width and the positions' ids: a shape converged on one
+            # mesh is never adopted by another (a drained or failed-over
+            # one included)
+            fingerprint = fingerprint + (tuple(mesh.ids),)
         with self._caps_lock:
             memo = self._caps_memo.get(fingerprint)
         caps = (self._caps_from_order(plan, memo) if memo is not None
@@ -318,6 +368,8 @@ class Executor:
         (`_graph_for`); `allow_graph=False` (streamed batches, whose
         buffers rotate) keeps every run eager."""
         limit = self.settings.get("max_plan_buffer_bytes")
+        # positions sharing the card each allocate the plan's buffers
+        on_card = plan.n_devices if self.mesh.single_device() else 1
         retries = 0
         tightened = False
         while True:
@@ -345,7 +397,7 @@ class Executor:
             # seam cannot see them: the lease makes the estimate visible
             # to the ledger (and to an armed MemSim) for the run's window
             try:
-                with self.accountant.lease("plan", est):
+                with self.accountant.lease("plan", est * on_card):
                     graph = (self._graph_for(key, compiler, plan, feeds,
                                              caps)
                              if allow_graph and self._graphs_on()
@@ -385,6 +437,12 @@ class Executor:
                         continue  # re-execute at the tight sizes
                 if retries or tightened:
                     self._memoize_caps(fingerprint, plan, caps)
+                if self.counters is not None and compiler.shuffle_bytes:
+                    # the all_to_all volume of the converged run (the
+                    # psum-directory pushdown moves none; a stream passes
+                    # here per batch)
+                    self.counters.increment(sc.SHUFFLE_BYTES_TOTAL,
+                                            compiler.shuffle_bytes)
                 self._settle(key, compiler, plan, feeds, caps, out_meta,
                              stage_keys)
                 return packed, out_meta, caps, retries
@@ -429,7 +487,7 @@ class Executor:
             budget = self.accountant.budget_bytes(self.device,
                                                   self.settings)
             if budget:
-                need = _plan_buffer_bytes(plan, caps)
+                need = _plan_buffer_bytes(plan, caps) * on_card
                 room = budget - self.accountant.pressure_bytes()
                 if need > room and self._plan_degradable(plan):
                     raise DeviceMemoryExhausted(
@@ -463,7 +521,8 @@ class Executor:
                     "miss": sc.EXEC_CACHE_MISSES_TOTAL}[status])
             armed = entry is not None
         with trace_span("compile", cache=status):
-            compiler = PlanCompiler(plan, compute_dtype, self.device)
+            compiler = PlanCompiler(plan, compute_dtype, self.device,
+                                    self._mesh_for(plan))
             compiler.armed = armed
         self.plan_cache.put(key, compiler)
         return compiler
@@ -501,6 +560,11 @@ class Executor:
         data version runs eager once first, as a new key does."""
         from . import graphs
 
+        if plan.n_devices > 1:
+            # a mesh plan runs eagerly: its MeshSim seams are host checks
+            # that a replay would skip (ROADMAP queue A item 14)
+            self._graph_tls.last = ("eager", "mesh")
+            return None
         feed_keys = _feed_keys(plan, feeds)
         g = self.plan_cache.graph(key)
         if g is not None:
@@ -858,8 +922,10 @@ class Executor:
 
     def _initial_capacities(self, plan: QueryPlan, feeds,
                             dense_off: bool = False) -> Capacities:
-        """Propagate static capacities bottom-up (the JAX package's
-        rules, on one device: no repartition buffers)."""
+        """Propagate static per-position capacities bottom-up (the JAX
+        package's rules; at one position no repartition buffer exists)."""
+        repart_factor = self.settings.get("repartition_capacity_factor")
+        repart: dict[int, int] = {}
         join_factor = self.settings.get("join_output_capacity_factor")
         group_factor = self.settings.get("agg_group_capacity_factor")
         bucket_factor = self.settings.get("join_probe_bucket_factor")
@@ -889,10 +955,24 @@ class Executor:
             if isinstance(node, ProjectNode):
                 return cap_of(node.input)
             if isinstance(node, JoinNode):
-                # on one device every repartition is the identity: each
+                # at one position every repartition is the identity: each
                 # side keeps its own capacity and no shuffle buffer exists
                 lcap = cap_of(node.left)
                 rcap = cap_of(node.right)
+                if n_dev > 1:
+                    if node.strategy == "repart_right":
+                        repart[id(node)] = _round_cap(
+                            int(rcap * repart_factor))
+                        rcap = n_dev * repart[id(node)]
+                    elif node.strategy == "repart_left":
+                        repart[id(node)] = _round_cap(
+                            int(lcap * repart_factor))
+                        lcap = n_dev * repart[id(node)]
+                    elif node.strategy == "repart_both":
+                        repart[id(node)] = _round_cap(
+                            int(max(lcap, rcap) * repart_factor))
+                        lcap = n_dev * repart[id(node)]
+                        rcap = n_dev * repart[id(node)]
                 if node.join_type in ("semi", "anti"):
                     # the output rows are probe rows; only a cross-side
                     # residual needs a candidate-pair buffer
@@ -925,6 +1005,9 @@ class Executor:
                     join_out[id(node)] = out
                     return out
                 if not node.left_keys:
+                    if node.strategy == "cartesian_gather" and n_dev > 1:
+                        # the gathered build side is n_dev shards wide
+                        rcap = rcap * n_dev
                     out = _round_cap(lcap * rcap)
                 else:
                     out = _round_cap(int(
@@ -937,7 +1020,17 @@ class Executor:
                     out = out + rcap
                 return out
             if isinstance(node, WindowNode):
-                return cap_of(node.input)
+                in_cap = cap_of(node.input)
+                if node.combine != "repartition" or n_dev == 1:
+                    return in_cap
+                if node.partition_by:
+                    repart[id(node)] = _round_cap(
+                        int(in_cap * repart_factor))
+                else:
+                    # one global partition: every row on one position
+                    repart[id(node)] = _round_cap(
+                        int(in_cap * n_dev * repart_factor))
+                return n_dev * repart[id(node)]
             if isinstance(node, AggregateNode):
                 if node.combine == "global" and \
                         isinstance(node.input, JoinNode) and \
@@ -965,23 +1058,40 @@ class Executor:
                             agg_out[id(node)] = k
                             out = k
                     return out
+                combine = node.combine == "repartition" and n_dev > 1
                 est_g = node.est_groups
                 if est_g:
                     agg_cap = _round_cap(
                         min(in_cap, int(est_g * group_factor) + 16))
                     agg_out[id(node)] = agg_cap
+                    if combine:
+                        # worst case: every group hashes to one target
+                        repart[id(node)] = agg_cap
                     return agg_cap
+                if combine:
+                    repart[id(node)] = _round_cap(int(in_cap * repart_factor))
+                    return n_dev * repart[id(node)]
                 return in_cap
             raise ExecutionError(f"unknown node {type(node).__name__}")
 
-        cap_of(plan.root)
-        return Capacities({}, join_out, agg_out, dense_off, scan_out,
-                          None, bucket_probe, agg_bucket)
+        root_cap = cap_of(plan.root)
+        out_rp = None
+        if plan.output_repart is not None:
+            # balanced-hash expectation with headroom; skew overflows and
+            # regrows through the normal retry path
+            out_rp = _round_cap(
+                int(-(-root_cap // n_dev) * repart_factor) + 256)
+        return Capacities(repart, join_out, agg_out, dense_off, scan_out,
+                          out_rp, bucket_probe, agg_bucket)
 
     # ------------------------------------------------------------------
     def _host_combine(self, plan: QueryPlan, cols, nulls, valid,
                       raw: bool = False) -> ResultSet:
-        valid_np = np.asarray(valid).reshape(-1)
+        valid_2d = np.asarray(valid)
+        # rows per position while the result keeps position-major order
+        device_rows = (valid_2d.sum(axis=1).astype(int).tolist()
+                       if valid_2d.ndim == 2 else None)
+        valid_np = valid_2d.reshape(-1)
         flat_cols: dict[str, np.ndarray] = {}
         flat_nulls: dict[str, np.ndarray] = {}
         for cid in cols:
@@ -997,6 +1107,7 @@ class Executor:
             flat_nulls = {c: a[mask] for c, a in flat_nulls.items()}
             src = ColumnSource(flat_cols, flat_nulls)
             n = int(mask.sum())
+            device_rows = None  # filtered: per-position counts are stale
 
         out_cols: dict[str, object] = {}
         out_nulls: dict[str, np.ndarray] = {}
@@ -1027,6 +1138,7 @@ class Executor:
         # ORDER BY (host): exact multi-key sort via factorize + lexsort;
         # NULL placement follows PG defaults
         if plan.host_order_by and n > 0:
+            device_rows = None  # re-sorted: position-major order destroyed
             order_src = ColumnSource(flat_cols, flat_nulls)
             lex_keys = []
             for e, desc, nulls_first in plan.host_order_by:
@@ -1059,17 +1171,20 @@ class Executor:
             for c in names:
                 out_cols[c] = out_cols[c][lo:hi]
                 out_nulls[c] = out_nulls[c][lo:hi]
+            device_rows = None  # sliced: per-position counts are stale
         final_n = max(0, hi - lo)
         if raw:
             return ResultSet(names, out_cols, final_n, dtypes=out_dtypes,
-                             null_masks=out_nulls, decode_map=decode_map)
+                             null_masks=out_nulls, decode_map=decode_map,
+                             device_rows=device_rows)
         # surface NULLs as None in object columns
         for c in names:
             if out_nulls[c].any():
                 col = np.asarray(out_cols[c], dtype=object)
                 col[out_nulls[c]] = None
                 out_cols[c] = col
-        return ResultSet(names, out_cols, final_n, dtypes=out_dtypes)
+        return ResultSet(names, out_cols, final_n, dtypes=out_dtypes,
+                         device_rows=device_rows)
 
 
 def _feed_keys(plan: QueryPlan, feeds) -> tuple:
@@ -1080,10 +1195,18 @@ def _feed_keys(plan: QueryPlan, feeds) -> tuple:
 
 
 def feed_device_rows(feeds) -> list[int] | None:
-    """Rows the device fed into the plan (sharded feeds' rows), or None
-    when no feed is sharded."""
-    rows = [f.dev_rows[0] for f in feeds.values() if f.dev_rows is not None]
-    return [sum(rows)] if rows else None
+    """Rows each position fed into the plan (the sharded feeds' rows,
+    summed per position — the Mesh line's input column), or None when
+    no feed is sharded."""
+    totals: list[int] = []
+    for f in feeds.values():
+        if f.dev_rows is None:
+            continue
+        if len(totals) < len(f.dev_rows):
+            totals.extend([0] * (len(f.dev_rows) - len(totals)))
+        for d, r in enumerate(f.dev_rows):
+            totals[d] += int(r)
+    return totals or None
 
 
 def _unique_name(name: str, taken: list[str]) -> str:
@@ -1102,6 +1225,11 @@ def _plan_buffer_bytes(plan: QueryPlan, caps: Capacities) -> int:
     are the buffers that can explode under skew."""
     nodes = {id(n): n for n in walk_plan(plan.root)}
     worst = 0
+    for nid, cap in caps.repartition.items():
+        # a position's [N, cap] pack and its exchanged copy
+        node = nodes.get(nid)
+        ncols = len(node.out_columns) if node is not None else 4
+        worst = max(worst, cap * plan.n_devices * (ncols + 2) * 8)
     for table in (caps.join_out, caps.agg_out, caps.scan_out):
         for nid, cap in table.items():
             node = nodes.get(nid)

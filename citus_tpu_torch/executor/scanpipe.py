@@ -1,7 +1,7 @@
 """Pipelined columnar scan: overlapped prefetch/decode/transfer with
 optional on-device decode of compressed column payloads.
 
-Counterpart of citus_tpu/executor/scanpipe.py, on one device.  The
+Counterpart of citus_tpu/executor/scanpipe.py.  The
 eager feed path (executor/feed.py `_feed_scan`) reads and decodes every
 stripe, assembles every column, then copies them one after another.
 Here one producer thread and a bounded queue overlap the three:
@@ -29,9 +29,14 @@ Here one producer thread and a bounded queue overlap the three:
   null planes bit-packed 8:1 (expanded by `bit_unpack`), and the valid
   prefix of a sharded feed as one row count.
 
-On one device a HASH table's buffer is the concatenation of its shards
-in shard order, exactly where the eager path puts each row, so the
-`off`, `host` and `device` modes answer identically.  On the CPU
+At one position a HASH table's buffer is the concatenation of its
+shards in shard order, exactly where the eager path puts each row, so
+the `off`, `host` and `device` modes answer identically.  On a mesh
+whose positions share one card the buffer is an [n_positions, cap]
+plane, row i holding position i's shards in shard order (the eager
+path's device-owned slices): the wire encodings, `bit_unpack` and
+`dict_decode` run over the whole plane, so one launch serves every
+position.  A mesh over several cards takes the eager path.  On the CPU
 `host` mode uses `torch.from_numpy` (no pinning) and `device` mode runs
 the same encodings through the kernels' plain versions.
 
@@ -221,7 +226,8 @@ def _valid_expand(rows: torch.Tensor, cap: int) -> torch.Tensor:
 # the pipeline
 
 def maybe_pipelined_feed(node, catalog, store, device, compute_dtype,
-                         accountant, category: str, stats, counters=None):
+                         accountant, category: str, stats, counters=None,
+                         mesh=None):
     """Build `node`'s feed through the pipelined path, or return None
     (caller proceeds on the eager path): scan_pipeline off / too small
     under 'auto' / open-transaction overlay on the table / the pipeline
@@ -237,9 +243,11 @@ def maybe_pipelined_feed(node, catalog, store, device, compute_dtype,
     if settings.get("scan_pipeline") == "auto" and \
             store.table_row_count(node.rel.table) < AUTO_MIN_ROWS:
         return None
+    if mesh is not None and mesh.size > 1 and not mesh.single_device():
+        return None  # per-card slices: the eager path places them
     pipe = _ScanPipeline(node, catalog, store, torch.device(device),
                          compute_dtype, mode, accountant, category, stats,
-                         counters)
+                         counters, mesh)
     try:
         return pipe.run()
     except _Shed:
@@ -250,9 +258,10 @@ def maybe_pipelined_feed(node, catalog, store, device, compute_dtype,
 
 class _ScanPipeline:
     def __init__(self, node, catalog, store, device, compute_dtype, mode,
-                 accountant, category, stats, counters=None):
+                 accountant, category, stats, counters=None, mesh=None):
         from ..catalog import DistributionMethod
         from ..errors import ExecutionError
+        from ..planner.plan import table_placement
         from .feed import make_chunk_filter
 
         self.node = node
@@ -294,16 +303,27 @@ class _ScanPipeline:
         # read units: (shard_id, record) in shard order — the order the
         # eager path concatenates, so rows land identically
         shards = catalog.table_shards(self.table)
+        # positions of the plane (1: a flat [cap] buffer)
+        self.n_pos = (mesh.size if self.sharded and mesh is not None
+                      else 1)
+        pos_of = ((0,) * len(shards) if self.n_pos == 1 else
+                  table_placement(catalog, self.table, self.n_pos))
         if self.sharded:
-            shards = [s for s in shards
-                      if node.pruned_shards is None
-                      or s.shard_index in node.pruned_shards]
+            keep = [i for i, s in enumerate(shards)
+                    if node.pruned_shards is None
+                    or s.shard_index in node.pruned_shards]
+            shards = [shards[i] for i in keep]
+            pos_of = [pos_of[i] for i in keep]
         elif len(shards) != 1:
             raise ExecutionError(f"table {self.table}: expected single "
                                  "shard")
-        self.tasks = [(s.shard_id, rec) for s in shards
-                      for rec in store.shard_stripe_records(self.table,
-                                                            s.shard_id)]
+        self.tasks = []
+        self.task_pos = []
+        for s, pos in zip(shards, pos_of):
+            for rec in store.shard_stripe_records(self.table, s.shard_id):
+                self.tasks.append((s.shard_id, rec))
+                self.task_pos.append(pos)
+        self.rows_by_pos = [0] * self.n_pos
         # per-task layout, filled by the first column pass:
         # [dest_offset, selected_chunks|None, keep_mask|None, n_chunks]
         self.layout: list[list] = [[0, None, None, 0] for _ in self.tasks]
@@ -409,14 +429,15 @@ class _ScanPipeline:
         return v, m, n
 
     def _host_buffer(self, dtype):
-        """A [cap] host staging buffer as (tensor, numpy view): pinned on
-        a CUDA session, so its copy runs asynchronously and the caching
-        host allocator keeps it until the copy is done."""
+        """A [n_pos · cap] host staging buffer as (tensor, numpy view):
+        pinned on a CUDA session, so its copy runs asynchronously and
+        the caching host allocator keeps it until the copy is done."""
+        size = self.n_pos * self.cap
         if self.cuda:
-            t = torch.empty(self.cap, dtype=_torch_dtype(dtype),
+            t = torch.empty(size, dtype=_torch_dtype(dtype),
                             pin_memory=True)
             return t, t.numpy()
-        a = np.empty(self.cap, dtype=dtype)
+        a = np.empty(size, dtype=dtype)
         return torch.from_numpy(a), a
 
     def _staged(self, arr: np.ndarray) -> torch.Tensor:
@@ -435,7 +456,10 @@ class _ScanPipeline:
         # [0, rows) is written piece by piece below; the padding must be
         # zero, as the eager path's np.zeros buffer is (the FOR encoding
         # reads the padding's minimum too)
-        buf[self.rows:] = 0
+        if self.n_pos == 1:
+            buf[self.rows:] = 0
+        else:
+            buf[:] = 0
         nulls = None
         for ti in range(len(self.tasks)):
             if pieces is not None:
@@ -443,7 +467,7 @@ class _ScanPipeline:
             else:
                 fault_point("executor.scan_prefetch")
                 v, m, n = self._read_stripe_column(ti, cname, first=False)
-            off = self.layout[ti][0]
+            off = self.layout[ti][0] + self.task_pos[ti] * self.cap
             if n == 0:
                 continue
             buf[off:off + n] = v
@@ -470,11 +494,13 @@ class _ScanPipeline:
                 n = self._verified(ti, lambda r: r.row_count)
                 if dmask is not None and dmask.any():
                     n = int((~dmask).sum())
-            self.layout[ti][0] = self.rows
+            pos = self.task_pos[ti]
+            self.layout[ti][0] = self.rows_by_pos[pos]
+            self.rows_by_pos[pos] += n
             self.rows += n
         from .compiler import _round_cap
 
-        self.cap = _round_cap(max(self.rows, 1))
+        self.cap = _round_cap(max(max(self.rows_by_pos), 1))
         return pieces
 
     def _copies(self):
@@ -557,14 +583,16 @@ class _ScanPipeline:
         sp, leg = self._transfer()
         with self._copies(), sp, leg:
             if self.mode == "device" and self.sharded:
-                rows = np.asarray([self.rows], dtype=np.int32)
+                rows = np.asarray(self.rows_by_pos, dtype=np.int32)
                 arr, h = self._place(self._staged(rows))
                 payload = {"kind": "rows", "arr": arr, "handle": h,
-                           "wire": rows.nbytes, "decoded": self.cap}
+                           "wire": rows.nbytes,
+                           "decoded": self.n_pos * self.cap}
             else:
                 valid_t, valid = self._host_buffer(np.bool_)
-                valid[:self.rows] = True
-                valid[self.rows:] = False
+                valid[:] = False
+                for pos, r in enumerate(self.rows_by_pos):
+                    valid[pos * self.cap:pos * self.cap + r] = True
                 arr, h = self._place(valid_t)
                 payload = {"kind": "plain", "arr": arr, "handle": h,
                            "wire": valid.nbytes, "decoded": valid.nbytes}
@@ -661,7 +689,7 @@ class _ScanPipeline:
                 t0 = time.perf_counter()
                 with trace_span("scan.device_decode"):
                     decoded_nulls = hk.bit_unpack(payload["nulls"],
-                                                  self.cap)
+                                                  self.n_pos * self.cap)
                     self.acc.adopt(decoded_nulls, cat)
                 self._stat(device_decode_seconds=time.perf_counter() - t0)
                 self._count_decoded(decoded_nulls)
@@ -680,8 +708,9 @@ class _ScanPipeline:
                 decoded = for_expand(payload["arr"], payload["base"])
             elif kind == "dict":
                 decoded = hk.dict_decode(payload["arr"], payload["lut"])
-            else:  # rows → valid prefix
-                decoded = _valid_expand(payload["arr"], self.cap)
+            else:  # rows → each position's valid prefix
+                decoded = _valid_expand(payload["arr"][:, None],
+                                        self.cap).reshape(-1)
             self.acc.adopt(decoded, cat)
         self._stat(device_decode_seconds=time.perf_counter() - t0)
         self._count_decoded(decoded)
@@ -770,7 +799,17 @@ class _ScanPipeline:
                                             self.chunks_skipped)
         self._stat(feeds_pipelined=1)
         self.stats_out.merge(self.stats)
+        if self.n_pos > 1:
+            # position i's column is row i of the plane (views: the
+            # plane's accounting finalizer fires when the last one dies)
+            def plane(t):
+                return t.view(self.n_pos, self.cap)
+
+            arrays = {c: plane(t) for c, t in arrays.items()}
+            nulls = {c: plane(t) for c, t in nulls.items()}
+            valid = plane(valid)
         return FeedSpec(node=self.node, sharded=self.sharded,
                         arrays=arrays, nulls=nulls, valid=valid,
                         capacity=self.cap,
-                        dev_rows=[self.rows] if self.sharded else None)
+                        dev_rows=(list(self.rows_by_pos) if self.sharded
+                                  else None))

@@ -1,6 +1,6 @@
 """Streamed execution: tables larger than the device feed in stripe batches.
 
-Counterpart of citus_tpu/executor/stream.py, on one device.  The
+Counterpart of citus_tpu/executor/stream.py.  The
 reference never holds a whole table in memory — the columnar reader
 iterates stripe by stripe (columnar/columnar_reader.c:323).  The
 resident-feed executor (executor/feed.py) holds every scanned table on
@@ -12,7 +12,11 @@ the streaming property:
   `max_feed_bytes_per_device` (or the accountant's smaller budget);
 * its stripes are assembled into fixed-shape [batch_cap] batches — the
   same capacity every batch, so one cached PlanCompiler and one
-  capacity set serve them all;
+  capacity set serve them all.  On a mesh each batch is an
+  [n_positions, batch_cap] plane: position i's row pulls only from the
+  shards the node↔device map gives position i, so the peak `stream`
+  bytes stay bound per position (the budget is per position: a card's
+  budget splits evenly among the positions on it);
 * a producer thread decodes batch i+1 on the host, stages it in pinned
   memory and copies it on its own CUDA stream while the statement's
   thread runs batch i; the consumer waits on the batch's event and
@@ -95,16 +99,24 @@ def _scan_width_bytes(node: ScanNode, catalog, compute_dtype) -> int:
     return w
 
 
-def _scan_dev_rows(node: ScanNode, catalog, store) -> int:
-    """Rows the device would hold for this scan (pre-padding): on one
-    device, every unpruned shard."""
+def _scan_dev_rows(node: ScanNode, catalog, store, n_dev: int = 1) -> int:
+    """Most rows any position would hold for this scan (pre-padding)."""
+    from ..planner.plan import table_placement
+
     meta = catalog.table(node.rel.table)
     if meta.method != DistributionMethod.HASH:
         return store.table_row_count(node.rel.table)
-    return sum(store.shard_row_count(node.rel.table, s.shard_id)
-               for s in catalog.table_shards(node.rel.table)
-               if node.pruned_shards is None
-               or s.shard_index in node.pruned_shards)
+    shards = catalog.table_shards(node.rel.table)
+    placement = ((0,) * len(shards) if n_dev == 1
+                 else table_placement(catalog, node.rel.table, n_dev,
+                                      probe=False))
+    per_dev = [0] * n_dev
+    for s, dev in zip(shards, placement):
+        if node.pruned_shards is None or \
+                s.shard_index in node.pruned_shards:
+            per_dev[dev] += store.shard_row_count(node.rel.table,
+                                                  s.shard_id)
+    return max(per_dev)
 
 
 def _path_to(plan: QueryPlan, target_id: int) -> list[PlanNode] | None:
@@ -183,7 +195,8 @@ def stream_candidates(plan: QueryPlan, catalog) -> list[ScanNode]:
 
 def pick_stream_node(plan: QueryPlan, catalog, store, compute_dtype,
                      budget: int, forced_rows: int = 0, shrink: int = 1,
-                     force: bool = False, prefetch_depth: int = 1):
+                     force: bool = False, prefetch_depth: int = 1,
+                     n_dev: int = 1):
     """(stream ScanNode, batch_cap) or None.
 
     Streams only when the combined feed bytes exceed `budget` and the
@@ -198,11 +211,12 @@ def pick_stream_node(plan: QueryPlan, catalog, store, compute_dtype,
     `prefetch_depth` is the batch queue's depth (scan_prefetch_depth):
     depth + 1 batches can be on the device at once, so the per-batch
     budget divisor scales with it — a deeper queue means smaller
-    batches, never more resident bytes than the budget."""
+    batches, never more resident bytes than the budget.  Sizes and the
+    budget are per position (`n_dev` positions)."""
     scans = [n for n in walk_plan(plan.root) if isinstance(n, ScanNode)]
     sizes = {}
     for s in scans:
-        rows = _scan_dev_rows(s, catalog, store)
+        rows = _scan_dev_rows(s, catalog, store, n_dev)
         sizes[id(s)] = _round_cap(max(rows, 1)) * \
             _scan_width_bytes(s, catalog, compute_dtype)
     total = sum(sizes.values())
@@ -242,11 +256,13 @@ def pick_stream_node(plan: QueryPlan, catalog, store, compute_dtype,
 
 class StreamBatcher:
     """Assemble one scan's stripes into fixed-shape [batch_cap] feed
-    batches, reading lazily (at most one open stripe, plus the rows
-    carried over from it)."""
+    batches ([n_pos, batch_cap] on a mesh, each position reading only
+    its own shards), reading lazily (per position at most one open
+    stripe, plus the rows carried over from it)."""
 
     def __init__(self, node: ScanNode, catalog, store, device,
-                 compute_dtype, batch_cap: int, accountant, stats=None):
+                 compute_dtype, batch_cap: int, accountant, stats=None,
+                 n_pos: int = 1):
         self.stats = stats
         self.node = node
         self.store = store
@@ -266,13 +282,27 @@ class StreamBatcher:
             name_map = {c.name: store.storage_column_name(table, c.name)
                         for c in meta.schema.columns}
             self._chunk_filter = make_chunk_filter(node.filter, name_map)
-        self._shards = [s.shard_id for s in catalog.table_shards(table)
+        shards = catalog.table_shards(table)
+        self.n_pos = n_pos
+        if n_pos == 1:
+            pos_of = (0,) * len(shards)
+        else:
+            from ..planner.plan import table_placement
+
+            pos_of = table_placement(catalog, table, n_pos)
+        self._shards = [s.shard_id for s in shards
                         if node.pruned_shards is None
                         or s.shard_index in node.pruned_shards]
-        self.total_rows = sum(store.shard_row_count(table, sid)
-                              for sid in self._shards)
-        self._iter = self._stripes()
-        self._carry: tuple[dict, dict, int] | None = None
+        by_pos: list[list[int]] = [[] for _ in range(n_pos)]
+        for s, pos in zip(shards, pos_of):
+            if node.pruned_shards is None or \
+                    s.shard_index in node.pruned_shards:
+                by_pos[pos].append(s.shard_id)
+        self.rows_by_pos = [sum(store.shard_row_count(table, sid)
+                                for sid in sids) for sids in by_pos]
+        self.total_rows = sum(self.rows_by_pos)
+        self._iters = [self._stripes(sids) for sids in by_pos]
+        self._carries: list = [None] * n_pos
         # Which columns carry a nulls plane is decided ONCE, from the
         # manifest's stripe stats, so every batch presents the same
         # feed structure to the cached PlanCompiler (a per-batch
@@ -293,32 +323,32 @@ class StreamBatcher:
                     break
         self._null_cols = null_cols
 
-    def _stripes(self):
-        for sid in self._shards:
+    def _stripes(self, shard_ids):
+        for sid in shard_ids:
             yield from self.store.iter_shard_stripes(
                 self.node.rel.table, sid, self.colnames,
                 self._chunk_filter)
 
-    def _pull(self, want: int):
-        """Up to `want` rows from the stripe stream."""
+    def _pull(self, want: int, pos: int = 0):
+        """Up to `want` rows from position `pos`'s stripe stream."""
         pieces: list[tuple[dict, dict, int]] = []
         got = 0
         while got < want:
-            if self._carry is not None:
-                v, m, n = self._carry
-                self._carry = None
+            if self._carries[pos] is not None:
+                v, m, n = self._carries[pos]
+                self._carries[pos] = None
             else:
                 try:
-                    v, m, n = next(self._iter)
+                    v, m, n = next(self._iters[pos])
                 except StopIteration:
                     break
                 if n == 0:
                     continue
             take = min(n, want - got)
             if take < n:
-                self._carry = ({c: a[take:] for c, a in v.items()},
-                               {c: a[take:] for c, a in m.items()},
-                               n - take)
+                self._carries[pos] = ({c: a[take:] for c, a in v.items()},
+                                      {c: a[take:] for c, a in m.items()},
+                                      n - take)
                 v = {c: a[:take] for c, a in v.items()}
                 m = {c: a[:take] for c, a in m.items()}
             pieces.append((v, m, take))
@@ -326,10 +356,11 @@ class StreamBatcher:
         return pieces, got
 
     def _host(self, dtype) -> tuple[torch.Tensor, np.ndarray]:
-        """A zeroed [batch_cap] staging buffer as (tensor, numpy view):
-        pinned on a CUDA session, so its copy runs asynchronously."""
-        t = torch.zeros(self.batch_cap, dtype=_torch_dtype(dtype),
-                        pin_memory=self.cuda)
+        """A zeroed [n_pos · batch_cap] staging buffer as (tensor, numpy
+        view): pinned on a CUDA session, so its copy runs
+        asynchronously."""
+        t = torch.zeros(self.n_pos * self.batch_cap,
+                        dtype=_torch_dtype(dtype), pin_memory=self.cuda)
         return t, t.numpy()
 
     def feed(self, batch_index: int) -> FeedSpec | None:
@@ -339,9 +370,11 @@ class StreamBatcher:
         always materializes (an empty table still runs once)."""
         node, rel = self.node, self.node.rel
         t0 = time.perf_counter()
+        cap = self.batch_cap
         with trace_span("stream.decode"):
-            pieces, rows = self._pull(self.batch_cap)
-            if batch_index > 0 and rows == 0:
+            pulled = [self._pull(cap, p) for p in range(self.n_pos)]
+            rows_by_pos = [got for _pieces, got in pulled]
+            if batch_index > 0 and not any(rows_by_pos):
                 return None
             host_arrays, host_nulls = {}, {}
             for cid, cname in zip(node.columns, self.colnames):
@@ -352,18 +385,20 @@ class StreamBatcher:
                 with_nulls = cname in self._null_cols
                 nt, nbuf = (self._host(np.bool_) if with_nulls
                             else (None, None))
-                pos = 0
-                for v, m, take in pieces:
-                    buf[pos:pos + take] = v[cname].astype(dtype,
-                                                          copy=False)
-                    if with_nulls:
-                        nbuf[pos:pos + take] = ~m[cname]
-                    pos += take
+                for p, (pieces, _got) in enumerate(pulled):
+                    at = p * cap
+                    for v, m, take in pieces:
+                        buf[at:at + take] = v[cname].astype(dtype,
+                                                            copy=False)
+                        if with_nulls:
+                            nbuf[at:at + take] = ~m[cname]
+                        at += take
                 host_arrays[cid] = t
                 if with_nulls:
                     host_nulls[cid] = nt
             vt, vbuf = self._host(np.bool_)
-            vbuf[:rows] = True
+            for p, got in enumerate(rows_by_pos):
+                vbuf[p * cap:p * cap + got] = True
         t1 = time.perf_counter()
         acc, dev = self.accountant, self.device
         # on the producer's CUDA stream (the caller's context): the
@@ -377,9 +412,16 @@ class StreamBatcher:
         if self.stats is not None:
             self.stats.add(stream_decode_seconds=t1 - t0,
                            stream_transfer_seconds=time.perf_counter() - t1)
+        if self.n_pos > 1:
+            # position i's batch is row i of the plane
+            def plane(t):
+                return t.view(self.n_pos, cap)
+
+            arrays = {c: plane(t) for c, t in arrays.items()}
+            nulls = {c: plane(t) for c, t in nulls.items()}
+            valid = plane(valid)
         return FeedSpec(node=node, sharded=True, arrays=arrays, nulls=nulls,
-                        valid=valid, capacity=self.batch_cap,
-                        dev_rows=[rows])
+                        valid=valid, capacity=cap, dev_rows=rows_by_pos)
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -622,12 +664,17 @@ def try_execute_streamed(executor, plan: QueryPlan, raw: bool,
     budget = settings.get("max_feed_bytes_per_device")
     if budget <= 0:
         return None
+    mesh = executor._mesh_for(plan)
+    if mesh is not None and not mesh.single_device():
+        return None  # per-card batches: not streamed (resident path)
+    n_dev = plan.n_devices
     # the accountant may know a real ceiling below the configured one
     # (an armed MemSim, hbm_budget_bytes, the card's memory): size the
-    # stream against it up front instead of discovering it by an OOM
+    # stream against it up front instead of discovering it by an OOM.
+    # Positions sharing the card split its budget evenly.
     hw = executor.accountant.budget_bytes(executor.device, settings)
     if hw:
-        budget = min(budget, hw)
+        budget = min(budget, hw // n_dev)
     compute_dtype = np.dtype(settings.get("compute_dtype"))
     oom = executor.oom
     depth = settings.get("scan_prefetch_depth")
@@ -636,19 +683,22 @@ def try_execute_streamed(executor, plan: QueryPlan, raw: bool,
                               settings.get("stream_batch_rows"),
                               shrink=oom.batch_shrink,
                               force=oom.force_stream,
-                              prefetch_depth=depth)
+                              prefetch_depth=depth, n_dev=n_dev)
     if picked is None:
         return None
     stream_node, batch_cap = picked
     # downstream buffers size per batch, not per table
-    total_rows = sum(
+    total_rows = (sum(
         executor.store.shard_row_count(stream_node.rel.table, s.shard_id)
         for s in executor.catalog.table_shards(stream_node.rel.table))
+        if n_dev == 1 else _scan_dev_rows(stream_node, executor.catalog,
+                                          executor.store, n_dev))
     _scale_path_estimates(plan, id(stream_node),
                           min(1.0, batch_cap / max(1, total_rows)))
     batcher = StreamBatcher(stream_node, executor.catalog, executor.store,
                             executor.device, compute_dtype, batch_cap,
-                            executor.accountant, executor.scan_stats)
+                            executor.accountant, executor.scan_stats,
+                            n_pos=n_dev)
 
     feeds: dict[int, FeedSpec] = {}
     with trace_span("feed"):
@@ -660,9 +710,11 @@ def try_execute_streamed(executor, plan: QueryPlan, raw: bool,
                     node, executor.catalog, executor.store,
                     executor.device, plan.n_devices, compute_dtype, cache,
                     executor.accountant, executor.scan_stats,
-                    executor.counters)
-    rows_in = sum(f.dev_rows[0] for f in feeds.values()
-                  if f.dev_rows is not None)
+                    executor.counters, mesh)
+    rows_in = list(batcher.rows_by_pos)
+    for f in feeds.values():
+        for p, r in enumerate(f.dev_rows or ()):
+            rows_in[p] += r
 
     # the plan each batch runs; the host combine below keeps `plan`
     # (its sort and limit give the answer after the merge)
@@ -703,6 +755,8 @@ def try_execute_streamed(executor, plan: QueryPlan, raw: bool,
                                str(compute_dtype),
                                feeds_signature(plan, feeds), topk_sig,
                                str(executor.device))
+                if n_dev > 1:
+                    fingerprint = fingerprint + (tuple(mesh.ids),)
                 with executor._caps_lock:
                     memo = executor._caps_memo.get(fingerprint)
                 caps = (executor._caps_from_order(plan, memo)
@@ -737,7 +791,7 @@ def try_execute_streamed(executor, plan: QueryPlan, raw: bool,
     result.retries = retries_total
     result.device_rows_scanned = rows_scanned
     result.streamed_batches = n_consumed
-    result.device_rows_in = [rows_in + batcher.total_rows]
+    result.device_rows_in = rows_in
     if executor.counters is not None:
         executor.counters.increment(sc.QUERIES_STREAMED)
     if caps is not None:

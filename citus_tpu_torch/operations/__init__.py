@@ -3,6 +3,5 @@ health check and node promotion (health.py), deferred cleanup
 (cleanup.py), shard moves and repair (shard_transfer.py), shard split
 and tenant isolation (shard_split.py), the greedy rebalancer
 (rebalancer.py), the storage scrubber (scrubber.py) and restore points
-(restore_point.py).  The mesh parts of the JAX package's rebalancer
-(rebalance_mesh, drain_device) come with multi-GPU (ROADMAP queue A
-item 9)."""
+(restore_point.py), with the rebalancer's mesh fitting
+(rebalance_mesh, drain_device)."""

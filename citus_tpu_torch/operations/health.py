@@ -8,10 +8,12 @@ Counterpart of citus_tpu/operations/health.py.  Reference analogues:
   (a) the device backing a node answering a tiny round trip and (b)
   the shared store answering a directory read — probed from the one
   controller, so the matrix collapses to one row per node.  The device
-  leg places a 4-byte tensor on the session's device (cuda:0 in a cuda
-  session, the CPU in a CPU one) and reads it back.  The JAX package's
-  simulated-mesh check before the placement comes with the multi-GPU
-  slice (ROADMAP queue A item 9).
+  leg places a 4-byte tensor on the device of the node's mesh position
+  (cuda:0 in a cuda session, the CPU in a CPU one) and reads it back,
+  after the MeshSim check of that position: a killed simulated position
+  fails the probe exactly like a dead real one, so the maintenance
+  daemon's health sweep is a second device-loss detector beside the
+  statement retry envelope.
 * operations/node_promotion.c — `citus_promote_clone_and_rebalance`
   turns a standby into a primary.  Replica placements already serve
   reads when a node dies (catalog.active_placement failover); promotion
@@ -39,14 +41,19 @@ def probe_node(session, node) -> bool:
     try:
         if node.name.startswith("device:"):
             idx = int(node.name.split(":", 1)[1])
-            if idx >= session.n_devices:
+            mesh = session.mesh
+            if idx >= mesh.size:
                 return False
             import torch
 
+            from ..utils.faultinjection import mesh_device_check
+
+            mesh_device_check("mesh.device_put", (mesh.ids[idx],))
             # a 4-byte round trip, outside the accountant: charging it
             # would make the probe depend on the ledger it may be
             # diagnosing
-            out = torch.ones((), dtype=torch.int32, device=session.device)
+            out = torch.ones((), dtype=torch.int32,
+                             device=mesh.devices[idx])
             if int(out.cpu()) != 1:
                 return False
         # storage probe: an actual disk read of a shard directory this

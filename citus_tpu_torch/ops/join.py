@@ -346,8 +346,8 @@ def expand_join_outer(build_keys, build_valid, build_matchable, probe_keys,
       surviving pair references; the consumer appends them as a second
       segment with the probe columns NULL.
 
-    On one device the JAX package's replicated-build flag combine is the
-    identity, and the unmatched segment always emits here."""
+    On a mesh the compiler combines a replicated build side's flags
+    across the positions (PlanCompiler._exec_outer_expand)."""
     build_idx, probe_idx, out_valid, build_missing, overflow, dense_oob = \
         expand_join_pairs(build_keys, build_matchable, probe_keys,
                           probe_valid, probe_matchable, capacity,

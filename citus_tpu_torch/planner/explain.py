@@ -1,7 +1,7 @@
 """EXPLAIN output: render the distributed plan tree.
 
 Counterpart of citus_tpu/planner/explain.py: on the same plan and
-settings the port renders the JAX package's lines, one device.  The
+settings the port renders the JAX package's lines.  The
 analogue of the reference's distributed EXPLAIN (planner/
 multi_explain.c:215 RemoteExplain) — but there are no remote per-task
 plans to fetch: the strategy annotations ARE the execution plan.

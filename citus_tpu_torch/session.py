@@ -73,8 +73,11 @@ goes through the store's read-repair seam, and each statement folds its
 integrity accounting (stripes verified, corruption detected, read
 repairs) into the session counters and its activity row.
 
-Not in this port yet: the mesh UDFs (`_UNPORTED_UDFS`) and the
-envelope's device-loss failover (multi-GPU).
+A session opened with `n_devices=N` (or `devices=[...]`) runs every
+statement as N hash-sharded mesh positions driven by this one controller
+(distributed/mesh.py); the envelope fails a lost position over to the
+survivors (`_degrade_mesh`), and `citus_stat_mesh`,
+`citus_rebalance_mesh` and `citus_drain_device` read and fit the mesh.
 """
 
 from __future__ import annotations
@@ -149,13 +152,12 @@ _UDFS = ("create_distributed_table", "create_reference_table",
          "isolate_tenant_to_node", "citus_cleanup_orphaned_resources",
          "citus_rebalance_start", "citus_rebalance_wait",
          "citus_job_wait", "citus_job_cancel", "citus_job_list",
-         "citus_create_restore_point", "citus_check_cluster")
+         "citus_create_restore_point", "citus_check_cluster",
+         "citus_stat_mesh", "citus_rebalance_mesh", "citus_drain_device")
 
-# the JAX package's other UDFs, by the ROADMAP queue A item that brings
-# their module: each raises UnsupportedQueryError naming it
-_UNPORTED_UDFS = dict.fromkeys(
-    ("citus_stat_mesh", "citus_rebalance_mesh", "citus_drain_device"),
-    "queue A item 9 (multi-GPU)")
+# the JAX package's UDFs still to port, by the ROADMAP queue A item that
+# brings their module: each raises UnsupportedQueryError naming it
+_UNPORTED_UDFS: dict[str, str] = {}
 
 
 # fault points that fire AFTER a write's visibility flip: the effect is
@@ -219,12 +221,17 @@ class _StoreDicts(DictProvider):
 
 class Session:
     def __init__(self, data_dir: str | None = None, device=None,
-                 **settings):
+                 n_devices: int | None = None, devices=None, **settings):
         """`device=None` runs on cuda:0 and raises when no GPU is
         visible; `device="cpu"` runs the plain formulations (tests).
-        `settings` are config variables (config.py), e.g.
-        scan_pipeline="off" for the eager feed path."""
-        self.device = resolve_device(device)
+        `n_devices=N` runs every statement as N hash-sharded mesh
+        positions (distributed/mesh.py), all on `device` unless
+        `devices` lists one device per position (a device may repeat);
+        `n_devices` above what `devices` provides raises.  `settings`
+        are config variables (config.py), e.g. scan_pipeline="off" for
+        the eager feed path."""
+        self.device = resolve_device(
+            device if device is not None or not devices else devices[0])
         self.data_dir = data_dir or tempfile.mkdtemp(prefix="citus_port_")
         os.makedirs(self.data_dir, exist_ok=True)
         self.settings = Settings(settings or None)
@@ -234,13 +241,20 @@ class Session:
         self.catalog = (Catalog.load(cat_path) if os.path.exists(cat_path)
                         else Catalog())
         self.store = TableStore(self.data_dir, self.catalog, self.settings)
-        # one device: the catalog's node↔device map folds every node of a
-        # data_dir written for a wider mesh onto device 0
-        self.n_devices = 1
+        from .distributed.mesh import make_mesh
+
+        self.mesh = make_mesh(
+            n_devices, [resolve_device(d) for d in devices]
+            if devices else None, default_device=self.device)
+        # the catalog's node↔device map folds the nodes of a data_dir
+        # written for another width onto this mesh's positions
+        self.n_devices = self.mesh.size
         if not self.catalog.nodes:
-            self.catalog.add_node("device:0")
+            for i in range(self.n_devices):
+                self.catalog.add_node(f"device:{i}")
         self.executor = Executor(self.catalog, self.store, self.settings,
-                                 self.device, self.stats.counters)
+                                 self.device, self.stats.counters,
+                                 self.mesh)
         # intermediate-result names: itertools.count is GIL-atomic, so
         # concurrent statements never mint the same temp
         self._temp_counter = itertools.count(1)
@@ -569,9 +583,13 @@ class Session:
         import traceback as _traceback
 
         from .errors import (
+            DeviceLostError,
             DeviceMemoryExhausted,
+            MeshDegradedError,
+            PlacementLostError,
             QueryCanceled,
             ResourceExhausted,
+            StaleMeshPlan,
             StatementTimeout,
         )
         from .utils.cancellation import check_cancel, deadline_scope
@@ -581,6 +599,10 @@ class Session:
             timeout_ms = self.settings.get("statement_timeout_ms")
         attempt = 0
         oom_steps = 0  # statement-local position on the OOM ladder
+        mesh_steps = 0  # statement-local device-loss failover count
+        replans = 0  # plans found stale against a narrowed mesh
+        rescued = False  # a mesh failover happened; counted on success
+        width0 = self.n_devices  # bounds the failover budget
         self.last_oom_rungs = []
         with deadline_scope(timeout_ms or None,
                             self._cancel_evt) as deadline:
@@ -595,7 +617,7 @@ class Session:
                     commit_txid = self.txn_manager.current.txid
                 try:
                     check_cancel()
-                    n_attempt = attempt + oom_steps
+                    n_attempt = attempt + oom_steps + mesh_steps + replans
                     # first attempts (the steady state) skip the meta
                     espan = (trace_span("execute") if n_attempt == 0
                              else trace_span("execute", attempt=n_attempt))
@@ -604,6 +626,10 @@ class Session:
                     if isinstance(result, ResultSet):
                         result.retries += n_attempt
                         result.envelope_retries = n_attempt
+                    if rescued:
+                        # answered because the mesh-degrade path rescued it
+                        self.stats.counters.increment(
+                            sc.QUERIES_RESCUED_TOTAL)
                     return result
                 except (StatementTimeout, QueryCanceled) as e:
                     if commit_txid is not None and \
@@ -621,6 +647,70 @@ class Session:
                     if getattr(e, "injected_fault", False):
                         self.stats.counters.increment(
                             sc.FAULTS_INJECTED_TOTAL)
+                    # device loss is retryable after a mesh degrade: mark
+                    # the position suspect, rebuild the mesh from the
+                    # survivors, re-plan through the node↔device map
+                    # (replicated placements fail over) and re-run —
+                    # ending in a clean MeshDegradedError when nothing
+                    # survives or an unreplicated shard is stranded,
+                    # never wrong rows.  Failovers ride their own budget
+                    # (the mesh width).  A COMMIT dying mid-2PC resolves
+                    # through recovery; COPY commits per batch, so a
+                    # re-run would double-load: both fall through.
+                    # a plan made for a width the mesh no longer has (a
+                    # failover, drain or shrink between planning and
+                    # running): no device was lost, so re-plan at the
+                    # current width without counting one or probing
+                    if isinstance(e, StaleMeshPlan) and \
+                            commit_txid is None and \
+                            not isinstance(stmt, ast.CopyFrom):
+                        replans += 1
+                        if replans > max(1, width0):
+                            raise
+                        continue
+                    if isinstance(e, DeviceLostError) and \
+                            commit_txid is None and \
+                            not isinstance(stmt, ast.CopyFrom):
+                        self.stats.counters.increment(sc.DEVICE_LOST_TOTAL)
+                        did = getattr(e, "device_id", None)
+                        if did is not None:
+                            self.catalog.set_device_state(did, "suspect")
+                        if isinstance(e, MeshDegradedError) or \
+                                not self.settings.get("mesh_failover"):
+                            raise
+                        mesh_steps += 1
+                        if mesh_steps > max(1, width0):
+                            raise MeshDegradedError(
+                                f"device-loss failover budget spent after "
+                                f"{mesh_steps - 1} mesh degrade(s): {e}",
+                                device_id=did, seam=e.seam) from e
+                        _traceback.clear_frames(e.__traceback__)
+                        with trace_span("mesh.degrade"):
+                            status = self._degrade_mesh(e)
+                        if status == "unsurvivable":
+                            raise MeshDegradedError(
+                                f"no surviving mesh position to fail over "
+                                f"to: {e}", device_id=did,
+                                seam=e.seam) from e
+                        if status == "failover":
+                            self.stats.counters.increment(
+                                sc.MESH_FAILOVERS_TOTAL)
+                            rescued = True
+                        # 'transient': every position answered the probe
+                        # (a link flap) — a bare re-run, same budget
+                        if activity is not None:
+                            activity.retries = (attempt + oom_steps
+                                                + mesh_steps)
+                        continue  # re-plan + re-run (deadline intact)
+                    # an unroutable shard while positions are lost is the
+                    # replication-1 terminal case of device loss
+                    if isinstance(e, PlacementLostError) and \
+                            self.catalog.dead_nodes():
+                        raise MeshDegradedError(
+                            "shard unroutable after device loss (its only "
+                            "placement is on a lost position; "
+                            "shard_replication_factor >= 2 would have "
+                            f"failed over): {e}") from e
                     # device-memory exhaustion is retryable after
                     # degradation: each OOM applies the next rung of the
                     # ladder (evict caches → shrink stream batches →
@@ -717,6 +807,48 @@ class Session:
         if getattr(e, "fault_point", None) in _NON_RETRYABLE_POINTS:
             return False
         return isinstance(e, (InjectedFault, StorageError, OSError))
+
+    def _degrade_mesh(self, e: BaseException) -> str:
+        """Shrink this session's mesh around a lost position.  Returns
+        'failover' (mesh rebuilt from the survivors, the lost position's
+        nodes marked dead so replicated shards re-route), 'transient'
+        (every position answered the probe: a bare re-run) or
+        'unsurvivable' (no position survives).  The error names the lost
+        position when its seam knew it; an opaque collective failure
+        names none, so every position is probed.  The node↔device map
+        is read BEFORE the nodes die: the lost positions' nodes are what
+        must leave routing."""
+        from .distributed.mesh import (
+            mesh_device_ids,
+            mesh_without,
+            probe_mesh_devices,
+        )
+
+        ids = mesh_device_ids(self.mesh)
+        did = getattr(e, "device_id", None)
+        dead = [did] if did is not None else probe_mesh_devices(self.mesh)
+        dead = [d for d in dead if d in set(ids)]
+        if not dead:
+            return "transient"
+        dmap = self.catalog.node_device_map(self.n_devices)
+        dead_pos = {i for i, d in enumerate(ids) if d in set(dead)}
+        new_mesh = mesh_without(self.mesh, dead)
+        for d in dead:
+            self.catalog.set_device_state(d, "dead")
+        if new_mesh is None:
+            return "unsurvivable"
+        for node_id, pos in dmap.items():
+            if pos in dead_pos:
+                self.catalog.mark_node_dead(node_id)
+        self._adopt_mesh(new_mesh)
+        return "failover"
+
+    def _adopt_mesh(self, mesh) -> None:
+        """Run later statements on `mesh` (a failover's survivors, a
+        drained or a shrunk mesh)."""
+        self.mesh = mesh
+        self.n_devices = mesh.size
+        self.executor.adopt_mesh(mesh)
 
     def _mark_failover(self, e: BaseException) -> None:
         """A failed shard read carries (table, shard_id): mark the
@@ -1001,7 +1133,8 @@ class Session:
                  "min_value": list(cols[2]), "max_value": list(cols[3]),
                  "node": list(cols[4]), "size_bytes": list(cols[5]),
                  "live_rows": list(cols[6])}, len(rows))
-        elif e.name.startswith("citus_stat_"):
+        elif e.name.startswith("citus_stat_") and \
+                e.name != "citus_stat_mesh":
             return self._stat_udf(e.name)
         elif e.name == "citus_replication_ship":
             # leader side: stage one batch for every registered follower
@@ -1040,9 +1173,72 @@ class Session:
             return self._operations_udf(e.name, args)
         return ResultSet(["ok"], {"ok": [True]}, 1)
 
+    def _mesh_udf(self, name: str, args: list):
+        """citus_stat_mesh (the mesh's width, the node↔device map, each
+        position's health, the all_to_all volume and the per-position
+        memory ledger), citus_rebalance_mesh (fit the node set to the
+        mesh width and spread the placements) and citus_drain_device(i)
+        (empty position i and take its nodes out of rotation)."""
+        import json as _json
+
+        if name == "citus_stat_mesh":
+            by_dev = self.executor.accountant.live_bytes_by_device()
+            dmap = self.catalog.node_device_map(self.n_devices)
+            csnap = self.stats.counters.snapshot()
+            # per-position health (active | suspect | draining | dead);
+            # ids outside this session's (possibly shrunken) mesh with no
+            # recorded state show as 'unused'
+            ledger = self.catalog.device_states()
+            in_mesh = set(self.mesh.ids)
+            states = {d: ledger.get(d, "active" if d in in_mesh
+                                    else "unused")
+                      for d in sorted(in_mesh | set(ledger))}
+            cols = {
+                "devices": self.n_devices,
+                "platform": self.device.type,
+                "nodes": len(self.catalog.active_nodes()),
+                "dead_nodes": len(self.catalog.dead_nodes()),
+                "node_device_map": _json.dumps(
+                    {str(k): v for k, v in sorted(dmap.items())}),
+                "device_states": _json.dumps(
+                    {str(k): v for k, v in sorted(states.items())}),
+                "shuffle_bytes_total": csnap.get(sc.SHUFFLE_BYTES_TOTAL, 0),
+                "device_lost_total": csnap.get(sc.DEVICE_LOST_TOTAL, 0),
+                "mesh_failovers_total": csnap.get(
+                    sc.MESH_FAILOVERS_TOTAL, 0),
+                "queries_rescued_total": csnap.get(
+                    sc.QUERIES_RESCUED_TOTAL, 0),
+                "live_bytes_by_device": _json.dumps(by_dev),
+                "live_bytes_hot_device": max(by_dev, default=0),
+            }
+            return ResultSet(list(cols),
+                             {k: [v] for k, v in cols.items()}, 1)
+        if name == "citus_rebalance_mesh":
+            from .operations.rebalancer import rebalance_mesh
+
+            added, moves = rebalance_mesh(
+                self.catalog, self.store, self.n_devices,
+                self.settings.get("rebalance_threshold"),
+                progress=self.stats.progress)
+            self._save_catalog()
+            return ResultSet(["nodes_added", "shards_moved"],
+                             {"nodes_added": [len(added)],
+                              "shards_moved": [len(moves)]}, 1)
+        from .operations.rebalancer import drain_device
+
+        moved, drained = drain_device(self, int(args[0]))
+        self._save_catalog()
+        return ResultSet(["placements_moved", "nodes_drained"],
+                         {"placements_moved": [moved],
+                          "nodes_drained": [drained]}, 1)
+
     def _operations_udf(self, name: str, args: list):
-        """The shard operations, job and integrity UDFs (operations/,
-        background/), with the JAX package's arguments and columns."""
+        """The shard operations, job, integrity and mesh UDFs
+        (operations/, background/), with the JAX package's arguments and
+        columns."""
+        if name in ("citus_stat_mesh", "citus_rebalance_mesh",
+                    "citus_drain_device"):
+            return self._mesh_udf(name, args)
         if name == "rebalance_table_shards":
             from .operations.rebalancer import rebalance_table_shards
 
@@ -1911,10 +2107,12 @@ class Session:
             lines.append(f"{explain_tag('Streamed Execution')}: "
                          f"{result.streamed_batches} batches")
         rows_in = result.device_rows_in
+        rows_out = result.device_rows
         lines.append(
             f"{explain_tag('Mesh')}: devices={self.n_devices} "
             f"rows_in={rows_in if rows_in is not None else 'n/a'} "
-            f"rows_out=n/a all_to_all_bytes={d(sc.SHUFFLE_BYTES_TOTAL)}")
+            f"rows_out={rows_out if rows_out is not None else 'n/a'} "
+            f"all_to_all_bytes={d(sc.SHUFFLE_BYTES_TOTAL)}")
         # this execution's integrity traffic; it folds into the session
         # counters only when the statement ends, so the totals add it
         idelta = _integrity.delta(ibase0)

@@ -92,6 +92,7 @@ SPAN_NAMES: dict[str, str] = {
     "serving.batch_probe": "leader executing one coalesced batch",
     "retry.backoff": "resilience envelope backoff sleep",
     "oom.degrade": "OOM ladder rung application",
+    "mesh.degrade": "mesh shrink + failover after device loss",
     "replication.ship": "leader→follower batch staging (file diff + "
                         "journal segment + batch.json commit)",
     "replication.apply": "follower roll-forward of committed batches "

@@ -76,6 +76,20 @@ FAULT_POINTS: dict[str, str] = {
         "executor/insert_select.py — INSERT..SELECT repartition write",
     "executor.scan_prefetch":
         "executor/scanpipe.py — producer column read (pipelined scan)",
+    "executor.agg_bucket_fill":
+        "executor/compiler.py — bucketed group-by pack",
+    "executor.device_put":
+        "executor/feed.py — eager feed placement of a scan's columns",
+    "mesh.device_put":
+        "distributed/mesh.py — per-position host→device transfer (arm "
+        "with error='device' for a synthetic device loss; MeshSim kills "
+        "chosen positions here)",
+    "mesh.collective":
+        "executor/compiler.py — a collective exchange across the mesh "
+        "(a position dying mid-all_to_all kills the statement)",
+    "mesh.fetch":
+        "executor/compiler.py — device→host result fetch (the last seam "
+        "a dying position can poison)",
     "executor.device_decode":
         "executor/scanpipe.py — on-device expand of a wire payload",
     "stream.prefetch": "executor/stream.py — batch prefetch thread",
@@ -132,6 +146,13 @@ def fault_point(name: str) -> None:
         return  # delay-only
     if kind == "storage":
         exc: Exception = StorageError(f"injected storage fault at {name!r}")
+    elif kind == "device":
+        # an opaque device loss (device_id None): the session's probe
+        # pass has to find the lost position
+        from ..errors import DeviceLostError
+
+        exc = DeviceLostError(f"injected device loss at {name!r}",
+                              seam=name)
     elif kind == "oom":
         # classified by the session's retry envelope as retryable after
         # degradation: an armed memory fault walks the OOM ladder
@@ -148,10 +169,11 @@ def fault_point(name: str) -> None:
 def inject(name: str, sleep: float = 0.0, error: str | None = "injected",
            require_fired: bool = False, times: int = 1):
     """Arm `name` for the duration of the block, to fire `times` times
-    ('injected' | 'storage' | 'oom', or None for a delay only).
+    ('injected' | 'storage' | 'oom' | 'device', or None for a delay
+    only).
     ``require_fired=True`` asserts on clean exit that the point
     triggered inside the block."""
-    if error not in (None, "injected", "storage", "oom"):
+    if error not in (None, "injected", "storage", "oom", "device"):
         raise ValueError(f"unknown fault error kind {error!r}")
     base = fired_count(name)
     with _lock:
@@ -166,3 +188,96 @@ def inject(name: str, sleep: float = 0.0, error: str | None = "injected",
         raise AssertionError(
             f"armed fault point {name!r} never fired inside the "
             "inject() block")
+
+
+class MeshSim:
+    """One simulated mesh-failure lifetime (the JAX package's MeshSim):
+    the mesh seams (``mesh.device_put`` / ``mesh.collective`` /
+    ``mesh.fetch``) consult the armed sim through `mesh_device_check`.
+
+    * ``kill``  — sticky lost positions (by position id): every seam that
+      touches one raises DeviceLostError until the sim is uninstalled;
+    * ``error`` — one-shot: the first touch raises, then the position
+      recovers (a transient link flap);
+    * ``hang``  — position id → seconds the seam waits first (pair with
+      statement_timeout_ms: the deadline, not the sim, ends the
+      statement, because the wait is a cancellation seam);
+    * ``after`` — skip the first N seam checks, so a kill lands in the
+      middle of a statement instead of on its first touch.
+    """
+
+    def __init__(self, kill=(), error=(), hang=None, after: int = 0):
+        self.kill = set(kill)
+        self.error = set(error)
+        self.hang = dict(hang or {})
+        self.after = after
+        self.checks = 0
+        self.trips = 0
+
+
+_mesh_sim: MeshSim | None = None
+
+
+def install_mesh_sim(sim: MeshSim | None) -> None:
+    global _mesh_sim
+    with _lock:
+        _mesh_sim = sim
+
+
+@contextlib.contextmanager
+def simulate_mesh(kill=(), error=(), hang=None, after: int = 0):
+    """Arm a MeshSim for the duration of the block (`kill` / `error`
+    take position ids)."""
+    sim = MeshSim(kill=kill, error=error, hang=hang, after=after)
+    install_mesh_sim(sim)
+    try:
+        yield sim
+    finally:
+        install_mesh_sim(None)
+
+
+def mesh_device_check(seam: str, device_ids) -> None:
+    """Called at the mesh seams with the position ids the operation
+    touches; raises DeviceLostError for the first killed or erroring
+    position the armed MeshSim names.  Unarmed cost: one None check."""
+    sim = _mesh_sim
+    if sim is None:
+        return
+    with _lock:
+        if _mesh_sim is not sim:
+            return
+        sim.checks += 1
+        if sim.checks <= sim.after:
+            return
+        hang = max((sim.hang.get(d, 0.0) for d in device_ids),
+                   default=0.0)
+        victim = next((d for d in device_ids if d in sim.kill), None)
+        transient = None
+        if victim is None:
+            transient = next((d for d in device_ids if d in sim.error),
+                             None)
+            if transient is not None:
+                sim.error.discard(transient)
+        if victim is not None or transient is not None:
+            sim.trips += 1
+    if hang:
+        # a hung position: wait in short slices at a cancellation seam,
+        # so the statement's deadline ends the wait
+        end = time.monotonic() + hang
+        while True:
+            check_cancel()
+            left = end - time.monotonic()
+            if left <= 0:
+                break
+            time.sleep(min(0.01, left))
+    dead = victim if victim is not None else transient
+    if dead is None:
+        return
+    from ..errors import DeviceLostError
+
+    exc = DeviceLostError(
+        f"device {dead} lost at {seam!r} "
+        f"({'killed' if victim is not None else 'transient error'}, "
+        "MeshSim)", device_id=dead, seam=seam)
+    exc.injected_fault = True
+    raise exc

@@ -18,9 +18,9 @@ decides from the parse tree, fast_path_router_planner.c:530):
   would feed plus a coarse estimate of its plan intermediates.  On-disk
   shard sizes stand in for tensor bytes: the gate guards against gross
   oversubscription, streaming bounds the residency of any one statement.
-  The port runs on one device, so the per-device figure is the whole
-  table; `planner/plan.table_placement` still folds the shards so a
-  wider `n_devices` reads as the JAX package's estimate does.
+  The per-position figure is the hottest position's: shard bytes fold
+  onto the mesh positions through `planner/plan.table_placement`, as the
+  JAX package's estimate does (at one position, the whole table).
 """
 
 from __future__ import annotations
@@ -28,11 +28,6 @@ from __future__ import annotations
 from ..catalog import Catalog, DistributionMethod
 from ..errors import CatalogError
 from ..sql import ast
-
-# the JAX package's repartition_capacity_factor default: on one device a
-# repartition is the identity, so the port has no such setting, but the
-# estimate keeps the reference's charge per join
-REPARTITION_HEADROOM = 1.5
 
 # statement kinds that never touch the device path
 _EXEMPT_KINDS = (
@@ -218,10 +213,11 @@ def _intermediates_from(stmt: ast.Statement, per_table: dict[str, int],
     if not per_table:
         return 0
     biggest = max(per_table.values())
+    repart_f = (settings.get("repartition_capacity_factor")
+                if settings is not None else 1.5)
     join_f = (settings.get("join_output_capacity_factor")
               if settings is not None else 1.0)
-    total = int(_count_joins(stmt) * (REPARTITION_HEADROOM + join_f + 1.0)
-                * biggest)
+    total = int(_count_joins(stmt) * (repart_f + join_f + 1.0) * biggest)
     if _has_group_by(stmt):
         from ..ops.groupby import GROUP_BUCKET_MAX_SLOTS
 

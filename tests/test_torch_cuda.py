@@ -1010,3 +1010,34 @@ def test_a_capture_that_fails_on_cuda_raises(tmp_path, cuda, monkeypatch):
     monkeypatch.setattr(PlanCompiler, "_dispatch", real)
     torch.cuda.synchronize()
     gpu.close()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_mesh_positions_on_one_card_match_the_cpu_session(tmp_path, cuda,
+                                                          bucketed, n):
+    """N mesh positions on cuda:0 after citus_rebalance_mesh: the four
+    main-path statements answer the CPU session's rows, the hand kernels
+    launch (K1, K2, K3 once per position, K4 and K5 once per column for
+    every position), every plan runs eager, and no transient ledger
+    bytes stay."""
+    import citus_tpu_torch
+
+    data_dir, queries, want = _graph_dir(tmp_path)
+    gpu = citus_tpu_torch.connect(data_dir, n_devices=n,
+                                  serving_result_cache_bytes=0,
+                                  scan_pipeline="device")
+    gpu.execute("select citus_rebalance_mesh()")
+    assert gpu.mesh.single_device() and gpu.n_devices == n
+    hk.reset_launch_counts()
+    for q, sql in queries.items():
+        for _ in range(2):
+            _close_rows(gpu.execute(sql).rows(), want[q])
+            assert gpu.executor.last_dispatch() == ("eager", "mesh")
+    torch.cuda.synchronize()
+    for k in ("dense_grid_sum", "bucketed_probe", "bucketed_groupby_sums",
+              "bit_unpack", "dict_decode"):
+        assert hk.LAUNCHES[k] >= 1, (k, hk.LAUNCHES)
+    r = gpu.execute(queries["Q1"])
+    assert len(r.device_rows_in) == n and min(r.device_rows_in) > 0
+    assert gpu.executor.accountant.transient_bytes() == 0
+    gpu.close()

@@ -351,10 +351,10 @@ def test_dml_errors_match_jax(pair):
     assert_same_state(j, p, ["accounts"])
 
 
-# what this slice leaves for later: each refused naming its ROADMAP item
-# (item 8's UDFs and EXPLAIN ANALYZE are answered since the
-# observability slice, item 11's since the concurrent-statements slice,
-# item 10's since the operations slice)
+# what the write-path slice left for later, refused until then naming its
+# ROADMAP item: the mesh UDFs, answered since the mesh slice as the JAX
+# package answers them (citus_drain_device() without its argument fails
+# the same way in both)
 LATER = {
     "select citus_stat_mesh()": "queue A item 9",
     "select citus_drain_device()": "queue A item 9",
@@ -362,9 +362,17 @@ LATER = {
 }
 
 
+def _outcome(sess, sql):
+    try:
+        r = sess.execute(sql)
+    except Exception as e:  # the error's kind is the outcome compared
+        return type(e).__name__
+    return r.column_names, r.rows()[0][:5]
+
+
 @pytest.mark.parametrize("sql", sorted(LATER))
-def test_later_shapes_are_refused(base, sql):
-    p = _port(base)
-    with pytest.raises(citus_tpu_torch.UnsupportedQueryError,
-                       match=LATER[sql]):
-        p.execute(sql)
+def test_later_shapes_are_refused(pair, sql):
+    j, p = pair
+    assert _outcome(p, sql) == _outcome(j, sql)
+
+

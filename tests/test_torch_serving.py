@@ -224,7 +224,7 @@ def test_concurrent_lookups_coalesce(sess, monkeypatch):
 
     def worker(s, key):
         try:
-            barrier.wait()
+            barrier.wait(timeout=60)
             for _ in range(3):
                 assert s.execute(f"select v from kv where k = {key}"
                                  ).rows() == [(key * 10,)]

@@ -294,10 +294,12 @@ def test_unsupported_statement_is_refused(jax_dir):
     data_dir, _want = jax_dir
     sess = citus_tpu_torch.connect(data_dir, device="cpu",
                                    serving_result_cache_bytes=0)
-    # DML and the statement retry envelope's settings are answered since
-    # the write-path and memory-pressure slices; multi-GPU is refused
+    # DML, the retry envelope's settings and the mesh UDFs are answered
+    # since their slices; CASE with a text result is refused (ROADMAP
+    # queue C item 3)
     with pytest.raises(citus_tpu_torch.UnsupportedQueryError):
-        sess.execute("select citus_stat_mesh()")
+        sess.execute("select case when l_quantity > 10 then 'big' "
+                     "else 'small' end from lineitem")
 
 
 # shapes the reference plans recursively (or rewrites) before binding

@@ -51,8 +51,9 @@ from citus_tpu_torch.utils import faultinjection as pfi
 
 torch.set_num_threads(1)
 
-# counters the port never bumps, by the ROADMAP queue A item that brings
-# the module bumping them in the JAX package
+# counters a one-position port session never bumps, by the ROADMAP queue
+# A item whose module bumps them (the mesh's: tests/test_torch_mesh.py and
+# _mesh_failover.py bump them at width N)
 NOT_BUMPED = {
     **dict.fromkeys(
         ("device_lost_total", "mesh_failovers_total",
