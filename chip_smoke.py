@@ -36,7 +36,7 @@ Phases, each fatal on failure (no result line is printed then):
    idle share, heaviest kernels);
 8. TPC-H 22: with every launch count at 0, each of the 22 TPC-H
    statements in a fresh session on the card (a cold scan with device
-   decode), then the best of --reps warm runs; per statement the walls,
+   decode), then one warm run (TPCH22_WARM_REPS); per statement the walls,
    retries, rows, each kernel's launches and the rows and host seconds
    of each intermediate result it stored.  Q4, Q13, Q18 and Q21 are held
    against numpy, the other 18 against the port's own CPU session
@@ -205,8 +205,24 @@ Phases, each fatal on failure (no result line is printed then):
     step the wall, the all_to_all bytes, the rows per position and the
     launches per kernel; fails past its 150 s budget or when K1, K2 or
     K3 never launch at 4 positions;
-17. print the kernels line (with each kernel's launches in phases 8
-    to 16), then the device line last.
+17. fault tolerance under chaos, and the slab loader, last, with every
+    launch count at 0: S1 ingest/tpch_slab.load_slabbed at SF SLAB_SF in
+    order slabs of SLAB_ORDERS into a fresh data_dir on a cuda session
+    (the wall of each slab, rows/s of ingest, customer and orders rows
+    against tpch.table_rows), then Q1, Q3 and the high-cardinality
+    GROUP BY on the card, first run and once warm, their rows against
+    the port's CPU session on the same data_dir (float32 on both; the
+    GROUP BY's on its first 10,000 orders, and whole by its group count
+    and totals); K1, K2 and K3 must launch (K5's launches are printed).  S2 the chaos soak's smoke slice
+    (tests/test_torch_chaos.run_soak: 45 ops, seed 1234, fault rate
+    0.35) on cuda: three sessions at 2/2/8 positions under random armed
+    faults and a device-killer, with the port's lock-order sanitizer
+    armed; its counts, the restart's executable-cache hits (at least
+    one) and zero sanitizer violations; K1 must launch.  Every kernel
+    launched in the phase is held against its plain version on the
+    inputs it recorded.  Fails past its 90 s budget;
+18. print the kernels line (with each kernel's launches in phases 8
+    to 17), then the device line last.
 
 Exits non-zero without a result when no GPU is visible or the port's
 package is not next to this script.  Imports nothing of JAX.
@@ -597,11 +613,14 @@ def device_ms(fn, match=None, reps: int = DEVICE_REPS,
                          "more than one record each")
 
 
-def kernel_report(hk, name, args, launches):
+def kernel_case(hk, name, args) -> dict:
+    """A kernel's call on recorded inputs, its plain version, the one
+    library call of the same function (or None), a float64 reference
+    (or None: compared exactly), and the bytes and operations its bound
+    counts."""
     import torch
 
-    if args is None:
-        raise AssertionError(f"{name}: the main path never called it")
+    counts = None
     if name == "dense_grid_sum":
         slot, values, total = args
         cols = list(values.unbind(1)) if hasattr(values, "unbind") \
@@ -682,6 +701,18 @@ def kernel_report(hk, name, args, launches):
         garbage = float((stack == 0).all(dim=2).double().mean())
         shape = (f"nb {nb}, cap {cap}, a {a}, tile {tile}, garbage share "
                  f"{garbage!r}")
+    return {"kern": kern, "plain": plain, "library": library,
+            "exact64": exact64, "counts": counts, "nbytes": nbytes,
+            "ops": ops, "shape": shape}
+
+
+def hold_kernel(name, case, where: str = "") -> float:
+    """Hold a kernel against its plain version on one case; returns
+    max_abs_err, raises when they disagree."""
+    import torch
+
+    kern, plain, exact64 = case["kern"], case["plain"], case["exact64"]
+    counts = case["counts"]
     got = kern()
     want = plain()
     torch.cuda.synchronize()
@@ -710,10 +741,21 @@ def kernel_report(hk, name, args, launches):
                f"|kernel - float64| <= 1e-4·(1 + max|column|), "
                f"{int(counts.sum())} count columns exact: {exact}; "
                f"vs float64: kernel {k64!r}, plain {p64!r}")
-    log(f"check {name}: {shape}; max_abs_err {max_err!r} ({tol}) -> "
-        f"{'ok' if ok else 'FAIL'}")
+    log(f"check {name}{where}: {case['shape']}; max_abs_err {max_err!r} "
+        f"({tol}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name} disagrees with its plain version")
+        raise AssertionError(f"{name} disagrees with its plain version"
+                             f"{where}")
+    return max_err
+
+
+def kernel_report(hk, name, args, launches):
+    if args is None:
+        raise AssertionError(f"{name}: the main path never called it")
+    case = kernel_case(hk, name, args)
+    max_err = hold_kernel(name, case)
+    kern, plain, library = case["kern"], case["plain"], case["library"]
+    nbytes, ops = case["nbytes"], case["ops"]
     ms = time_ms(kern)
     plain_ms = time_ms(plain)
     library_ms = time_ms(library) if library is not None else None
@@ -847,6 +889,9 @@ PROFILED = ("Q4", "Q13", "Q18", "Q21")
 # on a second data_dir at CHECK_SF (their CPU runs over SF1 took most of
 # the phase); the other statements without a numpy answer are held to the
 # CPU session over SF1
+# warm runs per statement: one (the script's time limit; the walls of
+# the other phases take --reps)
+TPCH22_WARM_REPS = 1
 CHECK_SMALL = ("Q8", "Q9")
 CHECK_SF = 0.1
 TEMP_PREFIX = "__intermediate_"
@@ -1059,7 +1104,7 @@ def tpch22(ct, hk, data_dir, data, reps, ident) -> dict:
             launched = {n: hk.LAUNCHES[n] - before[n] for n in hk.KERNELS}
             temps = list(timer.temps)
             best, warm_launched, warm_retries = None, None, []
-            for _ in range(reps):
+            for _ in range(min(reps, TPCH22_WARM_REPS)):
                 before = dict(hk.LAUNCHES)
                 t0 = time.perf_counter()
                 again = sess.execute(sql)
@@ -1073,7 +1118,8 @@ def tpch22(ct, hk, data_dir, data, reps, ident) -> dict:
             answers[q] = res.rows()
             first[q] = launched
             log(f"tpch22 {q}: {res.row_count} rows, first run {cold!r} s, "
-                f"best of {reps} warm {best!r} s, retries {res.retries} "
+                f"best of {min(reps, TPCH22_WARM_REPS)} warm {best!r} s, "
+                f"retries {res.retries} "
                 f"(warm {warm_retries}), launches first {launched} warm "
                 f"{warm_launched}, temps (rows, host s) {temps} ({ident})")
             if q in want_np:
@@ -3713,6 +3759,180 @@ def phase16(ct, hk, data_dir, data, li, queries, checks, want,
     return launched
 
 
+# -- phase 17: fault tolerance under chaos, and the slab loader -----------
+
+PHASE17_BUDGET_S = 90.0
+# at SF 0.75 Q3's order-key directory (keys 4i + 1: 4.5M wide) is over
+# the bucketed probe's PROBE_BUCKET_MIN_EXTENT (2^22), so K2 serves it
+# (at SF 0.5 it is 3.0M wide); three order slabs of 375,000
+SLAB_SF = 0.75
+SLAB_ORDERS = 375_000
+SLAB_KERNELS = ("dense_grid_sum", "bucketed_probe", "bucketed_groupby_sums")
+SLAB_CHECK_KEY = 40_001  # the first 10,000 orders (keys 4i + 1)
+SOAK = {"n_ops": 45, "seed": 1234, "fault_rate": 0.35}
+SOAK_KERNELS = ("dense_grid_sum",)
+
+
+def phase17(ct, hk, tmp, ident) -> dict:
+    """Phase 17.  Returns each kernel's launches over the phase."""
+    import torch
+
+    from citus_tpu_torch.ingest import tpch
+    from citus_tpu_torch.ingest.tpch_slab import load_slabbed
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_chaos import run_soak
+
+    # Q1 (K1), Q3 (K2) and the high-cardinality GROUP BY (K3's carrier,
+    # as on the main path)
+    queries = {"Q1": tpch.QUERIES["Q1"], "Q3": tpch.QUERIES["Q3"],
+               "high_card_groupby": HIGH_CARD_SQL}
+
+    t_phase = time.perf_counter()
+    launched = {k: 0 for k in hk.KERNELS}
+    hk.reset_launch_counts()
+
+    def recording(step, fn):
+        """Run a step with every wrapper's inputs recorded; hold each
+        kernel the step launched against its plain version on them."""
+        recorders = {n: Recorder(hk, n) for n in hk.KERNELS}
+        for r in recorders.values():
+            r.install()
+        before = dict(hk.LAUNCHES)
+        try:
+            out = fn()
+        finally:
+            for r in recorders.values():
+                r.remove()
+        d = {k: hk.LAUNCHES[k] - before[k] for k in hk.KERNELS}
+        for name in hk.KERNELS:
+            if d[name]:
+                hold_kernel(name, kernel_case(hk, name, recorders[name].args),
+                            f" (phase 17 {step})")
+        return out, d
+
+    def run(sess, label, sql):
+        before = dict(hk.LAUNCHES)
+        t0 = time.perf_counter()
+        res = sess.execute(sql)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d = {k: hk.LAUNCHES[k] - before[k] for k in hk.KERNELS}
+        log(f"phase17 {label}: {res.row_count} rows, wall {dt!r} s, "
+            f"launches {d} ({ident})")
+        return res
+
+    # -- S1: slab load, then Q1, Q3 and the GROUP BY on the card ----------
+    def s1_step():
+        slab_dir = os.path.join(tmp, "slab")
+        sess = rerun_connect(ct, slab_dir)
+        if sess.device.type != "cuda":
+            raise AssertionError(f"S1: the session runs on {sess.device}")
+        marks = [time.perf_counter()]
+
+        def progress(table, done, total):
+            marks.append(time.perf_counter())
+            log(f"phase17 S1 slab {len(marks) - 1} ({table}): {done} of "
+                f"{total} rows, {marks[-1] - marks[-2]!r} s")
+
+        counts = load_slabbed(sess, SLAB_SF, seed=0, shard_count=8,
+                              slab_orders=SLAB_ORDERS, progress=progress)
+        load_s = marks[-1] - marks[0]
+        rows = sum(counts.values())
+        log(f"phase17 S1 load_slabbed SF{SLAB_SF}: {counts} in {load_s!r} s, "
+            f"{rows / load_s!r} rows/s ({ident})")
+        want = tpch.table_rows(SLAB_SF)
+        for t in ("customer", "orders"):
+            if counts[t] != want[t]:
+                raise AssertionError(f"S1: {t} {counts[t]} rows, "
+                                     f"table_rows {want[t]}")
+        for t, n in counts.items():
+            got = sess.execute(f"select count(*) from {t}").rows()[0][0]
+            if int(got) != n:
+                raise AssertionError(f"S1: {t} reads {got} rows, loaded {n}")
+        answers = {}
+        for q, sql in queries.items():
+            for how in ("first run", "warm"):
+                res = run(sess, f"S1 {q} {how}", sql)
+            answers[q] = res.rows()
+        sess.close()
+        cpu = rerun_connect(ct, slab_dir, device="cpu",
+                            compute_dtype="float32")
+        # the GROUP BY's 1.1M groups take the CPU session ~18 s: it is
+        # held there on the orders below SLAB_CHECK_KEY, and whole by
+        # its group count and totals
+        hc = answers["high_card_groupby"]
+        answers["high_card_groupby"] = [
+            r for r in hc if int(r[0]) < SLAB_CHECK_KEY]
+        queries["high_card_groupby"] = HIGH_CARD_SQL.replace(
+            "group by", f"where l_orderkey < {SLAB_CHECK_KEY} group by")
+        for q, sql in queries.items():
+            t0 = time.perf_counter()
+            diff = same_rows(answers[q], cpu.execute(sql).rows(),
+                             "order by" in sql.lower())
+            if diff:
+                raise AssertionError(f"S1 {q}: card against CPU: {diff}")
+            log(f"phase17 S1 {q} matches the CPU session "
+                f"({time.perf_counter() - t0!r} s on the CPU)")
+        qty = float(cpu.execute(
+            "select sum(l_quantity) from lineitem").rows()[0][0])
+        got = (len(hc), sum(int(r[1]) for r in hc),
+               sum(float(r[2]) for r in hc))
+        if got[:2] != (counts["orders"], counts["lineitem"]) or \
+                not close(got[2], qty):
+            raise AssertionError(f"S1 high_card_groupby: groups, rows, "
+                                 f"sum {got} against orders "
+                                 f"{counts['orders']}, lineitem "
+                                 f"{counts['lineitem']}, CPU sum {qty}")
+        log(f"phase17 S1 high_card_groupby: {got[0]} groups of "
+            f"{got[1]} rows, sum(l_quantity) {got[2]!r} (CPU {qty!r})")
+        cpu.close()
+        shutil.rmtree(slab_dir, ignore_errors=True)
+
+    _, s1 = recording("S1", s1_step)
+    missing = [k for k in SLAB_KERNELS if s1[k] <= 0]
+    if missing:
+        raise AssertionError(f"S1: {missing} never launched")
+    log(f"phase17 S1 launches {s1}; dict_decode (device-mode scan) "
+        f"{s1['dict_decode']}")
+
+    # -- S2: the chaos soak's smoke slice on the card -----------------------
+    def s2_step():
+        stats = run_soak(os.path.join(tmp, "chaos", "data"),
+                         device="cuda", **SOAK)
+        torch.cuda.synchronize()
+        return stats
+
+    stats, s2 = recording("S2", s2_step)
+    log(f"phase17 S2 soak {SOAK}: ops {stats['ops']}, statements "
+        f"{stats['stmts']}, armed faults {stats['armed']}, clean "
+        f"failures {stats['clean_failures']}, reconciles "
+        f"{stats['reconciled']}, device kills {stats['device_kills']}, "
+        f"restart exec-cache hits {stats['restart_exec_cache_hits']}, "
+        f"sanitizer violations {stats['violations']} (locks "
+        f"{stats['locks_tracked']}, acquisitions "
+        f"{stats['acquisitions']}, order edges "
+        f"{stats['order_edges']}), wall {stats['wall_s']!r} s, "
+        f"launches {s2} ({ident})")
+    if stats["violations"] or stats["restarts"] != 1 or \
+            not stats["restart_same_routing"] or \
+            stats["restart_exec_cache_hits"] < 1 or stats["armed"] < 8:
+        raise AssertionError(f"S2: {stats}")
+    missing = [k for k in SOAK_KERNELS if s2[k] <= 0]
+    if missing:
+        raise AssertionError(f"S2: {missing} never launched")
+    for step in (s1, s2):
+        for k, v in step.items():
+            launched[k] += v
+
+    total = time.perf_counter() - t_phase
+    log(f"phase17: {total!r} s, launches {launched} ({ident})")
+    if total > PHASE17_BUDGET_S:
+        raise AssertionError(f"phase 17 took {total:.1f} s, over its "
+                             f"{PHASE17_BUDGET_S} s budget")
+    return launched
+
+
 def _spans_named(span, name):
     if span["name"] == name:
         yield span
@@ -3889,6 +4109,9 @@ def main() -> int:
         launched16 = phase16(ct, hk, os.path.join(tmp, "data"), data,
                              li_now, queries, checks, want14, ident)
         log(f"phase 16: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        launched17 = phase17(ct, hk, tmp, ident)
+        log(f"phase 17: {time.perf_counter() - t0:.3f} s")
         for rep in reports:
             rep["launches_tpch22"] = launched[rep["name"]]
             rep["launches_phase9"] = launched9[rep["name"]]
@@ -3900,6 +4123,7 @@ def main() -> int:
             rep["launches_phase15"] = launched15[rep["name"]]
             rep["launches_replayed"] = replayed15[rep["name"]]
             rep["launches_phase16"] = launched16[rep["name"]]
+            rep["launches_phase17"] = launched17[rep["name"]]
 
         log(f"chip_smoke total: {time.perf_counter() - t_start:.3f} s")
         print(json.dumps({"kernels": reports}), flush=True)

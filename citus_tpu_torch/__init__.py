@@ -8,7 +8,17 @@ the standard library only: what it needs from the JAX package it keeps
 as its own copy.  Both packages read and write the same data_dir format.
 """
 
-from .config import Settings, registered_vars
+import os as _os
+
+# CITUS_TPU_TORCH_TSAN=1 arms the runtime lock-order sanitizer before
+# any session or manager lock is created (analysis/sanitizer.py).  No
+# sanitizer import otherwise.
+if _os.environ.get("CITUS_TPU_TORCH_TSAN") == "1":
+    from .analysis.sanitizer import maybe_enable_from_env
+
+    maybe_enable_from_env()
+
+from .config import Settings, registered_vars  # noqa: E402
 from .errors import (
     AdmissionRejected,
     CapacityOverflowError,

@@ -603,8 +603,14 @@ class Catalog:
         Placements the retry loop marked suspect are deprioritized, not
         excluded: when every replica is suspect the first live one still
         answers (a wrong routing beats an unroutable shard).
-        `probe` is accepted for call-site compatibility with the JAX
-        package, which hangs a fault seam on it; this copy has none."""
+        `probe=False` skips the fault-point seam (which is also a
+        cancellation point): the storage layer resolves physical copy
+        paths through here several times per statement and must not
+        multiply an armed probe fault."""
+        if probe:
+            from ..utils.faultinjection import fault_point
+
+            fault_point("catalog.placement_probe")
         ps = self.shard_placements(shard_id)
         live = [p for p in ps if self._node_live(p.node_id)]
         if not live:

@@ -172,7 +172,7 @@ def _clone_error(e: Exception) -> Exception:
         if hasattr(e, attr):
             try:
                 setattr(clone, attr, getattr(e, attr))
-            except Exception:  # best-effort marker copy: a clone type refusing ONE attr must not drop the rest or the error
+            except Exception:  # graftlint: ignore[silent-exception] — best-effort marker copy: a clone type refusing ONE attr must not drop the rest or the error
                 continue
     return clone
 
@@ -346,7 +346,7 @@ class ExecutableCache:
             entry = self._load_verified(h, meta_path, stamp)
         except (QueryCanceled, StatementTimeout):
             raise  # the statement's own deadline/cancel, not rot
-        except Exception as e:  # the seam's contract: rot (injected or real) downgrades to a counted reject, never a crash or a stale entry
+        except Exception as e:  # graftlint: ignore[swallowed-fault-seam] — the seam's contract: rot (injected or real) downgrades to a counted reject, never a crash or a stale entry
             with self._mu:
                 self.rejects_total += 1
             if self._is_verified_rot(e):

@@ -217,7 +217,7 @@ class DeviceMemoryAccountant:
                     mesh_device_check("mesh.device_put", (pid,))
                 plane = torch.stack(host)
                 try:
-                    out = plane.to(mesh.devices[0])
+                    out = plane.to(mesh.devices[0])  # graftlint: ignore[mesh-seam] — the one-card form of put_sharded_slices: the mesh.device_put point and the per-position checks run just above
                 except Exception as e:
                     _reraise_if_device_loss(e, "mesh.device_put")
                     raise

@@ -638,7 +638,7 @@ class Executor:
                 fault_point("wlm.warmup")
                 with trace_span("wlm.warmup"):
                     key, entry = self.exec_cache.load_hash(h, self.device)
-            except Exception:  # a warmup failure (injected or real) degrades to lazy resolution by design; the admission hold releases in the caller's finally
+            except Exception:  # graftlint: ignore[swallowed-fault-seam] — a warmup failure (injected or real) degrades to lazy resolution by design; the admission hold releases in the caller's finally
                 break
             if entry is None:
                 continue  # skewed (the JAX package's) or corrupt

@@ -306,8 +306,10 @@ class _ScanPipeline:
         # positions of the plane (1: a flat [cap] buffer)
         self.n_pos = (mesh.size if self.sharded and mesh is not None
                       else 1)
-        pos_of = ((0,) * len(shards) if self.n_pos == 1 else
-                  table_placement(catalog, self.table, self.n_pos))
+        # a sharded scan picks its placements through the
+        # catalog.placement_probe seam, as the JAX package's does
+        pos_of = (table_placement(catalog, self.table, self.n_pos)
+                  if self.sharded else (0,) * len(shards))
         if self.sharded:
             keep = [i for i, s in enumerate(shards)
                     if node.pruned_shards is None
@@ -493,7 +495,7 @@ class _ScanPipeline:
                                                          rec)
                 n = self._verified(ti, lambda r: r.row_count)
                 if dmask is not None and dmask.any():
-                    n = int((~dmask).sum())
+                    n = int((~dmask).sum())  # graftlint: ignore[device-sync-in-loop] — dmask is the host (numpy) delete mask
             pos = self.task_pos[ti]
             self.layout[ti][0] = self.rows_by_pos[pos]
             self.rows_by_pos[pos] += n
@@ -654,7 +656,7 @@ class _ScanPipeline:
             # tensors: clear them so those charges release now
             traceback.clear_frames(e.__traceback__)
             self._put(("shed", None, e))
-        except BaseException as e:  # noqa: BLE001 — not swallowed: forwarded over the queue and re-raised on the consumer thread
+        except BaseException as e:  # noqa: BLE001  # graftlint: ignore[swallowed-base-exception] — not swallowed: forwarded over the queue and re-raised on the consumer thread
             traceback.clear_frames(e.__traceback__)
             self._put(("err", None, e))
 

@@ -107,9 +107,9 @@ def _scan_dev_rows(node: ScanNode, catalog, store, n_dev: int = 1) -> int:
     if meta.method != DistributionMethod.HASH:
         return store.table_row_count(node.rel.table)
     shards = catalog.table_shards(node.rel.table)
-    placement = ((0,) * len(shards) if n_dev == 1
-                 else table_placement(catalog, node.rel.table, n_dev,
-                                      probe=False))
+    # a placement pick per shard, through the catalog.placement_probe
+    # seam, as the JAX package's estimate makes it
+    placement = table_placement(catalog, node.rel.table, n_dev)
     per_dev = [0] * n_dev
     for s, dev in zip(shards, placement):
         if node.pruned_shards is None or \
@@ -598,7 +598,7 @@ class _BatchProducer:
                 del feed
                 i += 1
             self._put(("done", None))
-        except BaseException as e:  # noqa: BLE001 — not swallowed: forwarded over the queue and re-raised on the consumer thread
+        except BaseException as e:  # noqa: BLE001  # graftlint: ignore[swallowed-base-exception] — not swallowed: forwarded over the queue and re-raised on the consumer thread
             # finished frames may hold a placed batch: clear them so its
             # charge releases now
             traceback.clear_frames(e.__traceback__)

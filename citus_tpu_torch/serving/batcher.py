@@ -108,7 +108,7 @@ def _clone_error(e: BaseException) -> BaseException:
         if hasattr(e, attr):
             try:
                 setattr(clone, attr, getattr(e, attr))
-            except Exception:  # noqa: BLE001 — best-effort marker copy
+            except Exception:  # noqa: BLE001  # graftlint: ignore[silent-exception] — best-effort marker copy: a clone type refusing one attr must not drop the rest
                 continue
     return clone
 
@@ -279,7 +279,7 @@ class MicroBatcher:
             # the resolution belt below must skip the requeued requests
             batch[:] = [r for r in batch if r.evt.is_set()]
             raise
-        except Exception as e:  # noqa: BLE001 — re-raised per waiter; the leader drains on
+        except Exception as e:  # noqa: BLE001  # graftlint: ignore[swallowed-fault-seam] — re-raised per waiter; the leader drains on
             self._deliver_error(batch, e)
         except BaseException as e:
             self._deliver_error(batch, e)

@@ -122,7 +122,7 @@ def main(argv: list[str] | None = None) -> int:
     if out_path:
         # an export artifact, not engine durable state: the io seam's
         # checksummed atomic write is for data the engine re-reads
-        with open(out_path, "w") as f:
+        with open(out_path, "w") as f:  # graftlint: ignore[raw-durable-write] — CLI export artifact for chrome://tracing, never read back by the engine
             f.write(text)
         print(f"wrote {out_path} ({len(payload['traceEvents'])} events)")
     else:

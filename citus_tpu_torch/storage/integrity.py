@@ -74,9 +74,9 @@ def flip_one_bit(path: str) -> None:
         data = bytearray(f.read())
     data[pos] ^= 0x01
     tmp = f"{path}.bitflip.{os.getpid()}"
-    with open(tmp, "wb") as f:
+    with open(tmp, "wb") as f:  # graftlint: ignore[raw-durable-write] — deliberate bit-rot injection; routing it through the seam would defeat it
         f.write(bytes(data))
-    os.replace(tmp, path)
+    os.replace(tmp, path)  # graftlint: ignore[raw-durable-write] — the same injection; the copy-then-replace breaks the snapshot hardlink
 
 
 # -- deletion bitmaps -------------------------------------------------------

@@ -12,13 +12,21 @@ fault points sit at those seams and tests arm them:
     with inject("txn.commit_record"):
         session.execute("COMMIT")      # dies right before the record
 
-An armed point fires once, or ``times=N`` times: ``error="injected"``
-(the default) raises InjectedFault, ``error="storage"`` StorageError and
-``error="oom"`` DeviceMemoryExhausted — the "connection lost" vs "disk
-error" vs "allocator OOM" distinctions the statement retry envelope
-classifies by; ``error=None`` with ``sleep`` is a delay only.  (The JAX
-package's delayed-start and probabilistic faults serve its chaos soak,
-which is not ported.)
+The engine keeps the JAX package's vocabulary (mitmproxy's, there):
+
+* ``kill`` — the default: raise at the seam (``error="injected"``
+  raises InjectedFault, ``error="storage"`` StorageError,
+  ``error="oom"`` DeviceMemoryExhausted, ``error="device"``
+  DeviceLostError — the "connection lost" vs "disk error" vs "allocator
+  OOM" vs "device lost" distinctions the statement retry envelope
+  classifies by);
+* ``delay`` — ``sleep=0.05`` sleeps at the seam first; with
+  ``error=None`` the fault is a delay only;
+* ``after=N`` — trigger only after N passes through the seam;
+* ``times=N`` / ``once=False`` — trigger N times (or forever) before
+  disarming;
+* ``p=0.3, seed=…`` — probabilistic faults with a deterministic
+  per-spec RNG (the chaos soak, tests/test_torch_chaos.py, arms these).
 
 The unarmed cost is a dict emptiness check.  Every `fault_point()` call
 is also a cooperative cancellation seam (utils/cancellation).
@@ -26,11 +34,13 @@ is also a cooperative cancellation seam (utils/cancellation).
 The port's points are the JAX package's points of the same names at the
 same seams; `tests/test_torch_transactions.py` asserts that each point
 of `FAULT_POINTS` is armed by at least one port test.
+``python -m citus_tpu_torch.utils.faultinjection --list`` prints them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import random
 import threading
 import time
 
@@ -101,6 +111,7 @@ FAULT_POINTS: dict[str, str] = {
     "operations.shard_split":
         "operations/shard_split.py — children written, catalog not "
         "committed",
+    "catalog.placement_probe": "catalog/catalog.py — active-placement pick",
     "wlm.admit": "wlm/manager.py — admission gate entry",
     "serving.batch_dispatch":
         "serving/batcher.py — one coalesced point-lookup batch",
@@ -112,21 +123,26 @@ FAULT_POINTS: dict[str, str] = {
 
 _lock = threading.Lock()
 _armed: dict[str, dict] = {}
-_fired: dict[str, int] = {}  # per-point trigger counts
+_injected_total = 0  # module-wide trigger count
+_fired: dict[str, int] = {}  # per-point trigger counts since reset()
 
 
 def registered_points() -> dict[str, str]:
     return dict(FAULT_POINTS)
 
 
+def injected_total() -> int:
+    return _injected_total
+
+
 def fired_count(name: str) -> int:
-    """How many times the armed point `name` triggered."""
+    """How many times the armed point `name` triggered since reset()."""
     with _lock:
         return _fired.get(name, 0)
 
 
 def fault_point(name: str) -> None:
-    """Called at instrumented seams; triggers (once) when armed.  Also a
+    """Called at instrumented seams; triggers when armed.  Also a
     cooperative cancellation point for the executing statement."""
     check_cancel()
     if not _armed:
@@ -135,9 +151,19 @@ def fault_point(name: str) -> None:
         spec = _armed.get(name)
         if spec is None:
             return
-        spec["times"] -= 1
-        if spec["times"] <= 0:
-            del _armed[name]
+        if spec["after"] > 0:
+            spec["after"] -= 1
+            return
+        if spec["p"] < 1.0 and spec["rng"].random() >= spec["p"]:
+            return
+        times = spec["times"]
+        if times is not None:
+            if times <= 1:
+                del _armed[name]
+            else:
+                spec["times"] = times - 1
+        global _injected_total
+        _injected_total += 1
         _fired[name] = _fired.get(name, 0) + 1
     if spec["sleep"]:
         time.sleep(spec["sleep"])  # delay fault (outside the lock)
@@ -165,25 +191,51 @@ def fault_point(name: str) -> None:
     raise exc
 
 
-@contextlib.contextmanager
-def inject(name: str, sleep: float = 0.0, error: str | None = "injected",
-           require_fired: bool = False, times: int = 1):
-    """Arm `name` for the duration of the block, to fire `times` times
-    ('injected' | 'storage' | 'oom' | 'device', or None for a delay
-    only).
-    ``require_fired=True`` asserts on clean exit that the point
-    triggered inside the block."""
+def arm(name: str, after: int = 0, once: bool = True,
+        times: int | None = None, p: float = 1.0, sleep: float = 0.0,
+        error: str | None = "injected", seed: int | None = None) -> None:
+    """Arm `name`.  `times` (trigger count before disarm) overrides
+    `once`; `once=False, times=None` stays armed until disarmed.
+    `error` picks the raised kind ('injected' | 'storage' | 'oom' |
+    'device') or None for a delay only."""
     if error not in (None, "injected", "storage", "oom", "device"):
         raise ValueError(f"unknown fault error kind {error!r}")
-    base = fired_count(name)
     with _lock:
-        _armed[name] = {"sleep": sleep, "error": error,
-                        "times": max(1, int(times))}
+        _armed[name] = {
+            "after": after,
+            "times": times if times is not None else (1 if once else None),
+            "p": p, "sleep": sleep, "error": error,
+            "rng": random.Random(seed),
+        }
+
+
+def disarm(name: str) -> None:
+    with _lock:
+        _armed.pop(name, None)
+
+
+def armed_points() -> list[str]:
+    with _lock:
+        return sorted(_armed)
+
+
+@contextlib.contextmanager
+def inject(name: str, after: int = 0, once: bool = True,
+           times: int | None = None, p: float = 1.0, sleep: float = 0.0,
+           error: str | None = "injected", seed: int | None = None,
+           require_fired: bool = False):
+    """Arm `name` for the duration of the block (see `arm`).
+    ``require_fired=True`` asserts on clean exit that the point
+    triggered inside the block: a result-cache hit or a pruned path
+    that never reaches the seam then fails the test instead of passing
+    it."""
+    base = fired_count(name)
+    arm(name, after=after, once=once, times=times, p=p, sleep=sleep,
+        error=error, seed=seed)
     try:
         yield
     finally:
-        with _lock:
-            _armed.pop(name, None)
+        disarm(name)
     if require_fired and fired_count(name) - base < 1:
         raise AssertionError(
             f"armed fault point {name!r} never fired inside the "
@@ -222,6 +274,10 @@ def install_mesh_sim(sim: MeshSim | None) -> None:
     global _mesh_sim
     with _lock:
         _mesh_sim = sim
+
+
+def mesh_sim() -> MeshSim | None:
+    return _mesh_sim
 
 
 @contextlib.contextmanager
@@ -281,3 +337,30 @@ def mesh_device_check(seam: str, device_ids) -> None:
         "MeshSim)", device_id=dead, seam=seam)
     exc.injected_fault = True
     raise exc
+
+
+def reset() -> None:
+    """Disarm every point and the MeshSim; clear the per-point counts."""
+    global _mesh_sim
+    with _lock:
+        _armed.clear()
+        _fired.clear()
+        _mesh_sim = None
+
+
+def main(argv: list[str] | None = None) -> int:
+    """`python -m citus_tpu_torch.utils.faultinjection --list`."""
+    import sys
+
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] in ("--list", "list"):
+        for name in sorted(FAULT_POINTS):
+            print(f"{name:32s} {FAULT_POINTS[name]}")
+        return 0
+    print("usage: python -m citus_tpu_torch.utils.faultinjection --list",
+          file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":  # pragma: no cover
+    raise SystemExit(main())

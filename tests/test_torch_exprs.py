@@ -140,10 +140,12 @@ def test_float_policy_follows_compute_dtype(rng):
 # -- import hygiene ---------------------------------------------------------
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")] + [
+    # chip_smoke.py imports the chaos soak, which imports the fuzzer
+    out = [os.path.join(REPO, f) for f in (
+        "chip_smoke.py", "tests/test_torch_chaos.py", "tests/fuzzer.py")] + [
         os.path.join(REPO, "tools", f)
         for f in ("compare_grid_sums.py", "dense_grid_layouts.py",
-                  "compare_bit_unpack.py")]
+                  "compare_bit_unpack.py", "compare_phases.py")]
     for root, _dirs, files in os.walk(os.path.join(REPO, "citus_tpu_torch")):
         out.extend(os.path.join(root, f) for f in files if f.endswith(".py"))
     return out
@@ -165,8 +167,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 if top in ("jax", "jaxlib", "citus_tpu"):
                     bad.append(f"{os.path.relpath(path, REPO)}: {name}")
     scanned = {os.path.relpath(p, REPO) for p in _port_files()}
-    # the modules of the fourth, eighth, ninth, tenth and eleventh slices
-    # are among the scanned files
+    # the modules of the fourth and eighth to twelfth slices are among
+    # the scanned files
     for mod in ("executor/fastpath.py", "storage/pkindex.py",
                 "planner/explain.py", "ops/sketches.py",
                 "wlm/manager.py", "wlm/admission.py",
@@ -186,7 +188,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "distributed/__init__.py", "distributed/mesh.py",
                 "executor/compiler.py", "executor/feed.py",
                 "executor/scanpipe.py", "executor/stream.py",
-                "executor/insert_select.py", "utils/faultinjection.py"):
+                "executor/insert_select.py", "utils/faultinjection.py",
+                "analysis/__init__.py", "analysis/__main__.py",
+                "analysis/core.py", "analysis/lockgraph.py",
+                "analysis/registries.py", "analysis/discipline.py",
+                "analysis/hotpath.py", "analysis/sanitizer.py",
+                "ingest/tpch_slab.py", "executor/__init__.py"):
         assert os.path.join("citus_tpu_torch", mod) in scanned
+    for other in ("tools/compare_phases.py", "tests/test_torch_chaos.py"):
+        assert other in scanned
     assert len(_port_files()) > 20
     assert bad == []
