@@ -38,7 +38,9 @@ Lock identity resolution (`LockIndex`):
   than guess);
 * ``with f(...):`` where f is lock-factory-shaped (``*_lock``,
   ``lock_manager_for``-style names returning registry locks) →
-  ``module.f()`` as one order class.
+  ``module.f()`` as one order class;
+* ``with waited(<lock>, kind):`` (``stats/tracing.py``: the lock held
+  for the block, its contended wait traced) → ``<lock>``.
 """
 
 from __future__ import annotations
@@ -201,6 +203,8 @@ class LockIndex:
             return self.module_locks.get((module, expr.id))
         if isinstance(expr, ast.Call):
             fn = expr.func
+            if isinstance(fn, ast.Name) and fn.id == "waited" and expr.args:
+                return self.resolve(expr.args[0], module, cls)
             if isinstance(fn, ast.Attribute) and \
                     _lock_factory_shaped(fn.attr):
                 return f"{module}.{fn.attr}()"

@@ -264,40 +264,47 @@ class PlanCompiler:
         overflow, dense_oob, *stage actuals] and stage_keys entries are
         (walk_index, kind, width).  With `graph` (a CapturedPlan of this
         key over these feeds) the dispatch is its replay; None when the
-        graph was released before it could replay."""
+        graph was released before it could replay.  A statement that
+        finds a lock taken waits for it under a `mesh.wait` span."""
         from ..stats.tracing import (
             device_timeline,
             resolve_device_legs,
             trace_span,
+            waited,
         )
 
         if graph is not None:
-            with self._run_lock, graph.lock:
+            with waited(self._run_lock, "run"), waited(graph.lock, "graph"):
                 if not graph.live:
                     return None
                 with trace_span("mesh.dispatch", graph="replay") as sp, \
-                        device_timeline(sp, self.device):
+                        device_timeline(sp, self.device) as leg:
                     graph.replay(plan)
-                with trace_span("mesh.fetch"):
+                # the copies' leg starts where the replay's ends
+                with trace_span("mesh.fetch") as sp, \
+                        device_timeline(sp, self.device, after=leg):
                     packed = graph.packed.cpu().numpy()
                     counters = graph.counters.cpu().numpy()
+                if sp is not None:
+                    sp.meta = {"bytes": packed.nbytes + counters.nbytes}
             resolve_device_legs()
             return (packed[:, None, :], counters, graph.out_meta,
                     graph.stage_keys)
-        with self._run_lock:
+        with waited(self._run_lock, "run"):
             self.plan = plan
             self.caps = caps
             try:
                 # the eager program's launches, timed on the card by a
                 # CUDA event pair (the span's device_ms), then the two
-                # blocking copies back to the host
+                # blocking copies back to the host, timed by another
                 dspan = (trace_span("mesh.dispatch") if self.n_dev == 1
                          else trace_span("mesh.dispatch",
                                          graph="eager: mesh"))
-                with dspan as sp, device_timeline(sp, self.device):
+                with dspan as sp, device_timeline(sp, self.device) as leg:
                     packed, counters, meta, stage_keys = self._dispatch(
                         plan, feeds)
-                with trace_span("mesh.fetch"):
+                with trace_span("mesh.fetch") as sp, \
+                        device_timeline(sp, self.device, after=leg):
                     self._mesh_seam("mesh.fetch")
                     try:
                         packed = packed.cpu().numpy()
@@ -309,6 +316,8 @@ class PlanCompiler:
 
                         _reraise_if_device_loss(e, "mesh.fetch")
                         raise
+                if sp is not None:
+                    sp.meta = {"bytes": packed.nbytes + counters.nbytes}
             finally:
                 self.plan = self.caps = None
             self.out_meta, self.stage_keys = meta, stage_keys

@@ -276,7 +276,8 @@ class Executor:
             plan, compute_dtype)
         self.count_groupby_bucketed(plan, caps)
         with trace_span("combine"):
-            cols, nulls, valid = unpack_outputs(packed, out_meta)
+            with trace_span("combine.unpack"):
+                cols, nulls, valid = unpack_outputs(packed, out_meta)
             result = self._host_combine(plan, cols, nulls, valid, raw)
         result.retries = retries
         result.device_rows_scanned = int(np.asarray(valid).size)
@@ -1087,104 +1088,105 @@ class Executor:
     # ------------------------------------------------------------------
     def _host_combine(self, plan: QueryPlan, cols, nulls, valid,
                       raw: bool = False) -> ResultSet:
-        valid_2d = np.asarray(valid)
-        # rows per position while the result keeps position-major order
-        device_rows = (valid_2d.sum(axis=1).astype(int).tolist()
-                       if valid_2d.ndim == 2 else None)
-        valid_np = valid_2d.reshape(-1)
-        flat_cols: dict[str, np.ndarray] = {}
-        flat_nulls: dict[str, np.ndarray] = {}
-        for cid in cols:
-            flat_cols[cid] = np.asarray(cols[cid]).reshape(-1)[valid_np]
-            flat_nulls[cid] = np.asarray(nulls[cid]).reshape(-1)[valid_np]
-        src = ColumnSource(flat_cols, flat_nulls)
-        n = int(valid_np.sum())
-
-        if plan.host_having is not None:
-            mask = np.broadcast_to(np.asarray(
-                predicate_mask(plan.host_having, src, np)), (n,))
-            flat_cols = {c: a[mask] for c, a in flat_cols.items()}
-            flat_nulls = {c: a[mask] for c, a in flat_nulls.items()}
+        with trace_span("combine.project"):
+            valid_2d = np.asarray(valid)
+            # rows per position while the result keeps position-major order
+            device_rows = (valid_2d.sum(axis=1).astype(int).tolist()
+                           if valid_2d.ndim == 2 else None)
+            valid_np = valid_2d.reshape(-1)
+            flat_cols: dict[str, np.ndarray] = {}
+            flat_nulls: dict[str, np.ndarray] = {}
+            for cid in cols:
+                flat_cols[cid] = np.asarray(cols[cid]).reshape(-1)[valid_np]
+                flat_nulls[cid] = np.asarray(nulls[cid]).reshape(-1)[valid_np]
             src = ColumnSource(flat_cols, flat_nulls)
-            n = int(mask.sum())
-            device_rows = None  # filtered: per-position counts are stale
+            n = int(valid_np.sum())
 
-        out_cols: dict[str, object] = {}
-        out_nulls: dict[str, np.ndarray] = {}
-        out_dtypes: dict[str, DataType] = {}
-        decode_map: dict[str, tuple[str, str]] = {}
-        names: list[str] = []
-        for e, name in plan.host_select:
-            v, nmask = evaluate(e, src, np)
-            v = np.broadcast_to(np.asarray(v), (n,)).copy()
-            nmask = (np.zeros(n, dtype=bool) if nmask is None
-                     else np.broadcast_to(np.asarray(nmask), (n,)).copy())
-            out_name = _unique_name(name, names)
-            names.append(out_name)
-            out_cols[out_name] = v
-            out_nulls[out_name] = nmask
-            out_dtypes[out_name] = e.dtype
-            # raw mode keeps codes / day numbers typed so bulk consumers
-            # (INSERT..SELECT) skip the decode → re-encode round trip
-            if raw:
-                if isinstance(e, ir.BCol) and e.cid in plan.decode:
-                    decode_map[out_name] = plan.decode[e.cid]
-            elif isinstance(e, ir.BCol) and e.cid in plan.decode:
-                d = resolve_decode(self.store, plan.decode[e.cid])
-                out_cols[out_name] = _decode_strings(d, v, nmask)
-            elif e.dtype == DataType.DATE:
-                out_cols[out_name] = _format_dates(v, nmask)
+            if plan.host_having is not None:
+                mask = np.broadcast_to(np.asarray(
+                    predicate_mask(plan.host_having, src, np)), (n,))
+                flat_cols = {c: a[mask] for c, a in flat_cols.items()}
+                flat_nulls = {c: a[mask] for c, a in flat_nulls.items()}
+                src = ColumnSource(flat_cols, flat_nulls)
+                n = int(mask.sum())
+                device_rows = None  # filtered: per-position counts are stale
 
-        # ORDER BY (host): exact multi-key sort via factorize + lexsort;
-        # NULL placement follows PG defaults
-        if plan.host_order_by and n > 0:
-            device_rows = None  # re-sorted: position-major order destroyed
-            order_src = ColumnSource(flat_cols, flat_nulls)
-            lex_keys = []
-            for e, desc, nulls_first in plan.host_order_by:
-                v, nmask = evaluate(e, order_src, np)
-                v = np.broadcast_to(np.asarray(v), (n,))
+            out_cols: dict[str, object] = {}
+            out_nulls: dict[str, np.ndarray] = {}
+            out_dtypes: dict[str, DataType] = {}
+            decode_map: dict[str, tuple[str, str]] = {}
+            names: list[str] = []
+            for e, name in plan.host_select:
+                v, nmask = evaluate(e, src, np)
+                v = np.broadcast_to(np.asarray(v), (n,)).copy()
                 nmask = (np.zeros(n, dtype=bool) if nmask is None
-                         else np.broadcast_to(np.asarray(nmask), (n,)))
-                if isinstance(e, ir.BCol) and e.cid in plan.decode:
+                         else np.broadcast_to(np.asarray(nmask), (n,)).copy())
+                out_name = _unique_name(name, names)
+                names.append(out_name)
+                out_cols[out_name] = v
+                out_nulls[out_name] = nmask
+                out_dtypes[out_name] = e.dtype
+                # raw mode keeps codes / day numbers typed so bulk consumers
+                # (INSERT..SELECT) skip the decode → re-encode round trip
+                if raw:
+                    if isinstance(e, ir.BCol) and e.cid in plan.decode:
+                        decode_map[out_name] = plan.decode[e.cid]
+                elif isinstance(e, ir.BCol) and e.cid in plan.decode:
                     d = resolve_decode(self.store, plan.decode[e.cid])
-                    lut = np.asarray(d.values + [""], dtype=object)
-                    codes = np.asarray(v).astype(np.int64)
-                    oob = (codes < 0) | (codes >= len(d))
-                    v = lut[np.where(oob, len(d), codes)].astype(str)
-                _, codes = np.unique(v, return_inverse=True)
-                codes = codes.astype(np.int64)
-                if desc:
-                    codes = -codes
-                nulls_last = (not nulls_first if nulls_first is not None
-                              else not desc)
-                null_key = nmask if nulls_last else ~nmask
-                lex_keys.append(null_key.astype(np.int8))
-                lex_keys.append(codes)
-            order = np.lexsort(tuple(reversed(lex_keys)))
+                    out_cols[out_name] = _decode_strings(d, v, nmask)
+                elif e.dtype == DataType.DATE:
+                    out_cols[out_name] = _format_dates(v, nmask)
+        with trace_span("combine.order"):
+            # ORDER BY (host): exact multi-key sort via factorize + lexsort;
+            # NULL placement follows PG defaults
+            if plan.host_order_by and n > 0:
+                device_rows = None  # re-sorted: position-major order destroyed
+                order_src = ColumnSource(flat_cols, flat_nulls)
+                lex_keys = []
+                for e, desc, nulls_first in plan.host_order_by:
+                    v, nmask = evaluate(e, order_src, np)
+                    v = np.broadcast_to(np.asarray(v), (n,))
+                    nmask = (np.zeros(n, dtype=bool) if nmask is None
+                             else np.broadcast_to(np.asarray(nmask), (n,)))
+                    if isinstance(e, ir.BCol) and e.cid in plan.decode:
+                        d = resolve_decode(self.store, plan.decode[e.cid])
+                        lut = np.asarray(d.values + [""], dtype=object)
+                        codes = np.asarray(v).astype(np.int64)
+                        oob = (codes < 0) | (codes >= len(d))
+                        v = lut[np.where(oob, len(d), codes)].astype(str)
+                    _, codes = np.unique(v, return_inverse=True)
+                    codes = codes.astype(np.int64)
+                    if desc:
+                        codes = -codes
+                    nulls_last = (not nulls_first if nulls_first is not None
+                                  else not desc)
+                    null_key = nmask if nulls_last else ~nmask
+                    lex_keys.append(null_key.astype(np.int8))
+                    lex_keys.append(codes)
+                order = np.lexsort(tuple(reversed(lex_keys)))
+                for c in names:
+                    out_cols[c] = out_cols[c][order]
+                    out_nulls[c] = out_nulls[c][order]
+            lo = plan.offset or 0
+            hi = n if plan.limit is None else min(n, lo + plan.limit)
+            if lo or hi < n:
+                for c in names:
+                    out_cols[c] = out_cols[c][lo:hi]
+                    out_nulls[c] = out_nulls[c][lo:hi]
+                device_rows = None  # sliced: per-position counts are stale
+            final_n = max(0, hi - lo)
+            if raw:
+                return ResultSet(names, out_cols, final_n, dtypes=out_dtypes,
+                                 null_masks=out_nulls, decode_map=decode_map,
+                                 device_rows=device_rows)
+            # surface NULLs as None in object columns
             for c in names:
-                out_cols[c] = out_cols[c][order]
-                out_nulls[c] = out_nulls[c][order]
-        lo = plan.offset or 0
-        hi = n if plan.limit is None else min(n, lo + plan.limit)
-        if lo or hi < n:
-            for c in names:
-                out_cols[c] = out_cols[c][lo:hi]
-                out_nulls[c] = out_nulls[c][lo:hi]
-            device_rows = None  # sliced: per-position counts are stale
-        final_n = max(0, hi - lo)
-        if raw:
+                if out_nulls[c].any():
+                    col = np.asarray(out_cols[c], dtype=object)
+                    col[out_nulls[c]] = None
+                    out_cols[c] = col
             return ResultSet(names, out_cols, final_n, dtypes=out_dtypes,
-                             null_masks=out_nulls, decode_map=decode_map,
                              device_rows=device_rows)
-        # surface NULLs as None in object columns
-        for c in names:
-            if out_nulls[c].any():
-                col = np.asarray(out_cols[c], dtype=object)
-                col[out_nulls[c]] = None
-                out_cols[c] = col
-        return ResultSet(names, out_cols, final_n, dtypes=out_dtypes,
-                         device_rows=device_rows)
 
 
 def _feed_keys(plan: QueryPlan, feeds) -> tuple:

@@ -34,19 +34,38 @@ a trace of either package renders through either package's
   :func:`device_timeline` records one CUDA event pair on the current
   stream around a span's launches and stores the pair's elapsed time
   as the span's ``device_ms`` meta.  That is the device *timeline*
-  between the two points, idle gaps included — not busy time.  Pairs
+  between the two points, so any host stall between them counts (the
+  enqueue of an eager dispatch, a thread waiting for the interpreter
+  lock): under the graph's lock a replay's leg is the program's device
+  time plus such stalls.  ``mesh.fetch`` carries a leg too, around its
+  blocking copies back: it starts at the dispatch leg's end event, so
+  it times the copies and the host's return from them.  Pairs
   are read (:func:`resolve_device_legs`) only once the statement's own
   blocking fetch has returned, and only when `Event.query()` says both
-  completed: the recorder adds no synchronize of its own.  A pair whose
-  block raised is dropped unread.  Events are pooled on the recorder.
-  A CPU session records no pairs and no ``device_ms``.
+  completed (a leg not complete then is read at the statement's end):
+  the recorder adds no synchronize of its own.  A pair whose block
+  raised is dropped unread.  Events are pooled on the recorder.  A CPU
+  session records no pairs and no ``device_ms``.  (On the card's host
+  an event's record costs about 4 µs and building the current stream's
+  object 9 µs, so the pool keeps one object per stream.)
+* **The port's own names** (no JAX counterpart) — ``mesh.wait``, the
+  wait of a statement for the executor's locks (:func:`waited`: the
+  compiler's run lock, a shared CUDA graph's lock), opened only when
+  the lock is taken, under its own phase ``wait``; ``phase_breakdown``
+  reports that phase only when it is non-zero, so a trace without it
+  breaks down as the JAX package's does.  ``combine.unpack``,
+  ``combine.project`` and ``combine.order`` split the host combine
+  and map to no phase (``combine`` already counts the whole).
+  ``mesh.fetch`` carries ``bytes``, the packed outputs and counters
+  copied back.
 
 Overhead: an unarmed `trace_span` is one thread-local read and a None
 check; an active span is two `perf_counter` calls plus one small
 object; a device leg is two `Event.record` calls and one
-`elapsed_time` read.  `trace_sample_every` and the fast-class
-auto-degrade (`trace_fast_statement_ms`) reduce tree recording to 1 in
-N statements (histograms always update).
+`elapsed_time` read; a lock taken at the first try opens no span.
+`trace_sample_every` and the fast-class auto-degrade
+(`trace_fast_statement_ms`) reduce tree recording to 1 in N
+statements (histograms always update).
 """
 
 from __future__ import annotations
@@ -55,9 +74,12 @@ import os
 import threading
 import time
 
+from ..ops.sketches import dd_bucket_scalar
+from .query_stats import fingerprint
+
 # -- span-name registry ------------------------------------------------------
-# Every named span the port records (the JAX package's names; its
-# mesh.degrade span comes with its module, ROADMAP queue A item 9).
+# Every named span the port records: the JAX package's names (mesh.degrade
+# is recorded by the session's device-loss failover), then the port's own.
 SPAN_NAMES: dict[str, str] = {
     "statement": "root span: one executed statement, wall-clock",
     "parse": "lexer+parser",
@@ -76,7 +98,9 @@ SPAN_NAMES: dict[str, str] = {
     "wlm.warmup": "warm-before-admit: one persisted entry armed",
     "mesh.dispatch": "the eager device program's launches (device_ms: "
                      "its CUDA-event timeline)",
-    "mesh.fetch": "device→host pull of outputs + overflow counters",
+    "mesh.fetch": "device→host pull of outputs + overflow counters "
+                  "(device_ms: the copies' CUDA-event timeline; bytes: "
+                  "what they copy)",
     "combine": "host-side combine (having/order/limit/decode)",
     "fastpath": "single-shard host execution (router fast path)",
     "scan.prefetch": "scanpipe: stripe read + host decode (producer)",
@@ -99,6 +123,16 @@ SPAN_NAMES: dict[str, str] = {
                          "behind the apply cursor",
     "replication.promote": "follower→leader promotion: roll forward, "
                            "fence, epoch bump, role flip",
+    # the port's own (no JAX counterpart)
+    "mesh.wait": "wait for an executor lock taken by another statement "
+                 "(meta lock=run: the compiler's run lock; lock=graph: "
+                 "a shared CUDA graph's lock)",
+    "combine.unpack": "host combine: unpack the fetched [n_out, cap] "
+                      "lanes into columns, nulls and the valid mask",
+    "combine.project": "host combine: valid mask, HAVING, projection "
+                       "and string/date decode",
+    "combine.order": "host combine: ORDER BY, OFFSET/LIMIT and NULLs "
+                     "surfaced in the result",
 }
 
 # phase attribution for the EXPLAIN ANALYZE Timing line and the
@@ -129,11 +163,12 @@ PHASE_OF: dict[str, str] = {
     "replication.ship": "replication",
     "replication.apply": "replication",
     "replication.promote": "replication",
+    "mesh.wait": "wait",
 }
 
 PHASE_ORDER = ("parse", "queue", "plan", "feed", "compile", "device",
                "combine", "fastpath", "serving", "retry", "degrade",
-               "replication")
+               "replication", "wait")
 
 # spans kept per trace: a runaway statement (thousands of stripes ×
 # columns) truncates instead of growing the ring without bound
@@ -398,17 +433,61 @@ def adopt_context(token):
     return _AdoptCtx(token)
 
 
+class _Waited:
+    __slots__ = ("lock", "kind")
+
+    def __init__(self, lock, kind):
+        self.lock = lock
+        self.kind = kind
+
+    def __enter__(self):
+        if not self.lock.acquire(blocking=False):  # graftlint: ignore[raw-lock-acquire] — released by __exit__
+            with trace_span("mesh.wait", lock=self.kind):
+                self.lock.acquire()  # graftlint: ignore[raw-lock-acquire] — released by __exit__
+        return self.lock
+
+    def __exit__(self, exc_type, exc, tb):
+        self.lock.release()
+        return False
+
+
+def waited(lock, kind: str):
+    """Hold `lock` for the block.  The first try does not block; only
+    when another thread holds it does the block wait, inside a
+    ``mesh.wait`` span with meta ``lock=kind``.  So a lock taken at
+    once records nothing, and untraced a contended one costs one failed
+    try."""
+    return _Waited(lock, kind)
+
+
 # -- device legs: CUDA event pairs around a span's launches ------------------
 class _EventPool:
     """Timing events reused across statements (creating a pair costs
-    host microseconds on a statement of a few milliseconds).  One per
-    TraceRecorder; the port runs one device per process."""
+    host microseconds on a statement of a few milliseconds), and the
+    stream objects they are recorded on.  One per TraceRecorder; the
+    port runs one device per process."""
 
     MAX_FREE = 256
 
     def __init__(self):
         self._mu = threading.Lock()
         self._free: list = []
+        # raw CUDA stream handle → its torch Stream: building the current
+        # stream's object costs twice an event's record (PyTorch's streams
+        # come from fixed pools, so the map stays small)
+        self._streams: dict = {}
+
+    def stream(self, device):
+        """The current stream of `device` (a cuda torch.device)."""
+        import torch
+
+        idx = (device.index if device.index is not None
+               else torch.cuda.current_device())
+        raw = torch._C._cuda_getCurrentRawStream(idx)
+        s = self._streams.get(raw)
+        if s is None:
+            s = self._streams[raw] = torch.cuda.current_stream(idx)
+        return s
 
     def take(self):
         with self._mu:
@@ -425,29 +504,41 @@ class _EventPool:
 
 
 class _Leg:
-    __slots__ = ("span", "start", "end")
+    __slots__ = ("span", "start", "end", "stream", "lends_end")
 
-    def __init__(self, span, start, end):
+    def __init__(self, span, start, end, stream):
         self.span = span
         self.start = start
         self.end = end
+        self.stream = stream
+        # a leg chained after this one starts at this one's end event,
+        # and gives it back to the pool itself
+        self.lends_end = False
 
 
 _legs_mu = threading.Lock()
 
 
 class _DeviceTimeline:
-    __slots__ = ("span", "leg")
+    __slots__ = ("span", "device", "after", "leg")
 
-    def __init__(self, span):
+    def __init__(self, span, device, after):
         self.span = span
+        self.device = device
+        self.after = after
         self.leg = None
 
     def __enter__(self):
-        tr = self.span._tr
-        pool = tr.pool
-        self.leg = _Leg(self.span, pool.take(), pool.take())
-        self.leg.start.record()
+        pool = self.span._tr.pool
+        after = self.after
+        if after is not None:
+            # nothing was enqueued since the earlier leg's end: start there
+            after.lends_end = True
+            self.leg = _Leg(self.span, after.end, pool.take(), after.stream)
+        else:
+            stream = pool.stream(self.device)
+            self.leg = _Leg(self.span, pool.take(), pool.take(), stream)
+            self.leg.start.record(stream)
         return self.leg
 
     def __exit__(self, exc_type, exc, tb):
@@ -457,23 +548,26 @@ class _DeviceTimeline:
             # an OOM, a cancel or an injected fault inside the block:
             # the end event was never recorded — drop the pair unread
             return False
-        leg.end.record()
+        leg.end.record(leg.stream)
         tr = self.span._tr
         with _legs_mu:
             tr.legs.append(leg)
         return False
 
 
-def device_timeline(span, device):
+def device_timeline(span, device, after=None):
     """CUDA event pair on the current stream around the block: the
     start before its first launch, the end after its last.  `span` is
     the open Span the pair belongs to (what `trace_span` returned; a
-    no-op span or a CPU `device` records nothing).  The pair is read by
-    :func:`resolve_device_legs` into the span's ``device_ms``."""
+    no-op span or a CPU `device` records nothing).  `after`, the leg an
+    earlier block on the same stream returned, with nothing enqueued
+    since it closed, makes its end event this pair's start.  The pair
+    is read by :func:`resolve_device_legs` into the span's
+    ``device_ms``."""
     if not isinstance(span, Span) or span._tr is None or \
             span._tr.pool is None or getattr(device, "type", None) != "cuda":
         return _NOOP
-    return _DeviceTimeline(span)
+    return _DeviceTimeline(span, device, after)
 
 
 def resolve_device_legs(final: bool = False) -> None:
@@ -502,7 +596,10 @@ def _resolve(tr: "Trace", final: bool) -> None:
             m = leg.span.meta or {}
             m["device_ms"] = round(m.get("device_ms", 0.0) + ms, 4)
             leg.span.meta = m
-            tr.pool.give(leg.start, leg.end)
+            if leg.lends_end:
+                tr.pool.give(leg.start)
+            else:
+                tr.pool.give(leg.start, leg.end)
         elif not final:
             keep.append(leg)
     if keep:
@@ -543,8 +640,6 @@ class ClassHist:
         self.buckets: dict[int, int] = {}
 
     def record(self, ms: float) -> None:
-        from ..ops.sketches import dd_bucket_scalar
-
         key = dd_bucket_scalar(float(ms))
         self.calls += 1
         self.sum_ms += ms
@@ -655,8 +750,6 @@ class TraceRecorder:
             # always update; cold/slow classes always record.  (Racy
             # dict/attr reads are fine: both sides are GIL-atomic and
             # a stale mean only shifts WHEN sampling engages.)
-            from .query_stats import fingerprint
-
             h = self._hists.get(_clamp(fingerprint(sql)))
             if h is not None and h.calls >= 8 and \
                     h.sum_ms < fast_ms * h.calls and \
@@ -696,8 +789,6 @@ class TraceRecorder:
                 trace.error = type(error).__name__
         if h.nested and trace is None:
             return None
-        from .query_stats import fingerprint
-
         cls = _clamp(fingerprint(h.sql))
         if trace is not None:
             trace.cls = cls
@@ -787,12 +878,6 @@ class TraceRecorder:
         with self._mu:
             self._hists.clear()
 
-    def ring_bytes(self) -> int:
-        """Rough in-memory footprint of the ring (span count × a fixed
-        per-span estimate) — the boundedness assert's measuring stick."""
-        with self._mu:
-            return sum(t.spans for t in self._ring) * 200
-
 
 def _round_q(v):
     return None if v is None else round(float(v), 3)
@@ -804,7 +889,8 @@ def phase_breakdown(root) -> dict[str, float]:
     a live Span or a to_dict() span dict).  A span whose name maps in
     PHASE_OF contributes its whole duration and is not descended into,
     so phases never double-count; "other" is the root wall minus every
-    attributed phase (glue code, counter folds)."""
+    attributed phase (glue code, counter folds).  The port's own phase
+    `wait` appears only when non-zero."""
     phases = dict.fromkeys(PHASE_ORDER, 0.0)
 
     def dur_s(s) -> float:
@@ -838,6 +924,8 @@ def phase_breakdown(root) -> dict[str, float]:
     phases["total"] = total
     phases["other"] = max(0.0, total - sum(
         phases[p] for p in PHASE_ORDER))
+    if not phases["wait"]:
+        del phases["wait"]
     return phases
 
 

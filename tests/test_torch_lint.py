@@ -295,6 +295,32 @@ def test_inline_ignore_suppresses(tmp_path):
     assert [f.rule for f in run_lint(str(tmp_path))] == ["bare-except"]
 
 
+@pytest.mark.parametrize("other,rules", [
+    ("with self._b, self._a:", ["lock-order-cycle"]),
+    ("with self._a, self._b:", [])])
+def test_waited_holds_its_lock_for_the_lock_graph(tmp_path, other, rules):
+    """`with waited(lock, kind):` (stats/tracing.py: the lock held for
+    the block, a contended wait traced) acquires `lock` as `with lock:`
+    does: the opposite order elsewhere is a cycle, the same order is
+    clean."""
+    sub = tmp_path / "citus_tpu_torch"
+    sub.mkdir()
+    (sub / "pair.py").write_text(
+        "import threading\n\n"
+        "from .stats.tracing import waited\n\n\n"
+        "class Pair:\n"
+        "    def __init__(self):\n"
+        "        self._a = threading.Lock()\n"
+        "        self._b = threading.Lock()\n\n"
+        "    def one(self):\n"
+        "        with waited(self._a, 'a'), self._b:\n"
+        "            return 1\n\n"
+        "    def two(self):\n"
+        f"        {other}\n"
+        "            return 2\n")
+    assert [f.rule for f in run_lint(str(tmp_path))] == rules
+
+
 # the families whose rules are the JAX package's, message for message;
 # the hot-path rules (CUDA capture against JAX tracing) and the
 # placement rules (torch transfers against jax.device_put) differ by

@@ -32,6 +32,7 @@ import shutil
 import subprocess
 import sys
 import threading
+import time
 
 import pytest
 import torch
@@ -474,6 +475,9 @@ class _Pool(tracing._EventPool):
         self.made += 1
         return _Event()
 
+    def stream(self, device):
+        return None
+
 
 class _Cuda:
     type = "cuda"
@@ -511,3 +515,184 @@ def test_device_legs_are_read_only_after_completion():
     assert tracing.device_timeline(sp, torch.device("cpu")) is tracing._NOOP
     assert tracing.device_timeline(tracing.trace_span("mesh.dispatch"),
                                    _Cuda()) is tracing._NOOP
+
+
+def test_a_chained_leg_starts_at_the_earlier_legs_end():
+    """The fetch's leg starts at the dispatch leg's end event: three
+    events for two legs, each back in the pool once both are read."""
+    rec = tracing.TraceRecorder()
+    rec.events = pool = _Pool()
+    h = rec.begin("select 1")
+    with tracing.trace_span("mesh.dispatch") as d, \
+            tracing.device_timeline(d, _Cuda()) as first:
+        _Event.clock[0] += 4.0
+    with tracing.trace_span("mesh.fetch") as f, \
+            tracing.device_timeline(f, _Cuda(), after=first) as second:
+        _Event.clock[0] += 1.5
+    assert second.start is first.end and pool.made == 3
+    for ev in (first.start, first.end, second.end):
+        ev.done = True
+    rec.end(h)
+    assert d.meta["device_ms"] == 4.0 and f.meta["device_ms"] == 1.5
+    assert len(pool._free) == 3 and \
+        len({id(e) for e in pool._free}) == 3
+    # a chained block that raises drops its pair; the earlier leg keeps
+    # the event it lent, which goes back to the pool with neither
+    h = rec.begin("select 1")
+    with tracing.trace_span("mesh.dispatch") as d, \
+            tracing.device_timeline(d, _Cuda()) as first:
+        pass
+    with pytest.raises(RuntimeError):
+        with tracing.trace_span("mesh.fetch") as f, \
+                tracing.device_timeline(f, _Cuda(), after=first):
+            raise RuntimeError("copy failed")
+    first.start.done = first.end.done = True
+    rec.end(h)
+    assert "device_ms" in d.meta and "device_ms" not in (f.meta or {})
+    assert first.end not in pool._free and first.start in pool._free
+    assert open_span_count() == 0
+
+
+# -- the executor's waits, copies and combine ---------------------------------
+
+ROLLUP = ("select l_orderkey, count(*), sum(l_quantity) from lineitem "
+          "group by l_orderkey order by l_orderkey")
+
+
+def _hold(lock, ms):
+    """Hold `lock` from another thread for `ms`; returns once it is held."""
+    held = threading.Event()
+
+    def body():
+        with lock:
+            held.set()
+            time.sleep(ms / 1000.0)
+
+    t = threading.Thread(target=body)
+    t.start()
+    assert held.wait(5)
+    return t
+
+
+def _parent_of(root, span):
+    for c in root.get("children", ()):
+        if c is span:
+            return root
+        found = _parent_of(c, span)
+        if found is not None:
+            return found
+    return None
+
+
+def _assert_one_wait(doc, lock):
+    waits = _find(doc["root"], "mesh.wait")
+    assert [w["meta"] for w in waits] == [{"lock": lock}]
+    wait = waits[0]
+    assert wait["dur_ms"] >= 40.0, wait
+    execute = _parent_of(doc["root"], wait)
+    assert execute["name"] == "execute"
+    names = [c["name"] for c in execute["children"]]
+    assert names.index("mesh.wait") < names.index("mesh.dispatch"), names
+    assert phase_breakdown(doc["root"])["wait"] >= 0.040
+    _assert_tiles_wall(doc)
+
+
+def test_a_held_run_lock_is_a_wait_before_the_dispatch(base, tmp_path):
+    p = _port(_copy(base, tmp_path, "p"), trace_fast_statement_ms=0)
+    p.execute(GROUPED)
+    doc = p.stats.tracing.last_trace()
+    # uncontended: no wait span, no wait phase
+    assert not _find(doc["root"], "mesh.wait")
+    assert "wait" not in phase_breakdown(doc["root"])
+    (compiler,) = p.executor.plan_cache._entries.values()
+    t = _hold(compiler._run_lock, 50)
+    p.execute(GROUPED)
+    t.join()
+    _assert_one_wait(p.stats.tracing.last_trace(), "run")
+    # EXPLAIN ANALYZE's Timing line shows the phase only when non-zero
+    timing = next(x for x in _analyze_lines(p, GROUPED)
+                  if x.startswith("Timing: "))
+    assert "wait=" not in timing
+    t = _hold(compiler._run_lock, 50)
+    timing = next(x for x in _analyze_lines(p, GROUPED)
+                  if x.startswith("Timing: "))
+    t.join()
+    wait_ms = float(re.search(r" wait=([0-9.]+)ms", timing).group(1))
+    assert wait_ms >= 40.0, timing
+    assert open_span_count() == 0
+
+
+def test_a_held_graph_lock_is_a_wait_before_the_replay(base, tmp_path,
+                                                       monkeypatch):
+    from test_torch_graphs import StandIn
+
+    StandIn(monkeypatch)
+    p = _port(_copy(base, tmp_path, "p"), trace_fast_statement_ms=0)
+    for _ in range(3):
+        p.execute(GROUPED)
+        assert not _find(p.stats.tracing.last_trace()["root"], "mesh.wait")
+    assert p.executor.last_dispatch()[0] == "replayed"
+    (graph,) = p.executor.plan_cache._graphs.values()
+    t = _hold(graph.lock, 50)
+    p.execute(GROUPED)
+    t.join()
+    assert p.executor.last_dispatch()[0] == "replayed"
+    doc = p.stats.tracing.last_trace()
+    _assert_one_wait(doc, "graph")
+    (dispatch,) = _find(doc["root"], "mesh.dispatch")
+    assert dispatch["meta"] == {"graph": "replay"}
+    assert open_span_count() == 0
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_fetch_carries_the_bytes_it_copies(base, tmp_path, monkeypatch,
+                                          streamed):
+    from citus_tpu_torch.executor.compiler import PlanCompiler
+
+    copied = []
+    real = PlanCompiler.run
+
+    def run(self, *a, **kw):
+        out = real(self, *a, **kw)
+        copied.append(out[0].nbytes + out[1].nbytes)
+        return out
+
+    monkeypatch.setattr(PlanCompiler, "run", run)
+    p = _port(_copy(base, tmp_path, "p"), trace_fast_statement_ms=0)
+    if streamed:
+        p.execute(STREAM_ON)
+    copied.clear()
+    r = p.execute(GROUPED)
+    assert r.streamed_batches >= (4 if streamed else 0)
+    fetches = _find(p.stats.tracing.last_trace()["root"], "mesh.fetch")
+    assert [f["meta"]["bytes"] for f in fetches] == copied
+    assert all(b > 0 for b in copied)
+    # no copy leg on the CPU
+    assert all("device_ms" not in f["meta"] for f in fetches)
+    assert tracing.device_ms(p.stats.tracing.last_trace()["root"],
+                             "mesh.fetch") == 0.0
+    assert open_span_count() == 0
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_combine_splits_into_unpack_project_order(base, tmp_path,
+                                                  streamed):
+    p = _port(_copy(base, tmp_path, "p"), trace_fast_statement_ms=0)
+    if streamed:
+        p.execute(STREAM_ON)
+    r = p.execute(ROLLUP)
+    assert r.row_count > 1000
+    doc = p.stats.tracing.last_trace()
+    (combine,) = _find(doc["root"], "combine")
+    kids = [c["name"] for c in combine.get("children", ())]
+    # the streamed path merges its batches' parts, already unpacked
+    want = ["combine.project", "combine.order"]
+    assert kids == (want if streamed else ["combine.unpack"] + want)
+    if not streamed:
+        covered = sum(c["dur_ms"] for c in combine["children"])
+        assert covered >= 0.9 * combine["dur_ms"], combine
+    # the children count once, inside the combine phase
+    ph = phase_breakdown(doc["root"])
+    assert ph["combine"] * 1000.0 == pytest.approx(
+        span_seconds(doc["root"], "combine") * 1000.0)
+    assert open_span_count() == 0
