@@ -293,12 +293,14 @@ def check(modules: list[Module], partial: bool = False) -> list[Finding]:
 
 def _counter_list_lines(tree: ast.AST,
                         consts: dict[str, str]) -> dict[str, int]:
-    """attr → line for entries of the ALL_COUNTERS list."""
+    """attr → line for entries of the ALL_COUNTERS and PORT_COUNTERS
+    lists (both are snapshotted)."""
+    out: dict[str, int] = {}
     for node in tree.body:
         if isinstance(node, ast.Assign) and len(node.targets) == 1 and \
                 isinstance(node.targets[0], ast.Name) and \
-                node.targets[0].id == "ALL_COUNTERS" and \
-                isinstance(node.value, ast.List):
-            return {e.id: e.lineno for e in node.value.elts
-                    if isinstance(e, ast.Name) and e.id in consts}
-    return {}
+                node.targets[0].id in ("ALL_COUNTERS", "PORT_COUNTERS") \
+                and isinstance(node.value, ast.List):
+            out.update({e.id: e.lineno for e in node.value.elts
+                        if isinstance(e, ast.Name) and e.id in consts})
+    return out

@@ -11,9 +11,11 @@ unchanged, which keeps the runner's retry and feedback logic valid:
 * each stage adds dropped rows to an overflow counter and stale
   statistics to a `dense_oob` counter, and records its actual row count
   (`stage_actual`) for capacity feedback;
-* outputs return packed as one [n_out, 1, cap] int64 block plus one
-  counter vector — two device→host copies per execution — and unpack
-  through `unpack_outputs`.
+* the program ends by compacting its output rows, at their own
+  dtypes, into one byte block and their count into the counter vector;
+  the fetch copies the counters, then only those rows, into the
+  session's host staging (executor/handoff.py) — two waits per
+  execution — and `unpack_outputs` views them there.
 
 A plan for N positions (a mesh session, distributed/mesh.py) runs the
 same per-position program once per position, in lockstep, from the
@@ -57,6 +59,7 @@ from ..planner.plan import (
     ScanNode,
     WindowNode,
 )
+from . import handoff
 from .batch import Block
 from .exprs import ColumnSource, evaluate, predicate_mask
 
@@ -75,6 +78,16 @@ _POS_ATTRS = ("_pos", "device", "_consts", "_overflow", "_dense_oob",
 
 def _round_cap(n: int) -> int:
     return max(128, int(math.ceil(n / 128.0)) * 128)
+
+
+def _fetch_meta(span, out, counters) -> None:
+    """The `mesh.fetch` span's meta: the bytes copied back (rows, their
+    counts and the other counters), the rows handed back and the slots
+    they were compacted from."""
+    if span is not None:
+        span.meta = {**(span.meta or {}),
+                     "bytes": out.nbytes + counters.nbytes,
+                     "rows": sum(out.rows), "slots": out.slots}
 
 
 def collect_device_params(plan: QueryPlan) -> list:
@@ -127,42 +140,6 @@ def collect_device_params(plan: QueryPlan) -> list:
     return [found[i] for i in sorted(found)]
 
 
-def _to_bits64(a: torch.Tensor) -> torch.Tensor:
-    """Lossless widening to int64 for the packed transfer."""
-    if a.dtype == torch.float64:
-        return a.contiguous().view(torch.int64)
-    if a.dtype == torch.float32:
-        # sign-extended int32 bits; host truncation recovers them exactly
-        return a.contiguous().view(torch.int32).to(torch.int64)
-    return a.to(torch.int64)
-
-
-def _from_bits64(arr: np.ndarray, dtype: np.dtype) -> np.ndarray:
-    if dtype == np.float64:
-        return arr.view(np.float64)
-    if dtype == np.float32:
-        return arr.astype(np.int32).view(np.float32)
-    if dtype == np.bool_:
-        return arr != 0
-    return arr.astype(dtype)
-
-
-def unpack_outputs(packed: np.ndarray, out_meta):
-    """Packed [n_out, 1, cap] int64 → (cols, nulls, valid) numpy."""
-    cols: dict[str, np.ndarray] = {}
-    nulls: dict[str, np.ndarray] = {}
-    valid = None
-    for i, (kind, cid, dt) in enumerate(out_meta):
-        arr = _from_bits64(packed[i], dt)
-        if kind == "col":
-            cols[cid] = arr
-        elif kind == "null":
-            nulls[cid] = arr
-        else:
-            valid = arr
-    return cols, nulls, valid
-
-
 @dataclass
 class Capacities:
     """Per-node static buffer sizes (see the JAX package for each)."""
@@ -206,8 +183,8 @@ class Capacities:
 
 class PlanCompiler:
     """One instance per (plan shape, capacities, compute dtype, device):
-    `run(plan, feeds)` executes the plan and returns the packed outputs
-    and counters.  The plan cache keeps instances across executions."""
+    `run(plan, feeds, caps, staging=...)` executes the plan and returns
+    its output rows, fetched into the staging, and counters.  The plan cache keeps instances across executions."""
 
     # one-hot eligibility bound of the JAX executor's dense-grid sum; the
     # port routes the same shapes through the dense_grid_sum kernel
@@ -254,18 +231,19 @@ class PlanCompiler:
         self._shuffle_bytes = 0
 
     # ------------------------------------------------------------------
-    def run(self, plan: QueryPlan, feeds, caps: Capacities,
-            graph=None) -> tuple | None:
+    def run(self, plan: QueryPlan, feeds, caps: Capacities, *,
+            staging, graph=None) -> tuple | None:
         """Execute against `feeds` (FeedSpec by scan-node id) with `caps`
         keyed by this plan's node ids: a cached instance serves every
         plan of its shape, and each statement plans anew.  Returns
-        (packed [n_out, 1, cap] int64 numpy, counters [2 + n_stages]
-        int64 numpy, out_meta, stage_keys): counters are [capacity
-        overflow, dense_oob, *stage actuals] and stage_keys entries are
-        (walk_index, kind, width).  With `graph` (a CapturedPlan of this
-        key over these feeds) the dispatch is its replay; None when the
-        graph was released before it could replay.  A statement that
-        finds a lock taken waits for it under a `mesh.wait` span."""
+        (Fetched rows, counters [2 + n_stages] int64 numpy, out_meta,
+        stage_keys): the rows sit in `staging` (the calling session
+        thread's handoff.ResultStaging) until its next fetch, counters are [capacity overflow, dense_oob, *stage
+        actuals] and stage_keys entries are (walk_index, kind, width).
+        With `graph` (a CapturedPlan of this key over these feeds) the
+        dispatch is its replay; None when the graph was released before
+        it could replay.  A statement that finds a lock taken waits for
+        it under a `mesh.wait` span."""
         from ..stats.tracing import (
             device_timeline,
             resolve_device_legs,
@@ -283,20 +261,19 @@ class PlanCompiler:
                 # the copies' leg starts where the replay's ends
                 with trace_span("mesh.fetch") as sp, \
                         device_timeline(sp, self.device, after=leg):
-                    packed = graph.packed.cpu().numpy()
-                    counters = graph.counters.cpu().numpy()
-                if sp is not None:
-                    sp.meta = {"bytes": packed.nbytes + counters.nbytes}
+                    out, counters = staging.fetch(
+                        graph.packed, graph.counters, graph.out_meta,
+                        len(graph.stage_keys))
+                _fetch_meta(sp, out, counters)
             resolve_device_legs()
-            return (packed[:, None, :], counters, graph.out_meta,
-                    graph.stage_keys)
+            return out, counters, graph.out_meta, graph.stage_keys
         with waited(self._run_lock, "run"):
             self.plan = plan
             self.caps = caps
             try:
                 # the eager program's launches, timed on the card by a
-                # CUDA event pair (the span's device_ms), then the two
-                # blocking copies back to the host, timed by another
+                # CUDA event pair (the span's device_ms), then the
+                # copies back to the host, timed by another
                 dspan = (trace_span("mesh.dispatch") if self.n_dev == 1
                          else trace_span("mesh.dispatch",
                                          graph="eager: mesh"))
@@ -307,8 +284,8 @@ class PlanCompiler:
                         device_timeline(sp, self.device, after=leg):
                     self._mesh_seam("mesh.fetch")
                     try:
-                        packed = packed.cpu().numpy()
-                        counters = counters.cpu().numpy()
+                        out, counters = staging.fetch(
+                            packed, counters, meta, len(stage_keys))
                     except Exception as e:
                         from ..distributed.mesh import (
                             _reraise_if_device_loss,
@@ -316,17 +293,14 @@ class PlanCompiler:
 
                         _reraise_if_device_loss(e, "mesh.fetch")
                         raise
-                if sp is not None:
-                    sp.meta = {"bytes": packed.nbytes + counters.nbytes}
+                _fetch_meta(sp, out, counters)
             finally:
                 self.plan = self.caps = None
             self.out_meta, self.stage_keys = meta, stage_keys
             self.shuffle_bytes = self._shuffle_bytes
         # the fetch returned: every launch before it has completed
         resolve_device_legs()
-        if packed.ndim == 2:
-            packed = packed[:, None, :]
-        return packed, counters, meta, stage_keys
+        return out, counters, meta, stage_keys
 
     def _forget_run(self) -> None:
         """Drop the last dispatch's stage counters."""
@@ -336,11 +310,11 @@ class PlanCompiler:
 
     def _dispatch(self, plan: QueryPlan, feeds) -> tuple:
         """Enqueue the plan's launches for every position; returns the
-        packed outputs ([n_out, cap] at one position, [n_out, N, cap]
-        on a mesh) and counters still on the device, with out_meta and
-        stage_keys.  Counters combine across positions as the JAX
-        runner does: overflow and dense_oob add, stage actuals take
-        the largest position's."""
+        packed outputs ([N, B, cap + 1] uint8, executor/handoff.py) and
+        counters still on the device, with out_meta and stage_keys.
+        Counters combine across positions as the JAX runner does:
+        overflow and dense_oob add, stage actuals take the largest
+        position's; each position's output row count follows them."""
         from .cache import plan_order
 
         self._walk_order = plan_order(plan)
@@ -366,10 +340,9 @@ class PlanCompiler:
             self._consts = self._consts_for(home)
         meta = outs[0][1]
         if self.n_dev == 1:
-            packed = torch.stack(outs[0][0])
+            packed = outs[0][0].unsqueeze(0)
         else:
-            packed = torch.stack([torch.stack(rows).to(home)
-                                  for rows, _m in outs], dim=1)
+            packed = torch.stack([buf.to(home) for buf, _m, _n in outs])
         overflow = sum(st["_overflow"].to(home) for st in states)
         dense_oob = sum(st["_dense_oob"].to(home) for st in states)
         actual: dict = {}
@@ -387,7 +360,8 @@ class PlanCompiler:
                        self._stage_width[(nid, kind)])
                       for nid, kind in skeys]
         counters = torch.stack([overflow, dense_oob]
-                               + [actual[k] for k in skeys])
+                               + [actual[k] for k in skeys]
+                               + [n.to(home) for _b, _m, n in outs])
         return packed, counters, meta, stage_keys
 
     def _consts_for(self, dev) -> dict:
@@ -507,7 +481,8 @@ class PlanCompiler:
     def _body(self, plan: QueryPlan, blocks: dict):
         """One position's program: the plan, the INSERT..SELECT output
         shuffle, the replicated-root gate and the device top-k, then the
-        output rows for the packed transfer."""
+        compaction of the output rows for the hand-off.  Returns (the
+        position's [B, cap + 1] uint8 block, out_meta, its row count)."""
         out = yield from self._exec(plan.root, blocks)
         if plan.output_repart is not None:
             # INSERT..SELECT device routing: shuffle the final block to
@@ -526,18 +501,17 @@ class PlanCompiler:
             out = self._device_topk(out, topk)
         out_cids = sorted(plan.root.out_columns)
         shape = out.valid.shape
-        rows, meta = [], []
+        lanes, meta = [], []
         for cid in out_cids:
             col = torch.broadcast_to(out.columns[cid], shape)
-            rows.append(_to_bits64(col))
+            lanes.append(col)
             meta.append(("col", cid, _np_dtype(col.dtype)))
         for cid in out_cids:
-            rows.append(torch.broadcast_to(out.null_mask(cid),
-                                           shape).to(torch.int64))
-            meta.append(("null", cid, np.dtype(np.bool_)))
-        rows.append(out.valid.to(torch.int64))
-        meta.append(("valid", "", np.dtype(np.bool_)))
-        return rows, meta
+            if cid in out.nulls:
+                lanes.append(torch.broadcast_to(out.nulls[cid], shape))
+                meta.append(("null", cid, np.dtype(np.bool_)))
+        buf, n = handoff.compact(lanes, out.valid, meta)
+        return buf, meta, n
 
     # ------------------------------------------------------------------
     def _src(self, blk: Block) -> ColumnSource:

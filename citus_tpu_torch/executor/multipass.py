@@ -190,8 +190,9 @@ def try_execute_multipass(executor, plan: QueryPlan, raw: bool, k: int):
     if executor.counters is not None:
         executor.counters.increment(sc.SPILL_PASSES_TOTAL, len(groups))
 
-    cols, nulls, valid = merge_parts(plan, parts)
-    result = executor._host_combine(plan, cols, nulls, valid, raw)
+    cols, nulls, n = merge_parts(plan, parts)
+    result = executor._host_combine(plan, cols, nulls, None, raw,
+                                    device_rows=[n])
     result.retries = retries_total
     result.device_rows_scanned = rows_scanned
     result.streamed_batches = batches_total

@@ -96,10 +96,11 @@ from .cache import (
     node_fingerprint,
     plan_order,
 )
-from .compiler import Capacities, PlanCompiler, _round_cap, unpack_outputs
+from .compiler import Capacities, PlanCompiler, _round_cap
 from .execcache import exec_cache_for, key_from_json, key_to_json
 from .fastpath import try_execute_fast_path
 from .feed import build_feeds, walk_plan
+from .handoff import ResultStaging, unpack_outputs
 from .hbm import _TORCH_OOM, accountant_for
 from .host_exprs import ColumnSource, evaluate, predicate_mask
 from .scanpipe import ScanPhaseStats
@@ -199,6 +200,8 @@ class Executor:
         # per thread: how the last resident run dispatched, and why
         # (EXPLAIN ANALYZE's Caches line)
         self._graph_tls = threading.local()
+        # per thread: the host staging its results are fetched into
+        self._staging_tls = threading.local()
         # fingerprint → walk-index-keyed converged capacities, persisted
         # in caps_memo.json (debounced: see _caps_memo_insert)
         self._caps_memo: dict = self._load_caps_memo()
@@ -272,15 +275,16 @@ class Executor:
         if streamed is not None:
             return streamed
         compute_dtype = np.dtype(self.settings.get("compute_dtype"))
-        packed, out_meta, caps, retries, feeds = self._run_resident(
+        out, out_meta, caps, retries, feeds = self._run_resident(
             plan, compute_dtype)
         self.count_groupby_bucketed(plan, caps)
         with trace_span("combine"):
             with trace_span("combine.unpack"):
-                cols, nulls, valid = unpack_outputs(packed, out_meta)
-            result = self._host_combine(plan, cols, nulls, valid, raw)
+                cols, nulls = unpack_outputs(out, out_meta)
+            result = self._host_combine(plan, cols, nulls, None, raw,
+                                        device_rows=out.rows)
         result.retries = retries
-        result.device_rows_scanned = int(np.asarray(valid).size)
+        result.device_rows_scanned = out.slots
         result.device_rows_in = feed_device_rows(feeds)
         return result
 
@@ -313,9 +317,9 @@ class Executor:
             memo = self._caps_memo.get(fingerprint)
         caps = (self._caps_from_order(plan, memo) if memo is not None
                 else self._initial_capacities(plan, feeds))
-        packed, out_meta, caps, retries = self.run_with_retry(
+        out, out_meta, caps, retries = self.run_with_retry(
             plan, feeds, caps, fingerprint, compute_dtype)
-        return packed, out_meta, caps, retries, feeds
+        return out, out_meta, caps, retries, feeds
 
     def execute_pass(self, plan: QueryPlan, split_nid: int):
         """One multi-pass pass (executor/multipass.py): run the pruned
@@ -334,11 +338,10 @@ class Executor:
             parts, scanned, retries, batches, _caps = streamed
             return parts, scanned, retries, batches
         compute_dtype = np.dtype(self.settings.get("compute_dtype"))
-        packed, out_meta, _caps, retries, _feeds = self._run_resident(
+        out, out_meta, _caps, retries, _feeds = self._run_resident(
             plan, compute_dtype, no_cache_nodes=frozenset({split_nid}))
-        cols, nulls, valid = unpack_outputs(packed, out_meta)
-        scanned = int(np.asarray(valid).size)
-        return [_flatten_batch(cols, nulls, valid)], scanned, retries, 0
+        cols, nulls = unpack_outputs(out, out_meta)
+        return [_flatten_batch(cols, nulls)], out.slots, retries, 0
 
     def _classify_oom(self, e: BaseException, what: str,
                       nbytes: int | None = None) -> DeviceMemoryExhausted:
@@ -358,7 +361,8 @@ class Executor:
                        fingerprint, compute_dtype, allow_tighten=True,
                        allow_graph=True):
         """Run (with a cached PlanCompiler) + overflow-retry loop.
-        Returns (packed, out_meta, converged_caps, retries).
+        Returns (Fetched rows, out_meta, converged_caps, retries); the
+        rows sit in this thread's staging until its next fetch.
 
         Capacity feedback: a clean execution whose recorded stage actuals
         sit far below their buffers tightens the capacities to
@@ -403,12 +407,15 @@ class Executor:
                                              caps)
                              if allow_graph and self._graphs_on()
                              else None)
-                    out = (compiler.run(plan, feeds, caps, graph=graph)
+                    staging = self._staging()
+                    out = (compiler.run(plan, feeds, caps, graph=graph,
+                                        staging=staging)
                            if graph is not None else None)
                     if out is None:
                         graph = None
-                        out = compiler.run(plan, feeds, caps)
-                    packed, counters, out_meta, stage_keys = out
+                        out = compiler.run(plan, feeds, caps,
+                                           staging=staging)
+                    fetched, counters, out_meta, stage_keys = out
             except _TORCH_OOM as e:
                 raise self._classify_oom(
                     e, f"running the plan (~{est} intermediate bytes)",
@@ -418,7 +425,7 @@ class Executor:
             if cap_overflow == 0 and dense_oob == 0:
                 if graph is not None:
                     # a graph exists only for a settled key
-                    return packed, out_meta, caps, retries
+                    return fetched, out_meta, caps, retries
                 first_tighten = False
                 if allow_tighten and not tightened and \
                         self.settings.get("enable_capacity_feedback"):
@@ -446,7 +453,7 @@ class Executor:
                                             compiler.shuffle_bytes)
                 self._settle(key, compiler, plan, feeds, caps, out_meta,
                              stage_keys)
-                return packed, out_meta, caps, retries
+                return fetched, out_meta, caps, retries
             if graph is not None:
                 # a replay overflowed: the graph no longer fits its data
                 self.plan_cache.drop_graph(key)
@@ -541,6 +548,13 @@ class Executor:
             self.exec_cache.store(key, self.device,
                                   self._caps_to_order(plan, caps),
                                   out_meta, stage_keys)
+
+    def _staging(self) -> ResultStaging:
+        """This thread's result staging (executor/handoff.py)."""
+        st = getattr(self._staging_tls, "staging", None)
+        if st is None:
+            st = self._staging_tls.staging = ResultStaging(self.counters)
+        return st
 
     def _graphs_on(self) -> bool:
         """CUDA graphs exist on the card only: the CPU runs eagerly."""
@@ -1087,20 +1101,25 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _host_combine(self, plan: QueryPlan, cols, nulls, valid,
-                      raw: bool = False) -> ResultSet:
+                      raw: bool = False,
+                      device_rows: list[int] | None = None) -> ResultSet:
+        """HAVING, the select list, decode, ORDER BY, OFFSET/LIMIT.  With
+        `valid` None the columns hold only result rows (compacted on the
+        device), `device_rows` of them per position; a column may lack
+        its NULL mask.  Every returned array is a copy: the columns may
+        be views into the fetch's staging."""
         with trace_span("combine.project"):
-            valid_2d = np.asarray(valid)
-            # rows per position while the result keeps position-major order
-            device_rows = (valid_2d.sum(axis=1).astype(int).tolist()
-                           if valid_2d.ndim == 2 else None)
-            valid_np = valid_2d.reshape(-1)
-            flat_cols: dict[str, np.ndarray] = {}
-            flat_nulls: dict[str, np.ndarray] = {}
-            for cid in cols:
-                flat_cols[cid] = np.asarray(cols[cid]).reshape(-1)[valid_np]
-                flat_nulls[cid] = np.asarray(nulls[cid]).reshape(-1)[valid_np]
+            if valid is None:
+                flat_cols, flat_nulls = dict(cols), dict(nulls)
+                n = sum(device_rows)
+            else:
+                valid_np = np.asarray(valid).reshape(-1)
+                flat_cols = {cid: np.asarray(a).reshape(-1)[valid_np]
+                             for cid, a in cols.items()}
+                flat_nulls = {cid: np.asarray(a).reshape(-1)[valid_np]
+                              for cid, a in nulls.items()}
+                n = int(valid_np.sum())
             src = ColumnSource(flat_cols, flat_nulls)
-            n = int(valid_np.sum())
 
             if plan.host_having is not None:
                 mask = np.broadcast_to(np.asarray(
@@ -1116,11 +1135,12 @@ class Executor:
             out_dtypes: dict[str, DataType] = {}
             decode_map: dict[str, tuple[str, str]] = {}
             names: list[str] = []
+            inputs = [*flat_cols.values(), *flat_nulls.values()]
             for e, name in plan.host_select:
                 v, nmask = evaluate(e, src, np)
-                v = np.broadcast_to(np.asarray(v), (n,)).copy()
+                v = _own(v, n, inputs)
                 nmask = (np.zeros(n, dtype=bool) if nmask is None
-                         else np.broadcast_to(np.asarray(nmask), (n,)).copy())
+                         else _own(nmask, n, inputs))
                 out_name = _unique_name(name, names)
                 names.append(out_name)
                 out_cols[out_name] = v
@@ -1209,6 +1229,17 @@ def feed_device_rows(feeds) -> list[int] | None:
         for d, r in enumerate(f.dev_rows):
             totals[d] += int(r)
     return totals or None
+
+
+def _own(a, n: int, inputs) -> np.ndarray:
+    """`a` as an [n] array of its own: a copy, unless the evaluator made
+    it afresh (the inputs may be views into the fetch's staging, which
+    the next fetch overwrites)."""
+    a = np.asarray(a)
+    if a.shape == (n,) and a.flags.owndata and \
+            not any(np.may_share_memory(a, b) for b in inputs):
+        return a
+    return np.broadcast_to(a, (n,)).copy()
 
 
 def _unique_name(name: str, taken: list[str]) -> str:

@@ -78,8 +78,9 @@ from ..stats.tracing import (
 from ..utils.cancellation import check_cancel
 from ..utils.faultinjection import fault_point
 from .cache import feeds_signature, node_fingerprint
-from .compiler import _round_cap, unpack_outputs
+from .compiler import _round_cap
 from .feed import FeedSpec, _feed_scan_cached, make_chunk_filter, walk_plan
+from .handoff import unpack_outputs
 
 
 # ---------------------------------------------------------------------------
@@ -431,12 +432,15 @@ def _torch_dtype(dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # host merge
 
-def _flatten_batch(cols, nulls, valid):
-    v = np.asarray(valid).reshape(-1)
+def _flatten_batch(cols, nulls):
+    """One batch's (or pass's) rows as a part: copies, since they are
+    views into the staging that the next fetch overwrites, and a NULL
+    mask for every column."""
     fc, fn = {}, {}
-    for cid in cols:
-        fc[cid] = np.asarray(cols[cid]).reshape(-1)[v]
-        fn[cid] = np.asarray(nulls[cid]).reshape(-1)[v]
+    for cid, a in cols.items():
+        fc[cid] = a.copy()
+        fn[cid] = (nulls[cid].copy() if cid in nulls
+                   else np.zeros(len(a), dtype=bool))
     return fc, fn
 
 
@@ -510,7 +514,7 @@ def merge_aggregate_parts(node: AggregateNode, parts):
 
 
 def merge_parts(plan: QueryPlan, parts):
-    """Per-batch (or per-pass) flattened parts → one [1, n] block: a
+    """Per-batch (or per-pass) flattened parts → (cols, nulls, n): a
     mergeable aggregate root re-aggregates, row outputs concatenate."""
     if isinstance(plan.root, AggregateNode):
         merged_c, merged_n = merge_aggregate_parts(plan.root, parts)
@@ -520,10 +524,7 @@ def merge_parts(plan: QueryPlan, parts):
         merged_n = {cid: np.concatenate([p[1][cid] for p in parts])
                     for cid in parts[0][1]} if parts else {}
     n = len(next(iter(merged_c.values()))) if merged_c else 0
-    valid = np.ones((1, n), dtype=bool)
-    cols = {cid: a.reshape(1, n) for cid, a in merged_c.items()}
-    nulls = {cid: a.reshape(1, n) for cid, a in merged_n.items()}
-    return cols, nulls, valid
+    return merged_c, merged_n, n
 
 
 # ---------------------------------------------------------------------------
@@ -767,15 +768,15 @@ def try_execute_streamed(executor, plan: QueryPlan, raw: bool,
             # cycle on a later, fuller batch.  An overflow grows the
             # capacities once, for every later batch.
             with trace_span("stream.batch", batch=n_consumed - 1):
-                packed, out_meta, caps, r = executor.run_with_retry(
+                out, out_meta, caps, r = executor.run_with_retry(
                     batch_plan, feeds, caps, fingerprint, compute_dtype,
                     allow_tighten=False, allow_graph=False)
                 del feeds[sid]
                 producer.slots.release()
                 retries_total += r
-                cols, nulls, valid = unpack_outputs(packed, out_meta)
-                rows_scanned += int(np.asarray(valid).size)
-                parts.append(_flatten_batch(cols, nulls, valid))
+                cols, nulls = unpack_outputs(out, out_meta)
+                rows_scanned += out.slots
+                parts.append(_flatten_batch(cols, nulls))
     finally:
         feeds.pop(sid, None)
         producer.stop()
@@ -784,10 +785,11 @@ def try_execute_streamed(executor, plan: QueryPlan, raw: bool,
         return parts, rows_scanned, retries_total, n_consumed, caps
     with trace_span("combine"):
         t0 = time.perf_counter()
-        cols, nulls, valid = merge_parts(plan, parts)
+        cols, nulls, n = merge_parts(plan, parts)
         executor.scan_stats.add(
             stream_merge_seconds=time.perf_counter() - t0)
-        result = executor._host_combine(plan, cols, nulls, valid, raw)
+        result = executor._host_combine(plan, cols, nulls, None, raw,
+                                        device_rows=[n])
     result.retries = retries_total
     result.device_rows_scanned = rows_scanned
     result.streamed_batches = n_consumed

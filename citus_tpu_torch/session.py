@@ -1374,7 +1374,7 @@ class Session:
         st = self.stats
         if name == "citus_stat_counters":
             snap = st.counters.snapshot()
-            names = sorted(snap)
+            names = sorted(sc.ALL_COUNTERS)
             return ResultSet(["name", "value"],
                              {"name": names,
                               "value": [snap[n] for n in names]}, len(names))

@@ -118,6 +118,13 @@ CORRUPTION_DETECTED_TOTAL = "corruption_detected_total"
 READ_REPAIRS_TOTAL = "read_repairs_total"
 SCRUB_RUNS_TOTAL = "scrub_runs_total"
 SCRUB_REPAIRS_TOTAL = "scrub_repairs_total"
+# the port's own (the JAX package has none of them): the result
+# hand-off (executor/handoff.py) — rows the card handed back, the
+# output slots they were compacted from, and each growth of a session
+# thread's host staging
+RESULT_ROWS_FETCHED_TOTAL = "result_rows_fetched_total"
+RESULT_SLOTS_TOTAL = "result_slots_total"
+RESULT_STAGING_GROWS_TOTAL = "result_staging_grows_total"
 
 ALL_COUNTERS = [
     QUERIES_SINGLE_SHARD, QUERIES_MULTI_SHARD, QUERIES_REPARTITION,
@@ -148,6 +155,12 @@ ALL_COUNTERS = [
     STRIPES_VERIFIED_TOTAL, CORRUPTION_DETECTED_TOTAL,
     READ_REPAIRS_TOTAL, SCRUB_RUNS_TOTAL, SCRUB_REPAIRS_TOTAL,
 ]
+# snapshots carry these too; citus_stat_counters lists ALL_COUNTERS, the
+# JAX package's names
+PORT_COUNTERS = [
+    RESULT_ROWS_FETCHED_TOTAL, RESULT_SLOTS_TOTAL,
+    RESULT_STAGING_GROWS_TOTAL,
+]
 
 
 class StatCounters:
@@ -175,7 +188,7 @@ class StatCounters:
         for slot in slots:
             for k, v in slot.items():
                 out[k] = out.get(k, 0) + v
-        return {k: out.get(k, 0) for k in ALL_COUNTERS}
+        return {k: out.get(k, 0) for k in ALL_COUNTERS + PORT_COUNTERS}
 
     def reset(self) -> None:
         with self._slots_lock:

@@ -438,6 +438,36 @@ def test_prepared_parameters_refill_before_each_replay(base, tmp_path,
     eager.close()
 
 
+def test_two_replays_with_other_parameters_hand_back_each_answer(
+        base, tmp_path, monkeypatch):
+    """One captured grouped plan, replayed twice in a row with different
+    `$n`: each replay's compacted rows come back through the session's
+    staging, and the first answer survives the second replay."""
+    d = _copy(base, tmp_path)
+    StandIn(monkeypatch)
+    s = _port(d)
+    eager = _port(_copy(base, tmp_path, "e"))
+    prep = ("prepare g as select l_orderkey, count(*), sum(l_quantity) "
+            "from lineitem where l_quantity < $1 + 0 group by l_orderkey "
+            "order by 1")
+    s.execute(prep)
+    eager.execute(prep)
+    for q in (50, 50, 50):  # settle, capture, replay at the larger size
+        s.execute(f"execute g ({q})")
+    got = []
+    for q in (12, 45, 12):
+        got.append(s.execute(f"execute g ({q})"))
+        assert s.executor.last_dispatch()[0] == "replayed", q
+    low, high, low_again = got
+    low_rows = low.rows()
+    assert low.row_count < high.row_count
+    _same(low_rows, eager.execute("execute g (12)").rows())
+    _same(high.rows(), eager.execute("execute g (45)").rows())
+    _same(low_again.rows(), low_rows)
+    s.close()
+    eager.close()
+
+
 def test_replays_add_the_captured_launches(base, tmp_path, monkeypatch):
     d = _copy(base, tmp_path)
     StandIn(monkeypatch, launches={"dense_grid_sum": 1})

@@ -386,11 +386,11 @@ def test_real_allocator_oom_is_classified(sess, oracle, monkeypatch):
     real = compiler.PlanCompiler.run
     calls = {"n": 0}
 
-    def failing_once(self, plan, feeds, caps):
+    def failing_once(self, plan, feeds, caps, **kw):
         calls["n"] += 1
         if calls["n"] == 1:
             raise torch.OutOfMemoryError("CUDA out of memory (simulated)")
-        return real(self, plan, feeds, caps)
+        return real(self, plan, feeds, caps, **kw)
 
     monkeypatch.setattr(compiler.PlanCompiler, "run", failing_once)
     _reset(sess)

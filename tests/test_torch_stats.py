@@ -316,10 +316,14 @@ def test_exec_cache_counters_bump_where_they_should(base, tmp_path,
             def replay(self):
                 pass
 
-        out = compiler.run(plan, feeds, caps)
-        packed = torch.from_numpy(out[0][:, 0, :].copy())
-        g = graphs.CapturedPlan(key, G(), packed,
-                                torch.from_numpy(out[1].copy()), out[2],
+        with compiler._run_lock:
+            compiler.plan, compiler.caps = plan, caps
+            try:
+                out = compiler._dispatch(plan, feeds)
+            finally:
+                compiler.plan = compiler.caps = None
+                compiler._forget_run()
+        g = graphs.CapturedPlan(key, G(), out[0], out[1], out[2],
                                 out[3], feed_keys, [], {}, {}, {}, 0,
                                 accountant)
         captured.set()
